@@ -10,8 +10,11 @@ Phases, one JSON line each:
 2. ``build``         nvcc build of the kernels' library, ptxas resources;
 3. ``kernels``       every CUDA kernel against its plain PyTorch version on
                      the card (small shapes incl. window masking, unmapped
-                     pages, scatter leaving other rows alone, gather∘scatter
-                     round trip; and the serving path's shapes), with times;
+                     pages, rows with no valid position, scatter leaving
+                     other rows alone, gather∘scatter round trip; flash
+                     attention forward and backward, causal / window /
+                     non-causal, G 1 and 5, ragged S, D 16-128, f32 and
+                     bf16; and each path's shapes), with times;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -20,11 +23,22 @@ Phases, one JSON line each:
 6. ``serve``         ``ServingEngine`` on full-width, full-depth Qwen3-14B
                      with random weights, greedy, undersized KV pool; launch
                      counters are zeroed just before and read just after;
-7. ``profile``       only with ``--profile``: one batch-1 decode step under
-                     ``torch.profiler``, host time against device time.
+7. ``train_parity``  full width, 2 layers, f32, one batch of 2×512: loss and
+                     every gradient, kernel path on the card against the
+                     plain path on the CPU; one AdamW update on each; and
+                     ``PagedAdamW`` against AdamW on the card;
+8. ``train``         ``Trainer`` on full-width Qwen3-14B cut to 4 layers,
+                     seq 4096, batch 2 in 2 microbatches, remat, bf16
+                     params, f32 moments, 4 steps; a checkpoint at step 2
+                     restored into a fresh trainer repeats step 3's loss;
+                     launch counters zeroed just before the 4 steps and read
+                     just after;
+9. ``profile``       only with ``--profile``: one batch-1 decode step under
+                     ``torch.profiler``, host time against device time
+                     (and, inside ``train``, one training step).
 
-Then one ``{"kernels": [...]}`` line (per kernel: launches on the serve
-path, error, time, plain / library time, roofline bound), the
+Then one ``{"kernels": [...]}`` line (per kernel: launches on its own path,
+serve or train; error, time, plain / library time, roofline bound), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failing phase raises: the run exits non-zero and prints no result.
 """
@@ -44,6 +58,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, by input type
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # atol = rtol, as the CPU tests
+GRAD_TOL_F32 = 1e-4                           # flash gradients, f32
 
 
 def emit(phase: str, **fields) -> None:
@@ -70,6 +85,15 @@ class Sizes:
     max_new: int = 8
     timing_iters: int = 50
     timing_layers: int = 8           # distinct pools cycled through: L2-cold
+    flash_iters: int = 10            # timed calls at the training shape
+    parity_batch: int = 2            # train_parity: one batch of 2 x 512
+    parity_seq: int = 512
+    train_layers: int = 4            # train: the only cut of Qwen3-14B
+    train_seq: int = 4096            # configs/shapes.py TRAIN_4K
+    train_batch: int = 2
+    train_microbatches: int = 2
+    train_steps: int = 4
+    checkpoint_step: int = 2
 
 
 # ------------------------------------------------------------------- helpers
@@ -141,23 +165,29 @@ def phase_device(dev):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    import importlib.util
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         ml_dtypes=importlib.util.find_spec("ml_dtypes") is not None)
     return smi
 
 
 # --------------------------------------------------------------- phase: build
 def phase_build():
+    import re
     from repro_torch.kernels import _build
     _build.load_library()
     info = _build.BuildInfo
     res = [ln.strip() for ln in info.log.splitlines()
            if "registers" in ln or "Compiling entry" in ln
            or "spill" in ln]
+    spills = sum(int(n) for n in
+                 re.findall(r"(\d+) bytes spill (?:stores|loads)", info.log))
     emit("build", seconds=round(info.seconds, 3), cached=info.cached,
          library=os.path.basename(str(info.path)),
-         sources=[s.name for s in _build.sources()], ptxas=res)
+         sources=[s.name for s in _build.sources()],
+         spill_bytes_total=spills, ptxas=res)
 
 
 # ------------------------------------------------------------- phase: kernels
@@ -188,6 +218,258 @@ def _attn_case(gen, dev, B, H, KVH, D, ps, NP, dtype, lengths=None,
     return check_close(out, ref, TOL[name],
                        f"paged_attention B{B} H{H} KVH{KVH} D{D} ps{ps} "
                        f"NP{NP} {name} window={window}")
+
+
+ROW_FLOOR = 5e-4      # bf16 row check: reference rows' rms floored here
+
+
+def _row_rel_err(a, b) -> float:
+    """The largest relative L2 error of one row (the last axis: one
+    position of one head) of ``a`` against the same row of ``b``, the
+    reference row's norm floored at ``ROW_FLOOR`` x sqrt(row length): a
+    row whose reference is 0 in exact arithmetic (the first query's dq,
+    which sees one key) holds f32 rounding noise on both sides."""
+    a, b = a.float(), b.float()
+    floor = ROW_FLOOR * math.sqrt(b.shape[-1])
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(floor))
+                 .max())
+
+
+def _flash_close(a, b, grad: bool, what: str) -> tuple:
+    """f32: element-wise, atol = rtol = 2e-5 (forward) or 1e-4 (gradients).
+    bf16: every row within 2e-2 of its reference row in relative L2 norm,
+    so that each position is held to its own scale (late rows of a causal
+    output and the gradients of late keys are 10-1000x smaller than the
+    tensor's largest entry).  Returns (max abs err, max row relative err)."""
+    import torch
+    if a.dtype == torch.float32:
+        err = check_close(a, b, GRAD_TOL_F32 if grad else TOL["float32"], what)
+        return err, _row_rel_err(a, b)
+    require(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape/dtype")
+    require(bool(torch.isfinite(a.float()).all()), f"{what}: not finite")
+    rel = _row_rel_err(a, b)
+    require(rel <= TOL["bfloat16"], f"{what}: a row's relative L2 error "
+            f"{rel} beyond {TOL['bfloat16']}")
+    return max_err(a, b), rel
+
+
+def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window):
+    """Forward and gradients of the kernels against the plain version on
+    the card.  f32: the gradients against autograd of the plain forward.
+    bf16: row by row against the plain backward given the kernel's own
+    rounded output (the backward's rowsum(dO * O) takes O in bf16, which
+    moves dq by up to 2^-8 of its terms: where the softmax is peaked that
+    is more than 2e-2 of dq's row), and against autograd within 2e-2 x
+    max|ref|.  Returns (fwd, grad) x (max abs err, max row relative err)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    q = _rand(gen, (B, S, H, D), dtype, dev).requires_grad_(True)
+    k = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+    v = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+    dout = _rand(gen, (B, S, H, D), dtype, dev)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    sync(dev)
+    t = [x.detach().transpose(1, 2) for x in (q, k, v, out, dout)]
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window).transpose(1, 2)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    name = str(dtype).split(".")[-1]
+    what = (f"flash_attention B{B} S{S} H{H} KVH{KVH} D{D} {name} "
+            f"causal={causal} window={window}")
+    e_fwd = _flash_close(out, ref, False, what)
+    if dtype == torch.float32:
+        e_grad = [_flash_close(a, b, True, f"{what} d{n}")
+                  for a, b, n in zip(got, want, "qkv")]
+        return e_fwd, tuple(max(e[i] for e in e_grad) for i in range(2))
+    plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+        *t, causal=causal, window=window)]
+    rel = max(_flash_close(a, b, True, f"{what} d{n}, plain backward")[1]
+              for a, b, n in zip(got, plain, "qkv"))
+    err = max(_close_max(a, b, f"{what} d{n}")
+              for a, b, n in zip(got, want, "qkv"))
+    return e_fwd, (err, rel)
+
+
+def _close_max(a, b, what: str) -> float:
+    """bf16 gradients against autograd: max |a - b| within 2e-2 x max|b|."""
+    err = max_err(a, b)
+    scale = float(b.float().abs().max())
+    require(err <= TOL["bfloat16"] * scale, f"{what}: max abs err {err} "
+            f"beyond {TOL['bfloat16']} x max|ref| = {TOL['bfloat16'] * scale}")
+    return err
+
+
+def _flash_train_shape_f32(gen, dev, B, S, H, KVH, D):
+    """The training shape in f32, held element by element (atol = rtol =
+    2e-5 forward, 1e-4 gradients): every q and k tile of the 64-tile loops
+    of the three kernels.  Returns (fwd, grad) x (max abs err, max row
+    relative err)."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    f32 = torch.float32
+    q = _rand(gen, (B, S, H, D), f32, dev).requires_grad_(True)
+    k = _rand(gen, (B, S, KVH, D), f32, dev).requires_grad_(True)
+    v = _rand(gen, (B, S, KVH, D), f32, dev).requires_grad_(True)
+    dout = _rand(gen, (B, S, H, D), f32, dev)
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(q, k, v)
+        got = flash_attention_bwd(q, k, v, o, lse, dout)
+    sync(dev)
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2)).transpose(1, 2)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    what = "flash_attention, training shape in float32"
+    e_fwd = _flash_close(o, ref.detach(), False, what)
+    e_grad = [_flash_close(a, b, True, f"{what} d{n}")
+              for a, b, n in zip(got, want, "qkv")]
+    return e_fwd, tuple(max(e[i] for e in e_grad) for i in range(2))
+
+
+FLASH_CASES = [
+    # B, S, H, KVH, D, causal, window: S ragged against the 64-row tiles
+    (1, 100, 4, 4, 16, True, 0),        # G = 1
+    (2, 130, 10, 2, 64, True, 0),       # G = 5
+    (1, 150, 10, 2, 80, True, 40),      # window, h2o-danube's head_dim
+    (1, 77, 4, 4, 128, False, 0),       # non-causal
+    (1, 200, 10, 2, 128, True, 70),     # window, Qwen3's head_dim
+    (2, 96, 5, 1, 16, False, 0),        # G = 5, non-causal
+]
+
+
+def phase_flash(dev, sz: Sizes, cfg, names: list):
+    """Flash attention: the cases above in f32 and bf16, then the training
+    shape (B=1, S=4096, H=40, KVH=8, D=128, causal) in f32 and in bf16:
+    errors against the plain version, kernel / plain / SDPA times, FLOP
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    keys = ("fwd_abs", "fwd_row_rel", "grad_abs", "grad_row_rel")
+    errs = {"float32": dict.fromkeys(keys, 0.0),
+            "bfloat16": dict.fromkeys(keys, 0.0)}
+    for case in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            e = _flash_case(gen, dev, *case[:5], dt, *case[5:])
+            n = str(dt).split(".")[-1]
+            errs[n] = {k: max(errs[n][k], x)
+                       for k, x in zip(keys, e[0] + e[1])}
+
+    # the training shape: one layer of one microbatch of the train phase
+    B, S, H, KVH, D = 1, sz.train_seq, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    e = _flash_train_shape_f32(gen, dev, B, S, H, KVH, D)
+    errs["float32_training_shape"] = dict(zip(keys, e[0] + e[1]))
+    sync(dev)
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    q = _rand(gen, (B, S, H, D), bf16, dev).requires_grad_(True)
+    k = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
+    v = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
+    dout = _rand(gen, (B, S, H, D), bf16, dev)
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(q, k, v)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout)
+    sync(dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = flash_attention_ref(qt, kt, vt).transpose(1, 2)
+    err_fwd, rel_fwd = _flash_close(o, ref.detach(), False,
+                                    "flash_attention, training shape")
+    want = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
+    err_bwd = max(_close_max(a, b, f"flash_attention_bwd, training shape "
+                             f"d{n}") for a, b, n in zip((dq, dk, dv), want,
+                                                         "qkv"))
+    del want
+    with torch.no_grad():
+        plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+            qt, kt, vt, o.transpose(1, 2), dout.transpose(1, 2))]
+    rel_bwd = max(_flash_close(a, b, True, f"flash_attention_bwd, training "
+                               f"shape d{n}, plain backward")[1]
+                  for a, b, n in zip((dq, dk, dv), plain, "qkv"))
+    del plain
+    errs["bfloat16_training_shape"] = dict(zip(keys, (err_fwd, rel_fwd,
+                                                      err_bwd, rel_bwd)))
+    it = sz.flash_iters
+    with torch.no_grad():
+        fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(q, k, v)], it)
+        bwd_ms = time_ms(dev, [lambda: flash_attention_bwd(
+            q, k, v, o, lse, dout)], it)
+        plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
+            qt, kt, vt)], max(2, it // 3))
+    plain_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        ref, (q, k, v), dout, retain_graph=True)], max(2, it // 3))
+    del ref
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)], it)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    sdpa_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        lib, (q, k, v), dout.transpose(1, 2), retain_graph=True)],
+        it)
+    del lib
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2))
+
+    sdpa_fwd_bwd_ms = time_ms(dev, [sdpa_fwd_bwd], it)
+    names += ["flash_attention", "flash_attention_bwd",
+              "flash_attention_plain", "flash_attention_plain_bwd",
+              "sdpa", "sdpa_bwd", "sdpa_fwd_bwd"]
+
+    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
+    el = 2                                        # bf16 bytes
+    fwd_flops = 4 * B * H * D * pairs             # QK^T and PV
+    bwd_flops = 10 * B * H * D * pairs            # S, dP, dV, dK, dQ
+    fwd_bytes = el * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
+    bwd_bytes = el * (6 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * H * S
+
+    def bound(flops, nbytes):
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_mem = nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_mem) * 1e3, \
+            "operations" if t_ops >= t_mem else "bytes"
+
+    fb, fby = bound(fwd_flops, fwd_bytes)
+    bb, bby = bound(bwd_flops, bwd_bytes)
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    tpu = "src/repro/kernels/flash_attention/flash_attention.py:79"
+    shape = {"B": B, "S": S, "H": H, "KVH": KVH, "D": D, "dtype": "bfloat16",
+             "causal": True}
+    rows = [
+        {"name": "flash_attention", "route": "cuda", "source": src,
+         "replaces": tpu, "launches": 0, "max_abs_err": err_fwd,
+         "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fb,
+         "bound_by": fby, "library_ms": sdpa_fwd_ms,
+         "library": "F.scaled_dot_product_attention (enable_gqa)",
+         "flops": fwd_flops, "bytes": fwd_bytes,
+         "tflops_per_s": fwd_flops / fwd_ms / 1e9, "shape": shape},
+        {"name": "flash_attention_bwd", "route": "cuda", "source": src,
+         "replaces": tpu, "note": "the TPU kernel has no backward: the "
+         "reference differentiates src/repro/models/attention_ops.py:77 "
+         "flash_attention_xla with XLA", "launches": 0, "max_abs_err": err_bwd, "ms": bwd_ms,
+         "plain_ms": plain_bwd_ms, "bound_ms": bb, "bound_by": bby,
+         "library_ms": sdpa_bwd_ms,
+         "library": "autograd of F.scaled_dot_product_attention",
+         "library_fwd_bwd_ms": sdpa_fwd_bwd_ms, "flops": bwd_flops,
+         "bytes": bwd_bytes, "tflops_per_s": bwd_flops / bwd_ms / 1e9,
+         "shape": shape},
+    ]
+    cases = 2 * len(FLASH_CASES) + 2
+    return rows, errs, cases
 
 
 def phase_kernels(dev, sz: Sizes, cfg):
@@ -235,6 +517,22 @@ def phase_kernels(dev, sz: Sizes, cfg):
                     "paged_attention unmapped page inside the context")
     errs["paged_attention"] = max(errs["paged_attention"], e)
     n_cases += 2
+    # rows with no valid position: the mean of the V rows read, as the
+    # reference (length 0; every page unmapped; the window's pages unmapped)
+    q = _rand(gen, (2, 4, 16), f32, dev)
+    kp = _rand(gen, (6, 4, 2, 16), f32, dev)
+    vp = _rand(gen, (6, 4, 2, 16), f32, dev)
+    for table, lens, w in ([[0, 1, 2], [3, 4, 5]], [0, 9], 0), \
+            ([[0, 1, 2], [-1, -1, -1]], [5, 9], 0), \
+            ([[0, 1, 2], [3, -1, -1]], [5, 9], 2):
+        pt = torch.tensor(table, dtype=torch.int32, device=dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        e = check_close(paged_attention(q, kp, vp, pt, ln, window=w),
+                        paged_attention_ref(q, kp, vp, pt, ln, window=w),
+                        TOL["float32"], f"paged_attention no valid position "
+                        f"{table} {lens} window={w}")
+        errs["paged_attention"] = max(errs["paged_attention"], e)
+        n_cases += 1
 
     # ---- kernel 1, the serving path's shapes ------------------------------
     H, KVH, D, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
@@ -403,15 +701,24 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "bytes": copy_bytes,
          "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"}},
     ]
-    names = ("paged_attention", "paged_attention_plain",
+    names = ["paged_attention", "paged_attention_plain",
              "paged_attention_batch1", "sdpa_on_pregathered_kv", "page_gather",
              "page_gather_plain", "index_select", "page_scatter",
-             "page_scatter_plain", "index_copy_")
-    emit("kernels", cases=n_cases, max_abs_err_all_cases=errs,
+             "page_scatter_plain", "index_copy_"]
+    flash_rows, flash_errs, flash_cases = phase_flash(dev, sz, cfg, names)
+    table += flash_rows
+    errs["flash_attention (fwd, grads)"] = flash_errs
+    emit("kernels", cases=n_cases + flash_cases, max_abs_err_all_cases=errs,
          timing="device time of the call's kernels (torch.profiler)",
          cuda_event_ms_per_call=dict(zip(names, EVENTS_MS)),
          tolerance={"float32": TOL["float32"], "bfloat16": TOL["bfloat16"],
-                    "copies": "exact"}, kernels=table)
+                    "flash_grads_float32": GRAD_TOL_F32,
+                    "flash_bfloat16": "2e-2 relative L2 error per row (one "
+                    "position of one head; rows' rms floored at 5e-4) "
+                    "against the plain forward and the plain backward given "
+                    "the kernel's output; gradients also within 2e-2 x "
+                    "max|ref| of autograd", "copies": "exact"},
+         kernels=table)
     return table
 
 
@@ -525,6 +832,7 @@ def phase_serve(dev, sz: Sizes, cfg, table):
     import torch
     from repro_torch import kernels
     from repro_torch.models import decoder
+    from repro_torch.tree import tree_leaves
 
     if sz.serve_layers:
         cfg = dataclasses.replace(cfg, n_layers=sz.serve_layers)
@@ -534,7 +842,7 @@ def phase_serve(dev, sz: Sizes, cfg, table):
     params = decoder.init_params(cfg, 0, device=dev)
     sync(dev)
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in decoder._tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
 
     kernels.reset_launch_counts()
     eng, reqs, wall = _serve(dev, sz, cfg, params, sz.pool_frames)
@@ -578,24 +886,254 @@ def phase_serve(dev, sz: Sizes, cfg, table):
     return params, cfg
 
 
-# ------------------------------------------------------------ phase: profile
-def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
-    """Optional (``--profile``): where one batch-1 decode step spends its
-    time — host wall clock against summed device time, kernels by name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import decoder
+# ----------------------------------------------------- phase: train parity
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
 
-    max_len = sz.pages_per_seq * cfg.kv_page_tokens
-    cache = decoder.init_decode_cache(cfg, 1, max_len, device=dev)
-    cache["lengths"] += max_len // 3
-    tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
-    for _ in range(2):
-        _, cache = decoder.decode_step(params, cfg, cache, tok)
+
+def phase_train_parity(dev, sz: Sizes, cfg):
+    """Full width, ``parity_layers`` layers, f32, one batch of
+    ``parity_batch`` x ``parity_seq``: loss and every leaf's gradient by
+    the kernel path on the card (remat on: the forward kernel runs again in
+    the backward) against the plain path on the CPU (remat off: the same
+    function); then one AdamW update of each from the same gradients; then
+    ``PagedAdamW`` against AdamW on the card.
+
+    Tolerances: loss 1e-5 relative; gradients 1e-4 x max|ref| per leaf (f32
+    sums over d_model 5120 and d_ff 17408 in another order, through two
+    layers, the norms and the vocabulary projection); the update 2e-5
+    (atol = rtol, f32 elementwise)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.memory.offload import PagedAdamW
+    from repro_torch.models import decoder
+    from repro_torch.optim import adamw
+    from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_names
+
+    pcfg = dataclasses.replace(cfg, n_layers=sz.parity_layers,
+                               dtype="float32")
+    params = decoder.init_params(pcfg, 5, device=dev)
+    cpu = torch.device("cpu")
+    params_cpu = _to(params, cpu)
+    tokens, labels = SyntheticLM(pcfg.vocab_size, sz.parity_seq,
+                                 sz.parity_batch, seed=5).batch_at(0)
+    tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
+
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    loss_k, g_k = value_and_grad(make_loss_fn(pcfg, TrainConfig(remat=True)),
+                                 params, tok.to(dev), lab.to(dev))
+    sync(dev)
+    kernel_s = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    require(dev.type != "cuda" or (fwd == 2 * pcfg.n_layers
+                                   and bwd == pcfg.n_layers),
+            f"train_parity: flash launches fwd {fwd} bwd {bwd}, expected "
+            f"{2 * pcfg.n_layers} and {pcfg.n_layers}")
+    t0 = time.perf_counter()
+    loss_p, g_p = value_and_grad(
+        make_loss_fn(pcfg, TrainConfig(remat=False)), params_cpu, tok, lab)
+    plain_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_k) - float(loss_p))
+    require(math.isfinite(float(loss_k)) and
+            loss_err <= 1e-5 * abs(float(loss_p)),
+            f"train_parity loss {float(loss_k)} vs {float(loss_p)}")
+    grad_errs = {}
+    for n, a, b in zip(tree_names(g_k), tree_leaves(g_k), tree_leaves(g_p)):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        require(bool(torch.isfinite(a).all()) and err <= 1e-4 * scale,
+                f"train_parity grad {n}: max abs err {err}, max|ref| {scale}")
+        grad_errs[n] = err / scale if scale else err
+    del g_k
+
+    ocfg = adamw.AdamWConfig(lr=1e-3)
+    state_k = adamw.init(ocfg, params)
+    state_p = adamw.init(ocfg, params_cpu)
+    adamw.update(ocfg, state_k, params, _to(g_p, dev))
+    _, _, m_p = adamw.update(ocfg, state_p, params_cpu, g_p)
+    sync(dev)
+    upd_err = 0.0
+    for n, a, b in zip(tree_names(params), tree_leaves(params),
+                       tree_leaves(params_cpu)):
+        upd_err = max(upd_err, check_close(a.cpu(), b, TOL["float32"],
+                                           f"adamw.update {n}"))
+    del params, params_cpu, state_k, state_p, g_p
+
+    # PagedAdamW on the card: host-paged moments, page gather / scatter
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    small = {"w": _rand(gen, (1024, 2048), torch.float32, dev),
+             "b": _rand(gen, (4096,), torch.float32, dev)}
+    grads = [{k: _rand(gen, t.shape, torch.float32, dev)
+              for k, t in small.items()} for _ in range(3)]
+    ocfg = adamw.AdamWConfig(lr=1e-2, grad_clip=0.0, weight_decay=0.01)
+    po = PagedAdamW(ocfg, small, block_elems=1 << 18, device=dev)
+    plain = {k: t.clone() for k, t in small.items()}
+    state = adamw.init(ocfg, plain)
+    paged = small
+    before = kernels.launch_counts()
+    for g in grads:
+        paged = po.update(paged, g)
+        adamw.update(ocfg, state, plain, g)
+    sync(dev)
+    after = kernels.launch_counts()
+    paged_err = max(check_close(paged[k], plain[k], 1e-5,
+                                f"PagedAdamW {k}") for k in plain)
+    require(dev.type != "cuda" or (
+        after["page_gather"] > before["page_gather"]
+        and after["page_scatter"] > before["page_scatter"]),
+            "PagedAdamW did not page through the copy kernels")
+    require(po.stats.prefetch_overlapped > 0, "PagedAdamW: no overlap")
+    emit("train_parity", layers=pcfg.n_layers, d_model=pcfg.d_model,
+         vocab=pcfg.vocab_size, dtype=pcfg.dtype, batch=sz.parity_batch,
+         seq=sz.parity_seq, loss_kernel=float(loss_k),
+         loss_plain_cpu=float(loss_p), loss_abs_err=loss_err,
+         grad_rel_err_max=max(grad_errs.values()), grad_rel_err=grad_errs,
+         grad_tolerance="1e-4 x max|ref| per leaf",
+         adamw_update_max_abs_err=upd_err, adamw_lr=float(m_p["lr"]),
+         kernel_path_seconds=kernel_s, plain_cpu_seconds=plain_s,
+         flash_launches={"fwd": fwd, "bwd": bwd},
+         paged_adamw={"params": sum(t.numel() for t in small.values()),
+                      "blocks_streamed": po.stats.blocks_streamed,
+                      "faults": po.stats.faults,
+                      "prefetch_overlapped": po.stats.prefetch_overlapped,
+                      "max_abs_err": paged_err,
+                      "page_gather_launches": after["page_gather"]
+                      - before["page_gather"],
+                      "page_scatter_launches": after["page_scatter"]
+                      - before["page_scatter"]})
+
+
+# -------------------------------------------------------------- phase: train
+def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
+    """``Trainer`` on Qwen3-14B at published width, ``train_layers`` deep:
+    ``train_steps`` steps (counters zeroed just before, read just after),
+    a checkpoint after step ``checkpoint_step`` restored into a fresh
+    trainer, whose next step must give the same loss.  With
+    ``with_profile``, one more step (two, the first unprofiled) after the
+    counters are read, under ``torch.profiler``."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.models import decoder
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+
+    tcfg_model = dataclasses.replace(cfg, n_layers=sz.train_layers)
+    tcfg = TrainConfig(microbatches=sz.train_microbatches, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4,
+                                             moment_dtype="float32"))
+    ds = SyntheticLM(cfg.vocab_size, sz.train_seq, sz.train_batch, seed=0)
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_checkpoints")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = Checkpointer()
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = decoder.init_params(tcfg_model, 0, device=dev)
+    tr = Trainer(tcfg_model, tcfg, params, ds, device=dev)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    tokens_per_step = sz.train_batch * sz.train_seq
+
+    steps, save_s = [], None
+    kernels.reset_launch_counts()
+    for i in range(sz.train_steps):
+        t0 = time.perf_counter()
+        tr.run(1, log_every=0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        rec = dict(tr.history[-1], wall_s=wall,
+                   tokens_per_s=tokens_per_step / wall)
+        steps.append(rec)
+        if tr.step == sz.checkpoint_step:
+            t0 = time.perf_counter()
+            ck.save(ckdir, tr.params, tr.opt_state, tr.step)
+            save_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    profile = _profiled(dev, lambda: tr.run(1, log_every=0), 1) \
+        if with_profile else None
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in steps), f"non-finite loss: {steps}")
+    per_step = sz.train_microbatches * sz.train_layers
+    require(not on_card or (
+        counts["flash_attention"] == 2 * per_step * sz.train_steps
+        and counts["flash_attention_bwd"] == per_step * sz.train_steps),
+        f"flash launches on the train path: {counts}")
+    after_ckpt = steps[sz.checkpoint_step]          # the step after the save
+    del tr
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    params = decoder.init_params(tcfg_model, 1, device=dev)
+    tr2 = Trainer(tcfg_model, tcfg, params, ds, checkpoint_dir=ckdir,
+                  checkpointer=ck, device=dev)
+    del params
+    t0 = time.perf_counter()
+    require(tr2.restore() and tr2.step == sz.checkpoint_step,
+            "checkpoint did not restore")
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    tr2.run(1, log_every=0)
+    again = tr2.history[-1]
+    shutil.rmtree(ckdir, ignore_errors=True)
+    diff = abs(again["loss"] - after_ckpt["loss"])
+    require(diff <= 1e-6 * abs(after_ckpt["loss"]),
+            f"loss after restore {again['loss']} != {after_ckpt['loss']}")
+    del tr2
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    for row in table:
+        if row["name"].startswith("flash_attention"):
+            row["launches"] = counts[row["name"]]
+    emit("train", arch=cfg.name, layers=sz.train_layers, d_model=cfg.d_model,
+         params=n_params, dtype=cfg.dtype, moment_dtype="float32",
+         seq=sz.train_seq, global_batch=sz.train_batch,
+         microbatches=sz.train_microbatches, remat=True,
+         init_seconds=init_s, steps=steps,
+         mean_tokens_per_s_after_first=(
+             sum(r["tokens_per_s"] for r in steps[1:]) / (len(steps) - 1)
+             if len(steps) > 1 else None),
+         max_memory_allocated=peak, launches=counts,
+         checkpoint={"step": sz.checkpoint_step, "save_seconds": save_s,
+                     "restore_seconds": restore_s,
+                     "loss_step_after": after_ckpt["loss"],
+                     "loss_step_after_restored": again["loss"],
+                     "abs_diff": diff}, profile=profile)
+
+
+# ------------------------------------------------------------ phase: profile
+def _profiled(dev, step, steps: int) -> dict:
+    """Run ``step`` ``steps`` times unprofiled (host wall clock), then again
+    under ``torch.profiler``: device time by kernel and host time by op."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     sync(dev)
     t0 = time.perf_counter()
     for _ in range(steps):
-        _, cache = decoder.decode_step(params, cfg, cache, tok)
+        step()
     sync(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     acts = [ProfilerActivity.CPU]
@@ -603,9 +1141,8 @@ def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         for _ in range(steps):
-            _, cache = decoder.decode_step(params, cfg, cache, tok)
+            step()
         sync(dev)
-    from torch.autograd import DeviceType
     rows = []                     # device kernels only, not the ops above them
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
@@ -616,19 +1153,40 @@ def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
     host = sorted(((e.self_cpu_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type != DeviceType.CUDA), reverse=True)
-    emit("profile", layers=cfg.n_layers, batch=1,
-         context=int(cache["lengths"][0]), steps=steps,
-         wall_ms_per_step=wall_ms,
-         device_ms_per_step=(total_us / 1e3 / steps) if rows
-         else "not measured",
-         device_busy_share=(total_us / 1e3 / steps / wall_ms) if rows
-         else "not measured",
-         device_launches_per_step=sum(r[1] for r in rows) / steps,
-         top=[{"name": k[:80], "ms_per_step": us / 1e3 / steps,
-               "calls_per_step": n / steps} for us, n, k in rows[:12]],
-         host_ms_per_step_under_profiler=sum(h[0] for h in host) / 1e3 / steps,
-         host_top=[{"name": k[:60], "self_ms_per_step": us / 1e3 / steps,
-                    "calls_per_step": n / steps} for us, n, k in host[:14]])
+    return dict(
+        steps=steps, wall_ms_per_step=wall_ms,
+        device_ms_per_step=(total_us / 1e3 / steps) if rows
+        else "not measured",
+        device_busy_share=(total_us / 1e3 / steps / wall_ms) if rows
+        else "not measured",
+        device_launches_per_step=sum(r[1] for r in rows) / steps,
+        top=[{"name": k[:80], "ms_per_step": us / 1e3 / steps,
+              "calls_per_step": n / steps} for us, n, k in rows[:12]],
+        host_ms_per_step_under_profiler=sum(h[0] for h in host) / 1e3 / steps,
+        host_top=[{"name": k[:60], "self_ms_per_step": us / 1e3 / steps,
+                   "calls_per_step": n / steps} for us, n, k in host[:14]])
+
+
+def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
+    """Optional (``--profile``): where one batch-1 decode step spends its
+    time — host wall clock against summed device time, kernels by name."""
+    import torch
+    from repro_torch.models import decoder
+
+    max_len = sz.pages_per_seq * cfg.kv_page_tokens
+    cache = decoder.init_decode_cache(cfg, 1, max_len, device=dev)
+    cache["lengths"] += max_len // 3
+    tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    context = int(cache["lengths"][0]) + 2
+
+    def step():
+        nonlocal cache
+        _, cache = decoder.decode_step(params, cfg, cache, tok)
+
+    for _ in range(2):
+        step()
+    emit("profile", layers=cfg.n_layers, batch=1, context=context,
+         **_profiled(dev, step, steps))
 
 
 # ----------------------------------------------------------------------- main
@@ -658,6 +1216,11 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     params, scfg = phase_serve(dev, sz, cfg, table)
     if with_profile:
         phase_profile(dev, sz, scfg, params, steps=8)
+    del params
+    if stop_after == "serve":
+        return None
+    phase_train_parity(dev, sz, cfg)
+    phase_train(dev, sz, cfg, table, with_profile)
     return table
 
 
@@ -670,13 +1233,18 @@ def main() -> int:
     sys.path.insert(0, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "src"))
     dev = torch.device("cuda", 0)
+    # full f32 products in every comparison (PyTorch's defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = phase_device(dev)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", default="",
-                    choices=["", "profile", "kernels", "spill_parity"],
+                    choices=["", "profile", "kernels", "spill_parity",
+                             "serve"],
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",
-                    help="after serve, profile a batch-1 decode step")
+                    help="after serve, profile a batch-1 decode step; after "
+                         "train, one training step")
     args = ap.parse_args()
     table = run(dev, Sizes(), args.stop_after, args.profile)
     if table is None:
@@ -684,8 +1252,8 @@ def main() -> int:
     for row in table:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             require(math.isfinite(row[key]), f"{row['name']}: {key}")
-        require(row["launches"] > 0, f"{row['name']} never launched on the "
-                "serving path")
+        require(row["launches"] > 0, f"{row['name']} never launched on "
+                "its path (serve or train)")
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,15 @@ SIGNATURES = {
     # pool, indices, block, row_bytes, n, pool_rows, stream
     "repro_page_gather": [_P, _P, _P, _LL, _I, _I, _P],
     "repro_page_scatter": [_P, _P, _P, _LL, _I, _I, _P],
+    # q, k, v, o, lse, B, S, H, KVH, D, sq_b, sq_s, sq_h, sk_b, sk_s, sk_h,
+    # causal, window, dtype_code, stream
+    "repro_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I,
+                                  _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KVH, D, causal,
+    # window, dtype_code, stream
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

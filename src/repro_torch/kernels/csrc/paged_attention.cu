@@ -41,7 +41,11 @@
 // Not done here (later work): split-KV across blocks for small B*KVH,
 // cp.async/TMA bulk loads, tensor-core products.
 //
-// A row for which no position is valid (length <= 0) yields zeros.
+// A row for which no position is valid (length <= 0, or every page in
+// reach unmapped) gets the reference's result: its softmax over equal
+// -1e30 scores weighs every position alike, so the output is the mean of
+// the V rows of all NP * ps positions, an unmapped page read as frame 0.
+// Only that case reads a masked row, after the walk.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -255,7 +259,23 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 
   if (head_ok) {
-    const float denom = fmaxf(warp_sum(l), 1e-30f);
+    const float lsum = warp_sum(l);        // >= 1 once a position is valid
+    float denom = fmaxf(lsum, 1e-30f);
+    if (lsum == 0.f) {               // no valid position (see the header)
+      const int col = lane * kCols < D ? lane * kCols : 0;
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+      for (int pos = 0; pos < cap; ++pos) {
+        const int page = pos / ps;
+        const int entry = pt[page] > 0 ? pt[page] : 0;
+        const T* vrow = v_pool + (long long)entry * stride_p
+            + (long long)(pos - page * ps) * stride_t
+            + (long long)kvh * stride_h + col;
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) acc[i] += Elem<T>::load(vrow + i);
+      }
+      denom = (float)cap;
+    }
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
       const int d = lane * kCols + i;

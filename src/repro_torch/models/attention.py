@@ -1,14 +1,16 @@
 """GQA attention layer: projections + RoPE + qk-norm + SWA + paged decode.
 
-Decode only so far; training / prefill attention (``apply_attention``) is
-not ported yet.  The paged decode path calls the hand-written kernel
-through ``kernels.paged_attention.ops.paged_attention``.
+Training / prefill attention (:func:`apply_attention`) calls the
+hand-written flash-attention kernels through
+``kernels.flash_attention.ops.flash_attention``; the paged decode path calls
+the hand-written kernel through ``kernels.paged_attention.ops.paged_attention``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.attention_ops import ring_buffer_attention
 from repro_torch.models.config import ModelConfig
@@ -59,6 +61,26 @@ def _qkv(p, cfg: ModelConfig, x, positions, rope=None):
     k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
     v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
     return q, k, v
+
+
+def apply_attention(p, cfg: ModelConfig, x, positions, *,
+                    q_chunk: int = 512, kv_chunk: int = 512,
+                    return_kv: bool = False, causal: bool = True, rope=None):
+    """Training / prefill attention (causal, optionally sliding-window).
+
+    ``rope``: precomputed ``rope_tables`` for ``positions`` (shared by all
+    layers of a forward; made here when absent)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions, rope)
+    out = flash_attention(q, k, v, causal=causal,
+                          window=cfg.sliding_window if causal else 0,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = constrain(out, "batch", "q_seq", "heads", "head_dim")
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = constrain(out, "batch", "seq", "embed")
+    if return_kv:
+        return out, (k, v)
+    return out
 
 
 def paged_write_slots(page_table, lengths, ps: int):

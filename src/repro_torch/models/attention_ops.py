@@ -9,10 +9,12 @@ All GQA-aware, fp32 accumulation:
   ``paged_attention_xla`` and repeats the arithmetic of the CUDA kernel
   step for step; the model path does not call it (it calls
   ``kernels.paged_attention.ops.paged_attention``).
+* :func:`flash_attention_xla` — training / prefill attention with an
+  online softmax over KV chunks: the reference's chunked version, and the
+  plain version ``kernels.flash_attention.ops.flash_attention`` takes for a
+  CPU tensor (autograd differentiates it there).
 * :func:`ring_buffer_attention` — decode attention over a sliding-window
   ring buffer (no kernel in the reference either).
-
-Chunked prefill attention (``flash_attention_xla``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +59,64 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _pad_to(x, axis: int, multiple: int):
+    n = x.shape[axis]
+    pad = (-n) % multiple
+    if pad == 0:
+        return x, n
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
+    return torch.nn.functional.pad(x, widths), n
+
+
+def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 512,
+                        q_offset: int = 0):
+    """Chunked flash attention: a loop over KV chunks with an online
+    softmax, all queries at once (as in the reference, ``q_chunk`` is
+    accepted and unused).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KVH, D); ``q_offset`` is the absolute
+    position of q[0].  GQA expands K/V to the full head count one chunk at a
+    time.  Peak live memory per chunk: one (B, H, Sq, kv_chunk) f32 tile.
+    """
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    kv_chunk = min(kv_chunk, k.shape[1])
+    kp, Sk0 = _pad_to(k, 1, kv_chunk)
+    vp, _ = _pad_to(v, 1, kv_chunk)
+    nk = kp.shape[1] // kv_chunk
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    qf = q.float() * scale
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        k_blk = kp[:, j * kv_chunk:(j + 1) * kv_chunk]      # (B, Ck, KVH, D)
+        v_blk = vp[:, j * kv_chunk:(j + 1) * kv_chunk]
+        if G > 1:
+            k_blk = k_blk.repeat_interleave(G, dim=2)
+            v_blk = v_blk.repeat_interleave(G, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk.float())
+        k_p = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
+        mask = (k_p < Sk0)[None, :]
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_p[None, :])
+        if window > 0:
+            mask = mask & ((q_pos[:, None] - k_p[None, :]) < window)
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p, v_blk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l[..., None].clamp(min=1e-30)                # (B, H, Sq, D)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def paged_attention_scan(q, k_pool, v_pool, page_table, lengths, *,

@@ -1,53 +1,56 @@
-"""Decoder-only LM assembly, ``dense`` family, decode path.
+"""Decoder-only LM assembly, ``dense`` family: forward, loss, decode.
 
 Parameters keep the reference's **stacked** layout — every per-layer
 tensor carries a leading ``(L, ...)`` axis — so weights converted by
 ``compat.from_jax_params`` are a pure copy; a Python loop over that axis
-takes the place of the reference's scan over layers.
+takes the place of the reference's scan over layers, and
+``torch.utils.checkpoint`` per layer takes the place of ``jax.checkpoint``
+on the scan body (``remat=True``).
 
-Public surface (used by serving/, launch/):
+Public surface (used by training/, serving/, launch/):
     init_params(cfg, key, device=None)                    -> params dict
+    forward(params, cfg, tokens)                          -> logits, aux
+    loss_fn(params, cfg, tokens, labels)                  -> scalar
+    prefill(params, cfg, tokens)                          -> logits, aux, kv
     init_decode_cache(cfg, batch, max_len, device=None)   -> cache dict
     decode_step(params, cfg, cache, tokens)               -> logits, cache
 
-``forward`` / ``prefill`` / ``loss_fn`` and the moe / mla_moe families are
-not ported yet.
+The moe / mla_moe families are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
-from repro_torch.models.attention import (apply_attention_decode_paged,
+from repro_torch.models.attention import (apply_attention,
+                                          apply_attention_decode_paged,
                                           apply_attention_decode_ring,
                                           init_attention, paged_write_slots)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        dtype_of, embed_init, init_mlp,
                                        init_norm, rope_tables)
+from repro_torch.tree import tree_leaves, tree_map
 
 
 # ------------------------------------------------------------------- helpers
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tree_leaves(v)
-    else:
-        yield tree
-
-
 def layer_slice(stacked, i: int):
     """Layer ``i`` of a stacked params dict (views, no copy)."""
-    return _tree_map(lambda x: x[i], stacked)
+    return tree_map(lambda x: x[i], stacked)
+
+
+def unstack_layers(stacked) -> list:
+    """Every layer of a stacked params dict, as views made by one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where a separate slice per layer would add an (L, ...) tensor per
+    layer."""
+    parts = tree_map(lambda x: x.unbind(0), stacked)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda u: u[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------- init
@@ -64,7 +67,7 @@ def _stack_layers(make_layer, n: int):
     """Stack ``n`` layers on a leading axis, filling one layer at a time:
     only one layer's f32 draws are alive beside the stacked tensors."""
     first = make_layer()
-    stacked = _tree_map(
+    stacked = tree_map(
         lambda x: torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                               device=x.device), first)
 
@@ -125,6 +128,74 @@ def _layer_split(cfg: ModelConfig) -> tuple[int, int]:
     raise ValueError(cfg.family)
 
 
+# ------------------------------------------------------------- layer bodies
+def _apply_layer(lp, cfg: ModelConfig, x, positions, rope, q_chunk: int,
+                 kv_chunk: int, return_kv: bool):
+    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    res = apply_attention(lp["attn"], cfg, h, positions, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk, return_kv=return_kv, rope=rope)
+    attn_out, kv = res if return_kv else (res, None)
+    x = x + attn_out
+    h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + apply_mlp(lp["mlp"], h, cfg.act), kv
+
+
+# -------------------------------------------------------------------- forward
+def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
+            kv_chunk: int = 512, collect_kv: bool = False,
+            embeddings: Optional[torch.Tensor] = None, remat: bool = False):
+    """tokens: (B, S) int -> logits (B, S, V), aux [, kv_stacks].
+
+    ``embeddings`` overrides the token embedding.  ``remat=True`` keeps
+    only the layer boundaries and recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  ``kv_stacks`` (with
+    ``collect_kv``) is ``{"dense_layers": (k, v)}``, each (L, B, S, KVH,
+    hd).  ``aux`` is 0.0: the dense family has no auxiliary loss.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: forward not ported yet")
+    x = params["embed"][tokens.long()] if embeddings is None else embeddings
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    aux_total = 0.0
+    ks, vs = [], []
+    for lp in unstack_layers(params["dense_layers"]):
+        if remat:
+            x, kv = checkpoint(_apply_layer, lp, cfg, x, positions, rope,
+                               q_chunk, kv_chunk, collect_kv,
+                               use_reentrant=False)
+        else:
+            x, kv = _apply_layer(lp, cfg, x, positions, rope, q_chunk,
+                                 kv_chunk, collect_kv)
+        if collect_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head
+    if collect_kv:
+        return logits, aux_total, {"dense_layers": (torch.stack(ks),
+                                                    torch.stack(vs))}
+    return logits, aux_total
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, *, q_chunk: int = 512,
+            kv_chunk: int = 512, remat: bool = False):
+    from repro_torch.models.losses import masked_xent
+    logits, aux = forward(params, cfg, tokens, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk, remat=remat)
+    return masked_xent(logits, labels, aux)
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
+            kv_chunk: int = 512):
+    """Prefill pass: logits + per-layer K/V to be packed into the pools."""
+    return forward(params, cfg, tokens, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                   collect_kv=True)
+
+
 # ================================================================== decoding
 def uses_ring(cfg: ModelConfig) -> bool:
     return cfg.sliding_window > 0
@@ -183,7 +254,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
         lengths = cache["lengths"] + 1
         new_cache = dict(cache, lengths=lengths)
         layers = params["dense_layers"]
-        n = next(_tree_leaves(layers)).shape[0]
+        n = tree_leaves(layers)[0].shape[0]
         ring = uses_ring(cfg)
         # what every layer of this step shares: RoPE tables of the current
         # positions and, for the paged cache, the rows the new K/V go to

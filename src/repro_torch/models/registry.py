@@ -1,10 +1,10 @@
 """Family → module dispatch.  Every ported family exposes the same surface:
 
     init_params(cfg, key, device=None)
+    forward(params, cfg, tokens, **kw)                  -> (logits, aux)
+    loss_fn(params, cfg, tokens, labels)                -> scalar
     init_decode_cache(cfg, batch, max_len, device=None) -> cache dict
     decode_step(params, cfg, cache, tokens)             -> (logits, cache)
-
-``forward`` / ``loss_fn`` join it when training and prefill are ported.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from repro_torch.models.config import ModelConfig
 _FAMILIES = {
     "dense": SimpleNamespace(
         init_params=decoder.init_params,
+        forward=decoder.forward,
+        loss_fn=decoder.loss_fn,
         init_decode_cache=decoder.init_decode_cache,
         decode_step=decoder.decode_step,
     ),

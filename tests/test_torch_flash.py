@@ -1,0 +1,196 @@
+"""Port vs reference, flash attention: the port's plain versions against the
+reference's Pallas ``flash_attention_kernel`` (interpret mode, as
+``tests/test_kernels.py`` runs it), its ``flash_attention_ref`` oracle and
+its chunked ``flash_attention_xla`` — values and gradients.
+
+Inputs are made by numpy from a seed and fed to both packages; the port's
+side runs on the CPU, where ``kernels.flash_attention.ops`` takes the plain
+chunked version (the CUDA kernels are held against ``ref.py`` on the GPU by
+``chip_smoke.py``).  Tolerances: f32 values 2e-5 (sums in another order),
+f32 gradients 1e-4 (the same, through the softmax's backward), bf16 2e-2
+(one bf16 rounding of the output).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash_attention
+from repro.kernels.flash_attention.ref import \
+    flash_attention_ref as jax_flash_ref
+from repro.models.attention_ops import flash_attention_xla as jax_flash_xla
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+from repro_torch.models.attention_ops import flash_attention_xla
+
+F32 = dict(atol=2e-5, rtol=2e-5)
+GRAD = dict(atol=1e-4, rtol=1e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+
+def _inputs(B, S, H, KVH, D, seed=0, Sk=None):
+    rng = np.random.default_rng(seed)
+    Sk = Sk or S
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, KVH, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, KVH, D)).astype(np.float32))
+
+
+def _kl(x):          # model layout (B, S, H, D) -> kernel layout (B, H, S, D)
+    return x.transpose(0, 2, 1, 3)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+class TestFlashAttentionPlain:
+    """Twins of ``tests/test_kernels.py::TestFlashAttentionKernel``."""
+
+    @pytest.mark.parametrize("B,S,H,KVH,D", [
+        (1, 32, 4, 4, 16),
+        (2, 48, 4, 2, 32),    # GQA + a tail (48 % 32 != 0)
+        (1, 128, 8, 1, 64),   # MQA
+        (1, 40, 10, 2, 16),   # a group of 5 query heads (Qwen3-14B's G)
+    ])
+    @pytest.mark.parametrize("name", ["float32", "bfloat16"])
+    def test_causal_matches_reference(self, B, S, H, KVH, D, name):
+        q, k, v = _inputs(B, S, H, KVH, D)
+        jd = jnp.bfloat16 if name == "bfloat16" else jnp.float32
+        td = torch.bfloat16 if name == "bfloat16" else torch.float32
+        jq, jk, jv = (jnp.asarray(x, jd) for x in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
+        ref = _kl(jax_flash_ref(_kl(jq), _kl(jk), _kl(jv), causal=True))
+        # the Pallas kernel in interpret mode costs seconds per shape: it is
+        # run in f32, where it and the oracle agree to 2e-5 anyway
+        wants = [ref] if name == "bfloat16" else [ref, jax_flash_attention(
+            jq, jk, jv, causal=True, block_q=32, block_k=32, interpret=True)]
+        tol = BF16 if name == "bfloat16" else F32
+        got_ref = flash_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                                      tv.transpose(1, 2)).transpose(1, 2)
+        got_ops = flash_attention(tq, tk, tv, causal=True)
+        for got in (got_ref, got_ops):
+            assert got.dtype == td and tuple(got.shape) == q.shape
+            for want in wants:
+                np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+    @pytest.mark.parametrize("window", [8, 24])
+    def test_sliding_window(self, window):
+        q, k, v = _inputs(1, 64, 4, 2, 16, seed=1)
+        jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+        kern = jax_flash_attention(jq, jk, jv, causal=True, window=window,
+                                   block_q=16, block_k=16, interpret=True)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        got_ref = flash_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                                      tv.transpose(1, 2), causal=True,
+                                      window=window).transpose(1, 2)
+        got_ops = flash_attention(tq, tk, tv, causal=True, window=window,
+                                  kv_chunk=16)
+        for got in (got_ref, got_ops):
+            np.testing.assert_allclose(_f32(got), _f32(kern), **F32)
+
+    def test_non_causal(self):
+        q, k, v = _inputs(2, 32, 4, 4, 16, seed=2)
+        jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+        kern = jax_flash_attention(jq, jk, jv, causal=False, block_q=16,
+                                   block_k=16, interpret=True)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        got_ref = flash_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                                      tv.transpose(1, 2),
+                                      causal=False).transpose(1, 2)
+        got_ops = flash_attention(tq, tk, tv, causal=False, kv_chunk=8)
+        for got in (got_ref, got_ops):
+            np.testing.assert_allclose(_f32(got), _f32(kern), **F32)
+
+    @pytest.mark.parametrize("S,H,KVH,causal,window", [
+        (37, 4, 4, True, 0),
+        (40, 10, 2, True, 0),       # a group of 5 query heads
+        (40, 10, 2, True, 9),       # sliding window
+        (24, 4, 2, False, 0),       # non-causal
+    ])
+    def test_backward_ref_matches_reference_vjp(self, S, H, KVH, causal,
+                                                window):
+        """The plain backward (the kernels' yardstick on the card) equals
+        ``jax.vjp`` of the reference's oracle, given the forward's own
+        output."""
+        q, k, v = _inputs(2, S, H, KVH, 16, seed=7)
+        cot = np.random.default_rng(8).standard_normal(
+            q.shape).astype(np.float32)
+        kw = dict(causal=causal, window=window)
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash_ref(q, k, v, **kw),
+                         *(jnp.asarray(_kl(x)) for x in (q, k, v)))
+        want = vjp(jnp.asarray(_kl(cot)))
+        tq, tk, tv, tc = (torch.from_numpy(_kl(x)) for x in (q, k, v, cot))
+        o = flash_attention_ref(tq, tk, tv, **kw)
+        got = flash_attention_bwd_ref(tq, tk, tv, o, tc, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(_f32(g), np.asarray(w), **GRAD)
+
+
+XLA_CASES = [
+    # B, Sq, Sk, H, KVH, D, causal, window, q_offset, kv_chunk
+    (1, 16, 16, 4, 4, 8, True, 0, 0, 16),
+    (2, 33, 33, 8, 1, 32, True, 0, 0, 16),    # MQA, padded last chunk
+    (2, 40, 40, 10, 2, 16, True, 8, 0, 16),   # G = 5, sliding window
+    (1, 24, 24, 4, 2, 16, False, 0, 0, 8),    # non-causal
+    (2, 5, 21, 4, 2, 16, True, 0, 16, 8),     # q_offset: a chunk of decode
+    (1, 7, 30, 4, 2, 16, True, 6, 23, 8),     # q_offset + window
+]
+
+
+class TestFlashAttentionXla:
+    @pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,window,q_offset,kv_chunk",
+                             XLA_CASES)
+    def test_values_and_grads_match_reference(self, B, Sq, Sk, H, KVH, D,
+                                              causal, window, q_offset,
+                                              kv_chunk):
+        q, k, v = _inputs(B, Sq, H, KVH, D, seed=3, Sk=Sk)
+        cot = np.random.default_rng(4).standard_normal(
+            (B, Sq, H, D)).astype(np.float32)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_chunk=kv_chunk)
+
+        def jloss(q, k, v):
+            out = jax_flash_xla(q, k, v, **kw)
+            return jnp.sum(out * cot), out
+
+        (_, want), jgrads = jax.jit(jax.value_and_grad(
+            jloss, argnums=(0, 1, 2), has_aux=True))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v))
+        out = flash_attention_xla(tq, tk, tv, **kw)
+        np.testing.assert_allclose(_f32(out), np.asarray(want), **F32)
+        (out * torch.from_numpy(cot)).sum().backward()
+        for t, jg in zip((tq, tk, tv), jgrads):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), **GRAD)
+
+    def test_cpu_wrapper_gradient_equals_the_oracles(self):
+        """The CPU route of ``ops.flash_attention`` is differentiated by
+        autograd; its gradient equals autograd of the materializing
+        ``ref.py``."""
+        q, k, v = _inputs(1, 45, 10, 2, 16, seed=5)
+        cot = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            q.shape).astype(np.float32))
+        grads = []
+        for fn in ("ops", "ref"):
+            tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                          for x in (q, k, v))
+            if fn == "ops":
+                out = flash_attention(tq, tk, tv, window=12, kv_chunk=16)
+            else:
+                out = flash_attention_ref(
+                    tq.transpose(1, 2), tk.transpose(1, 2),
+                    tv.transpose(1, 2), window=12).transpose(1, 2)
+            (out * cot).sum().backward()
+            grads.append([t.grad.numpy() for t in (tq, tk, tv)])
+        for a, b in zip(*grads):
+            np.testing.assert_allclose(a, b, **GRAD)

@@ -24,7 +24,7 @@ VERBATIM = [
     "core/pagetable.py", "core/resolver.py", "core/arbiter.py",
     "tenancy/slo.py", "api/policy.py", "models/config.py",
     "configs/__init__.py", "vmem/stats.py", "vmem/eviction.py",
-    "vmem/prefetch.py", "vmem/compat.py",
+    "vmem/prefetch.py", "vmem/compat.py", "data/pipeline.py",
 ] + sorted("configs/" + p.name for p in (REF / "configs").glob("*.py")
            if p.name != "__init__.py")
 
@@ -92,10 +92,12 @@ def test_chip_smoke_parses_and_imports_only_the_port():
 def test_importing_the_launcher_loads_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.vmem, repro_torch.kernels\n"
         "import repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.page_pack.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.memory.offload\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -127,7 +129,8 @@ def test_no_build_or_device_decision_at_import():
     ``build/``-like state."""
     from repro_torch.kernels import _build
     assert _build._LIB is None or _build.BuildInfo.path is not None
-    assert [s.name for s in _build.sources()] == ["page_pack.cu",
+    assert [s.name for s in _build.sources()] == ["flash_attention.cu",
+                                                  "page_pack.cu",
                                                   "paged_attention.cu"]
     for s in _build.sources():
         text = s.read_text()

@@ -28,6 +28,8 @@ from repro.models.attention_ops import paged_attention_xla
 from repro_torch import kernels as tk
 from repro_torch.compat import numpy_to_torch, torch_to_numpy
 from repro_torch.kernels.page_pack import ops as pack_ops
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.page_pack import page_pack as pack_kernel
 from repro_torch.kernels.page_pack.ref import (page_gather_ref,
                                                page_scatter_ref)
@@ -145,6 +147,44 @@ class TestPagedAttentionPlain:
             interpret=True)
         np.testing.assert_allclose(_f32(a), _f32(want), atol=2e-5, rtol=2e-5)
 
+    @pytest.mark.parametrize("case", ["length_0", "all_unmapped",
+                                      "window_unmapped"])
+    @pytest.mark.parametrize("fn", [paged_attention, paged_attention_ref,
+                                    paged_attention_scan],
+                             ids=["ops", "ref", "scan"])
+    def test_no_valid_position_matches_reference(self, case, fn):
+        """A row with no valid position: the reference's softmax over equal
+        -1e30 scores is the mean of every V row it reads (all NP·ps
+        positions, an unmapped page read as frame 0); the CUDA kernel is
+        held to the same on the card by ``chip_smoke.py``."""
+        B, H, KVH, D, ps, NP = 2, 4, 2, 16, 4, 3
+        (jq, tq), (jk, tk_), (jv, tv), _, _ = \
+            _paged_inputs(B, H, KVH, D, ps, NP, "float32", seed=4)
+        pt = np.arange(B * NP, dtype=np.int32).reshape(B, NP)
+        lengths = np.array([5, 9], np.int32)
+        window = 0
+        if case == "length_0":
+            lengths[0] = 0
+        elif case == "all_unmapped":
+            pt[1] = -1
+        else:                      # the window's pages are all unmapped
+            pt[1, 1:] = -1
+            window = 2
+        jl, tl = _both(lengths, "int32")
+        jpt, tpt = _both(pt, "int32")
+        kern, ref = _jax_kernel_and_ref(jq, jk, jv, jpt, jl, window=window)
+        out = fn(tq, tk_, tv, tpt, tl, window=window)
+        np.testing.assert_allclose(_f32(out), _f32(kern), atol=2e-5,
+                                   rtol=2e-5)
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-5,
+                                   rtol=2e-5)
+        row = 0 if case == "length_0" else 1
+        frames = np.maximum(pt[row], 0)
+        mean = np.asarray(jv)[frames].reshape(NP * ps, KVH, D).mean(axis=0)
+        np.testing.assert_allclose(
+            _f32(out)[row].reshape(KVH, H // KVH, D),
+            np.broadcast_to(mean[:, None], (KVH, H // KVH, D)), atol=2e-5)
+
     def test_strided_pool_needs_no_transpose(self):
         """A per-layer slice of a stacked (L, P, ps, KVH, D) pool is read
         as it lies (the reference wrapper transposes the pool per call)."""
@@ -255,8 +295,38 @@ class TestWrappersNeverFallBack:
         tk.reset_launch_counts()
         pool = torch.zeros((4, 8))
         pack_ops.gather_pages(pool, torch.tensor([1], dtype=torch.int32))
-        assert tk.launch_counts() == {"paged_attention": 0, "page_gather": 0,
-                                      "page_scatter": 0}
+        q = torch.zeros((1, 8, 2, 16), requires_grad=True)
+        kv = torch.zeros((1, 8, 1, 16))
+        fa_ops.flash_attention(q, kv, kv).sum().backward()
+        assert tk.launch_counts() == {
+            "paged_attention": 0, "page_gather": 0, "page_scatter": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0}
+
+    @pytest.mark.parametrize("fn", ["flash_attention_fwd",
+                                    "flash_attention_bwd"])
+    def test_flash_attention_bindings_reject_cpu(self, fn):
+        q = torch.zeros((1, 8, 2, 16))
+        kv = torch.zeros((1, 8, 1, 16))
+        args = (q, kv, kv) if fn == "flash_attention_fwd" else \
+            (q, kv, kv, q, torch.zeros((1, 2, 8)), q)
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(fa_kernel, fn)(*args)
+
+    def test_flash_attention_wrapper_sends_non_cpu_tensors_to_the_kernel(
+            self):
+        """Only a CPU tensor takes the plain version: any other device goes
+        to the kernel binding, which raises rather than fall back."""
+        q = torch.zeros((1, 8, 2, 16), device="meta")
+        kv = torch.zeros((1, 8, 1, 16), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            fa_ops.flash_attention(q, kv, kv)
+
+    def test_cuda_typed_call_without_a_gpu_raises(self):
+        if torch.cuda.is_available():
+            pytest.skip("a GPU is present: the CUDA call would run")
+        with pytest.raises((RuntimeError, AssertionError)):
+            q = torch.zeros((1, 8, 2, 16), device="cuda")
+            fa_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
 class TestCompatDtypes:
