@@ -7,14 +7,18 @@ Needs one CUDA device (built and measured for an NVIDIA H100, sm_90a) and
 Phases, one JSON line each:
 
 1. ``device``        card name and power limit (``nvidia-smi``), versions;
-2. ``build``         nvcc build of the kernels' library, ptxas resources;
+2. ``build``         nvcc build of the kernels' library, ptxas resources
+                     of each kernel, tensor-core instructions counted in
+                     its SASS (``cuobjdump``; every bf16 flash kernel must
+                     have some);
 3. ``kernels``       every CUDA kernel against its plain PyTorch version on
                      the card (small shapes incl. window masking, unmapped
                      pages, rows with no valid position, scatter leaving
                      other rows alone, gather∘scatter round trip; flash
                      attention forward and backward, causal / window /
-                     non-causal, G 1 and 5, ragged S, D 16-128, f32 and
-                     bf16; and each path's shapes), with times;
+                     non-causal, G 1 and 5, ragged S, D 16-128, q/k/v as
+                     views of one fused tensor, f32 (CUDA cores) and bf16
+                     (tensor cores); and each path's shapes), with times;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -50,6 +54,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -174,20 +179,82 @@ def phase_device(dev):
 
 
 # --------------------------------------------------------------- phase: build
+FLASH_TC_KERNELS = ("flash_tc_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_tc_fwd<128>`` from the mangled name of a kernel template
+    instance (``..._GLOBAL__N_112flash_tc_fwdILi128EEEv...``)."""
+    m = re.search(r"\d+(flash_\w+?)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def _ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v resources of each entry function, by kernel name."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            out[cur]["ptxas"] = ln.split(":", 1)[-1].strip()
+    return out
+
+
+def _sass_mma_counts(lib_path: str):
+    """Tensor-core instructions (HGMMA, HMMA) in each kernel's SASS, read
+    with ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            cur = _kernel_name(ln.split("Function : ", 1)[1].strip())
+            counts[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in ln or f" {op} " in ln:
+                    counts[cur][op] += 1
+    return counts
+
+
 def phase_build():
-    import re
     from repro_torch.kernels import _build
     _build.load_library()
     info = _build.BuildInfo
-    res = [ln.strip() for ln in info.log.splitlines()
-           if "registers" in ln or "Compiling entry" in ln
-           or "spill" in ln]
     spills = sum(int(n) for n in
                  re.findall(r"(\d+) bytes spill (?:stores|loads)", info.log))
+    resources = _ptxas_by_kernel(info.log)
+    mma = _sass_mma_counts(str(info.path))
+    if mma is not None:
+        for name, c in mma.items():
+            resources.setdefault(name, {})["sass_tensor_core_instructions"] = c
+        tc = [n for n in mma if n.split("<")[0] in FLASH_TC_KERNELS]
+        require(len(tc) == 3 * 8, f"bf16 flash kernels in the SASS: {tc}")
+        for n in tc:
+            require(mma[n]["HGMMA"] + mma[n]["HMMA"] > 0,
+                    f"{n}: no tensor-core instruction in its SASS")
     emit("build", seconds=round(info.seconds, 3), cached=info.cached,
          library=os.path.basename(str(info.path)),
          sources=[s.name for s in _build.sources()],
-         spill_bytes_total=spills, ptxas=res)
+         spill_bytes_total=spills,
+         sass_read=("cuobjdump -sass" if mma is not None
+                    else "not measured (no cuobjdump)"),
+         kernels=resources)
 
 
 # ------------------------------------------------------------- phase: kernels
@@ -253,9 +320,12 @@ def _flash_close(a, b, grad: bool, what: str) -> tuple:
     return max_err(a, b), rel
 
 
-def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window):
+def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
+                fused=False):
     """Forward and gradients of the kernels against the plain version on
-    the card.  f32: the gradients against autograd of the plain forward.
+    the card.  ``fused``: q, k and v are strided views of one
+    (B, S, H + 2 KVH, D) tensor, as a fused QKV projection gives them.
+    f32: the gradients against autograd of the plain forward.
     bf16: row by row against the plain backward given the kernel's own
     rounded output (the backward's rowsum(dO * O) takes O in bf16, which
     moves dq by up to 2^-8 of its terms: where the softmax is peaked that
@@ -265,9 +335,13 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
-    q = _rand(gen, (B, S, H, D), dtype, dev).requires_grad_(True)
-    k = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
-    v = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+    if fused:
+        qkv = _rand(gen, (B, S, H + 2 * KVH, D), dtype, dev)
+        q, k, v = qkv.requires_grad_(True).split([H, KVH, KVH], dim=2)
+    else:
+        q = _rand(gen, (B, S, H, D), dtype, dev).requires_grad_(True)
+        k = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+        v = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
     dout = _rand(gen, (B, S, H, D), dtype, dev)
     out = flash_attention(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(out, (q, k, v), dout)
@@ -279,7 +353,7 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window):
     want = torch.autograd.grad(ref, (q, k, v), dout)
     name = str(dtype).split(".")[-1]
     what = (f"flash_attention B{B} S{S} H{H} KVH{KVH} D{D} {name} "
-            f"causal={causal} window={window}")
+            f"causal={causal} window={window} fused={fused}")
     e_fwd = _flash_close(out, ref, False, what)
     if dtype == torch.float32:
         e_grad = [_flash_close(a, b, True, f"{what} d{n}")
@@ -332,14 +406,17 @@ def _flash_train_shape_f32(gen, dev, B, S, H, KVH, D):
 
 
 FLASH_CASES = [
-    # B, S, H, KVH, D, causal, window: S ragged against the 64-row tiles
+    # B, S, H, KVH, D, causal, window[, fused]: S ragged against the tiles
+    # (64 and 128 rows)
     (1, 100, 4, 4, 16, True, 0),        # G = 1
     (2, 130, 10, 2, 64, True, 0),       # G = 5
     (1, 150, 10, 2, 80, True, 40),      # window, h2o-danube's head_dim
     (1, 77, 4, 4, 128, False, 0),       # non-causal
     (1, 200, 10, 2, 128, True, 70),     # window, Qwen3's head_dim
     (2, 96, 5, 1, 16, False, 0),        # G = 5, non-causal
-]
+    (2, 300, 10, 2, 128, True, 0, True),  # q, k, v strided views of one qkv
+    (1, 700, 8, 2, 80, True, 200),      # h2o-danube's D and G, window
+]                                       # edges inside several tiles
 
 
 def phase_flash(dev, sz: Sizes, cfg, names: list):
@@ -445,7 +522,9 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
 
     fb, fby = bound(fwd_flops, fwd_bytes)
     bb, bby = bound(bwd_flops, bwd_bytes)
-    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    src = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
+    design = {"instruction": "mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, "
+              "operands by ldmatrix", "loads": "cp.async, 2 stages"}
     tpu = "src/repro/kernels/flash_attention/flash_attention.py:79"
     shape = {"B": B, "S": S, "H": H, "KVH": KVH, "D": D, "dtype": "bfloat16",
              "causal": True}
@@ -455,7 +534,7 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fb,
          "bound_by": fby, "library_ms": sdpa_fwd_ms,
          "library": "F.scaled_dot_product_attention (enable_gqa)",
-         "flops": fwd_flops, "bytes": fwd_bytes,
+         **design, "flops": fwd_flops, "bytes": fwd_bytes,
          "tflops_per_s": fwd_flops / fwd_ms / 1e9, "shape": shape},
         {"name": "flash_attention_bwd", "route": "cuda", "source": src,
          "replaces": tpu, "note": "the TPU kernel has no backward: the "
@@ -464,7 +543,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "plain_ms": plain_bwd_ms, "bound_ms": bb, "bound_by": bby,
          "library_ms": sdpa_bwd_ms,
          "library": "autograd of F.scaled_dot_product_attention",
-         "library_fwd_bwd_ms": sdpa_fwd_bwd_ms, "flops": bwd_flops,
+         "library_fwd_bwd_ms": sdpa_fwd_bwd_ms, **design,
+         "flops": bwd_flops,
          "bytes": bwd_bytes, "tflops_per_s": bwd_flops / bwd_ms / 1e9,
          "shape": shape},
     ]
@@ -1124,9 +1204,14 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
 
 
 # ------------------------------------------------------------ phase: profile
+# the csrc/*.cu kernels, by the names the profiler gives them
+PORT_KERNEL_NAMES = r"::(flash_|paged_attention_kernel|page_copy_kernel)"
+
+
 def _profiled(dev, step, steps: int) -> dict:
     """Run ``step`` ``steps`` times unprofiled (host wall clock), then again
-    under ``torch.profiler``: device time by kernel and host time by op."""
+    under ``torch.profiler``: device time by kernel (the largest twelve, and
+    the port's own kernels apart) and host time by op."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1162,6 +1247,9 @@ def _profiled(dev, step, steps: int) -> dict:
         device_launches_per_step=sum(r[1] for r in rows) / steps,
         top=[{"name": k[:80], "ms_per_step": us / 1e3 / steps,
               "calls_per_step": n / steps} for us, n, k in rows[:12]],
+        port_kernels=[{"name": k[:80], "ms_per_step": us / 1e3 / steps,
+                       "calls_per_step": n / steps} for us, n, k in rows
+                      if re.search(PORT_KERNEL_NAMES, k)],
         host_ms_per_step_under_profiler=sum(h[0] for h in host) / 1e3 / steps,
         host_top=[{"name": k[:60], "self_ms_per_step": us / 1e3 / steps,
                    "calls_per_step": n / steps} for us, n, k in host[:14]])

@@ -1,5 +1,8 @@
 // Blocked causal / sliding-window / non-causal attention for prefill and
-// training, forward and backward, for NVIDIA Hopper (sm_90a).
+// training, forward and backward, in f32 on the CUDA cores of NVIDIA Hopper
+// (sm_90a).  This is the route of float32 tensors only: bf16 tensors take
+// the tensor-core kernels of flash_attention_tc.cu (TF32 products would
+// keep about three decimal digits, too few for the f32 checks).
 //
 // Replaces the TPU kernel `flash_attention_kernel` / `_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py: q (B, S, H, D)
@@ -21,28 +24,24 @@
 // What bounds it on this card: operations.  At the training shape (S=4096,
 // D=128, causal) there are ~S/2 * D * 4 flops per query row against a few
 // hundred bytes read, far above the ~295 operations per byte at which HBM
-// would become the limit.  This first version runs on the CUDA cores in
-// f32 (no tensor cores), so its ceiling is the 67 TFLOP/s f32 rate, not the
-// 989 TFLOP/s bf16 tensor-core rate the bound is stated against.
+// would become the limit.  In f32 on the CUDA cores the ceiling is the
+// 67 TFLOP/s f32 rate.
 //
 // What the design does about it, within that:
 //  * q, k, v are read in the model layout (B, S, heads, D) through strides
 //    (the reference wrapper transposes all three per call); the tail rows
 //    past S are zero-filled in shared memory, never fetched;
-//  * 64 x 64 tiles staged in shared memory as f32 (q pre-scaled by
-//    1/sqrt(D)) with a padded row stride, so a half-warp reading 16
-//    different rows at one column hits 16 different banks;
+//  * 64 x 64 tiles staged in shared memory (q pre-scaled by 1/sqrt(D))
+//    with a padded row stride, so a half-warp reading 16 different rows at
+//    one column hits 16 different banks;
 //  * 256 threads: thread (tr, tc) = (t / 16, t % 16) owns rows 4tr..4tr+3
 //    of the score tile and keys tc, tc+16, tc+32, tc+48 — 16 FMAs per 8
 //    shared loads — and the same 4 rows of the output, columns tc + 16c;
 //    a row's max and sum are reduced over its 16 lanes by shuffles;
 //  * whole kv (forward, dQ) or q (dK/dV) blocks outside the causal /
 //    window band are skipped by the same predicate as the TPU kernel's.
-// Not done here (later work): tensor-core products (mma.sync / wgmma),
-// TMA / cp.async loads overlapping the arithmetic.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -53,38 +52,6 @@ constexpr int kBQ = 64;            // query rows per tile
 constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 256;
 constexpr int kLDP = kBK + 1;      // row stride of a score tile (floats)
-
-__device__ __forceinline__ float bf16_bits_to_float(unsigned int bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-  static constexpr int kPerChunk = 4;       // elements in 16 bytes
-  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-  }
-  __device__ static __forceinline__ float load(const float* p) { return *p; }
-  __device__ static __forceinline__ float from_float(float x) { return x; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int kPerChunk = 8;
-  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = bf16_bits_to_float(u.x & 0xffffu); f[1] = __uint_as_float(u.x & 0xffff0000u);
-    f[2] = bf16_bits_to_float(u.y & 0xffffu); f[3] = __uint_as_float(u.y & 0xffff0000u);
-    f[4] = bf16_bits_to_float(u.z & 0xffffu); f[5] = __uint_as_float(u.z & 0xffff0000u);
-    f[6] = bf16_bits_to_float(u.w & 0xffffu); f[7] = __uint_as_float(u.w & 0xffff0000u);
-  }
-  __device__ static __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ static __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-};
 
 // max / sum over the 16 lanes that share a row (lanes 0-15 or 16-31)
 __device__ __forceinline__ float row_max(float x) {
@@ -120,15 +87,16 @@ __device__ __forceinline__ bool pair_valid(int qp, int kp, int S, int causal,
   return ok;
 }
 
-// Stage rows s0 .. s0 + kRows - 1 of one head into shared memory as f32,
-// times `mul`, at row stride `ld` floats; rows at or past S become zeros.
+// Stage rows s0 .. s0 + kRows - 1 of one head into shared memory, times
+// `mul`, at row stride `ld` floats; rows at or past S become zeros.
 // `base` points at (b, s = 0, head, d = 0); rows are `stride_s` elements
 // apart and 16-byte aligned, d has unit stride.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* base,
+template <int D, int kRows>
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* base,
                                            long long stride_s, int s0, int S,
                                            float mul) {
-  constexpr int kPer = Elem<T>::kPerChunk;
+  constexpr int kPer = 4;                      // floats in 16 bytes
   constexpr int kChunks = D / kPer;
   for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks;
@@ -136,9 +104,9 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* base,
     const int s = s0 + r;
     float f[kPer];
     if (s < S) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
+      const float4 u = *reinterpret_cast<const float4*>(
           base + (long long)s * stride_s + ch * kPer);
-      Elem<T>::unpack(u, f);
+      f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
     } else {
 #pragma unroll
       for (int i = 0; i < kPer; ++i) f[i] = 0.f;
@@ -156,10 +124,11 @@ template <int D> struct Tile { static constexpr int kLD = D + 1; };
 // grid (ceil(S / kBQ), H, B).  q: (B, S, H, D) with element strides
 // (sq_b, sq_s, sq_h); k, v: (B, S, KVH, D) with (sk_b, sk_s, sk_h); o
 // contiguous (B, S, H, D); lse contiguous (B, H, S), f32.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse,
     int S, int G, long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h, int causal, int window,
     float scale) {
@@ -178,10 +147,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int kvh = h / G;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
-  const T* kbase = k + b * sk_b + kvh * sk_h;
-  const T* vbase = v + b * sk_b + kvh * sk_h;
+  const float* kbase = k + b * sk_b + kvh * sk_h;
+  const float* vbase = v + b * sk_b + kvh * sk_h;
 
-  stage_rows<T, D, kBQ>(Qs, LD, q + b * sq_b + h * sq_h, sq_s, q0, S, scale);
+  stage_rows<D, kBQ>(Qs, LD, q + b * sq_b + h * sq_h, sq_s, q0, S, scale);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -197,8 +166,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int k0 = j * kBK;
     if (!block_needed(q0, k0, causal, window)) continue;
     __syncthreads();                 // the previous tile is consumed
-    stage_rows<T, D, kBK>(Ks, LD, kbase, sk_s, k0, S, 1.f);
-    stage_rows<T, D, kBK>(Vs, D, vbase, sk_s, k0, S, 1.f);
+    stage_rows<D, kBK>(Ks, LD, kbase, sk_s, k0, S, 1.f);
+    stage_rows<D, kBK>(Vs, D, vbase, sk_s, k0, S, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -265,10 +234,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int qp = q0 + 4 * tr + i;
     if (qp >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * S + qp) * H + h) * D;
+    float* orow = o + (((long long)b * S + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      orow[tc + 16 * c] = Elem<T>::from_float(acc[i][c] / denom);
+      orow[tc + 16 * c] = acc[i][c] / denom;
     if (tc == 0) lse[((long long)b * H + h) * S + qp] = m[i] + logf(l[i]);
   }
 }
@@ -276,16 +245,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // ------------------------------------------------------------ backward: D
 // One warp per (b, s, h) row of the contiguous (B, S, H, D) o and dout;
 // delta (B, H, S) = rowsum(dout * o) in f32.
-template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
-    const T* __restrict__ o, const T* __restrict__ dout,
+    const float* __restrict__ o, const float* __restrict__ dout,
     float* __restrict__ delta, long long n_rows, int S, int H, int D) {
   const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const int lane = threadIdx.x & 31;
   float acc = 0.f;
   for (int d = lane; d < D; d += 32)
-    acc = fmaf(Elem<T>::load(o + row * D + d), Elem<T>::load(dout + row * D + d), acc);
+    acc = fmaf(o[row * D + d], dout[row * D + d], acc);
   acc = warp_sum(acc);
   if (lane == 0) {
     const long long b = row / ((long long)S * H);
@@ -362,13 +330,13 @@ __device__ __forceinline__ void stage_row_stats(
 // ------------------------------------------------------- backward: dK, dV
 // grid (ceil(S / kBK), KVH, B).  All tensors contiguous: q, dout
 // (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse, delta (B, H, S).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int H, int G, int causal,
-    int window, float scale) {
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int G,
+    int causal, int window, float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
@@ -388,8 +356,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
   const long long kv_off = (long long)b * S * KVH * D + (long long)kvh * D;
-  stage_rows<T, D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, S, 1.f);
-  stage_rows<T, D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, S, 1.f);
+  stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, S, 1.f);
+  stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, S, 1.f);
 
   float dk_acc[4][kCols], dv_acc[4][kCols];     // keys 4tr+i, columns tc+16c
 #pragma unroll
@@ -406,8 +374,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       const int q0 = qi * kBQ;
       if (!block_needed(q0, k0, causal, window)) continue;
       __syncthreads();               // the previous q tile is consumed
-      stage_rows<T, D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, S, scale);
-      stage_rows<T, D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, S, 1.f);
+      stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, S, scale);
+      stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, S, 1.f);
       stage_row_stats(lse_s, dl_s, lse, delta, head_off, q0, S);
       __syncthreads();
       bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, q0, k0, S, causal,
@@ -442,20 +410,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const long long row = kv_off + (long long)kp * KVH * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      dk[row + tc + 16 * c] = Elem<T>::from_float(dk_acc[i][c]);
-      dv[row + tc + 16 * c] = Elem<T>::from_float(dv_acc[i][c]);
+      dk[row + tc + 16 * c] = dk_acc[i][c];
+      dv[row + tc + 16 * c] = dv_acc[i][c];
     }
   }
 }
 
 // ------------------------------------------------------------ backward: dQ
 // grid (ceil(S / kBQ), H, B); layouts as flash_bwd_dkdv_kernel.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int S, int KVH, int G, int causal, int window,
+    float* __restrict__ dq, int S, int KVH, int G, int causal, int window,
     float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
@@ -477,8 +445,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int tc = threadIdx.x & 15;
   const long long q_off = (long long)b * S * H * D + (long long)h * D;
   const long long kv_off = (long long)b * S * KVH * D + (long long)kvh * D;
-  stage_rows<T, D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, S, scale);
-  stage_rows<T, D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, S, 1.f);
+  stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, S, scale);
+  stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, S, 1.f);
   stage_row_stats(lse_s, dl_s, lse, delta, ((long long)b * H + h) * S, q0, S);
 
   float dq_acc[4][kCols];                     // rows 4tr+i, columns tc+16c
@@ -492,8 +460,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const int k0 = j * kBK;
     if (!block_needed(q0, k0, causal, window)) continue;
     __syncthreads();                 // the previous k tile is consumed
-    stage_rows<T, D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, S, 1.f);
-    stage_rows<T, D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, S, 1.f);
+    stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, S, 1.f);
+    stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, S, 1.f);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, q0, k0, S,
                   causal, window);
@@ -517,10 +485,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * tr + i;
     if (qp >= S) continue;
-    T* row = dq + q_off + (long long)qp * H * D;
+    float* row = dq + q_off + (long long)qp * H * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      row[tc + 16 * c] = Elem<T>::from_float(dq_acc[i][c] * scale);
+      row[tc + 16 * c] = dq_acc[i][c] * scale;
   }
 }
 
@@ -543,90 +511,56 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-template <typename T, int D>
-cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
+template <int D>
+cudaError_t fwd_for(const float* q, const float* k, const float* v, float* o,
                     float* lse, int B, int S, int H, int KVH,
                     const long long* sq, const long long* sk, int causal,
                     int window, cudaStream_t stream) {
   const int smem = fwd_smem<D>();
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, H / KVH,
-      sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], causal, window,
-      1.0f / sqrtf((float)D));
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, S, H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2],
+      causal, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t bwd_for(const void* q, const void* k, const void* v,
-                    const void* o, const void* dout, const float* lse,
-                    float* delta, void* dq, void* dk, void* dv, int B, int S,
-                    int H, int KVH, int causal, int window,
+template <int D>
+cudaError_t bwd_for(const float* q, const float* k, const float* v,
+                    const float* o, const float* dout, const float* lse,
+                    float* delta, float* dq, float* dk, float* dv, int B,
+                    int S, int H, int KVH, int causal, int window,
                     cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   const long long n_rows = (long long)B * S * H;
   const int rows_per_block = kThreads / 32;
-  flash_bwd_delta_kernel<T><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
-                              kThreads, 0, stream>>>(
-      (const T*)o, (const T*)dout, delta, n_rows, S, H, D);
+  flash_bwd_delta_kernel<<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
+                           kThreads, 0, stream>>>(o, dout, delta, n_rows, S, H,
+                                                  D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const int smem_kv = dkdv_smem<D>();
-  e = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem_kv);
+  e = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<T, D><<<dim3((S + kBK - 1) / kBK, KVH, B), kThreads,
-                                smem_kv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, S, H, H / KVH, causal, window, scale);
+  flash_bwd_dkdv_kernel<D><<<dim3((S + kBK - 1) / kBK, KVH, B), kThreads,
+                             smem_kv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, S, H, H / KVH, causal, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const int smem_q = dq_smem<D>();
-  e = allow_smem(flash_bwd_dq_kernel<T, D>, smem_q);
+  e = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads,
-                              smem_q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, S, KVH, H / KVH, causal, window, scale);
+  flash_bwd_dq_kernel<D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads,
+                           smem_q, stream>>>(
+      q, k, v, dout, lse, delta, dq, S, KVH, H / KVH, causal, window, scale);
   return cudaGetLastError();
 }
 
 #define REPRO_FOR_EACH_HEAD_DIM(X) \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
-
-template <typename T>
-cudaError_t fwd_dispatch(const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int S, int H, int KVH,
-                         int D, const long long* sq, const long long* sk,
-                         int causal, int window, cudaStream_t stream) {
-  switch (D) {
-#define REPRO_CASE(DD) \
-    case DD: return fwd_for<T, DD>(q, k, v, o, lse, B, S, H, KVH, sq, sk, \
-                                   causal, window, stream);
-    REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
-#undef REPRO_CASE
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t bwd_dispatch(const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const float* lse,
-                         float* delta, void* dq, void* dk, void* dv, int B,
-                         int S, int H, int KVH, int D, int causal, int window,
-                         cudaStream_t stream) {
-  switch (D) {
-#define REPRO_CASE(DD) \
-    case DD: return bwd_for<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, \
-                                   B, S, H, KVH, causal, window, stream);
-    REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
-#undef REPRO_CASE
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 bool shapes_ok(int B, int S, int H, int KVH) {
   return B > 0 && B <= 65535 && S > 0 && H > 0 && H <= 65535 && KVH > 0
@@ -635,48 +569,50 @@ bool shapes_ok(int B, int S, int H, int KVH) {
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16.  q (B, S, H, D) and k, v
-// (B, S, KVH, D) are read through their element strides (batch, seq, head;
-// unit stride over D, 16-byte aligned rows); o (B, S, H, D) and lse
-// (B, H, S, f32) are contiguous.  Returns the cudaError_t of the launch
-// (0 on success); nothing is synchronised.
+// float32 only.  q (B, S, H, D) and k, v (B, S, KVH, D) are read through
+// their element strides (batch, seq, head; unit stride over D, 16-byte
+// aligned rows); o (B, S, H, D) and lse (B, H, S) are contiguous.  Returns
+// the cudaError_t of the launch (0 on success); nothing is synchronised.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int S, int H, int KVH, int D,
     long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h,
-    int causal, int window, int dtype_code, void* stream) {
+    int causal, int window, void* stream) {
   if (!shapes_ok(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
   const long long sq[3] = {sq_b, sq_s, sq_h};
   const long long sk[3] = {sk_b, sk_s, sk_h};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype_code == 0)
-    return (int)fwd_dispatch<float>(q, k, v, o, (float*)lse, B, S, H, KVH, D,
-                                    sq, sk, causal, window, s);
-  if (dtype_code == 1)
-    return (int)fwd_dispatch<__nv_bfloat16>(q, k, v, o, (float*)lse, B, S, H,
-                                            KVH, D, sq, sk, causal, window, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define REPRO_CASE(DD) \
+    case DD: return (int)fwd_for<DD>((const float*)q, (const float*)k, \
+                                     (const float*)v, (float*)o, (float*)lse, \
+                                     B, S, H, KVH, sq, sk, causal, window, s);
+    REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Gradients of repro_flash_attention_fwd.  Every tensor contiguous: q, o,
-// dout, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse (the forward's)
-// and delta (scratch) (B, H, S) f32.  Three launches on `stream`.
+// Gradients of repro_flash_attention_fwd, float32.  Every tensor
+// contiguous: q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse
+// (the forward's) and delta (scratch) (B, H, S).  Three launches on
+// `stream`.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int S, int H, int KVH, int D, int causal, int window,
-    int dtype_code, void* stream) {
+    void* stream) {
   if (!shapes_ok(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype_code == 0)
-    return (int)bwd_dispatch<float>(q, k, v, o, dout, (const float*)lse,
-                                    (float*)delta, dq, dk, dv, B, S, H, KVH, D,
-                                    causal, window, s);
-  if (dtype_code == 1)
-    return (int)bwd_dispatch<__nv_bfloat16>(q, k, v, o, dout,
-                                            (const float*)lse, (float*)delta,
-                                            dq, dk, dv, B, S, H, KVH, D,
-                                            causal, window, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define REPRO_CASE(DD) \
+    case DD: return (int)bwd_for<DD>( \
+        (const float*)q, (const float*)k, (const float*)v, (const float*)o, \
+        (const float*)dout, (const float*)lse, (float*)delta, (float*)dq, \
+        (float*)dk, (float*)dv, B, S, H, KVH, causal, window, s);
+    REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,4 +1,4 @@
-"""Binding of the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
+"""Binding of the CUDA flash-attention kernels.
 
 Counterpart of the reference's Pallas ``flash_attention_kernel``, with two
 differences.  Layout: the kernels take the **model layout** ``(B, S, H, D)``
@@ -6,11 +6,19 @@ differences.  Layout: the kernels take the **model layout** ``(B, S, H, D)``
 are gone.  Gradient: the forward also returns the per-row logsumexp
 ``lse (B, H, S)`` (f32), from which :func:`flash_attention_bwd` computes
 dq, dk, dv with hand-written kernels; the reference differentiates its
-chunked scan with XLA instead.  CUDA tensors only; :mod:`.ops` routes CPU
+chunked scan with XLA instead.
+
+Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
+training path's dtype) runs on the tensor cores (``csrc/
+flash_attention_tc.cu``), float32 on the CUDA cores
+(``csrc/flash_attention.cu``).  Each dtype has exactly one route, and there
+is no fallback between them.  CUDA tensors only; :mod:`.ops` routes CPU
 tensors to the plain version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -18,7 +26,33 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import check_launch, load_library
 
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Route(NamedTuple):
+    """The C entry points of one route, forward and backward."""
+    fwd: str
+    bwd: str
+
+
+TENSOR_CORES = Route("repro_flash_attention_tc_fwd",
+                     "repro_flash_attention_tc_bwd")
+CUDA_CORES = Route("repro_flash_attention_fwd", "repro_flash_attention_bwd")
+
+
+def route(dtype: torch.dtype, head_dim: int) -> Route:
+    """bfloat16 -> the tensor-core kernels (bf16 operands, f32
+    accumulators); float32 -> the f32 CUDA-core kernels (TF32 products
+    would fail the f32 tolerances).  Raises ``ValueError`` for any other
+    dtype or a head dim outside ``SUPPORTED_HEAD_DIMS``."""
+    if head_dim not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_kernel: head_dim {head_dim} not "
+                         f"in {SUPPORTED_HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return TENSOR_CORES
+    if dtype == torch.float32:
+        return CUDA_CORES
+    raise ValueError(f"flash_attention_kernel: dtype {dtype} (float32 or "
+                     f"bfloat16 only)")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -31,8 +65,6 @@ def _check(q, k, v):
     for name, t in (("k", k), ("v", v)):
         _require(t.device == q.device, f"{name} is on {t.device}, q on "
                  f"{q.device}")
-    _require(q.dtype in _DTYPE_CODES, f"dtype {q.dtype} (float32 or "
-             f"bfloat16 only)")
     _require(k.dtype == q.dtype and v.dtype == q.dtype,
              "q, k and v must share one dtype")
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
@@ -41,11 +73,9 @@ def _check(q, k, v):
     _require(k.shape[0] == B and k.shape[1] == S and k.shape[3] == D,
              f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     KVH = k.shape[2]
-    _require(D in SUPPORTED_HEAD_DIMS,
-             f"head_dim {D} not in {SUPPORTED_HEAD_DIMS}")
     _require(H % KVH == 0, f"{H} query heads not a multiple of {KVH} KV heads")
     _require(B <= 65535 and H <= 65535, "batch or heads above 65535")
-    return B, S, H, KVH, D
+    return B, S, H, KVH, D, route(q.dtype, D)
 
 
 def _rows_aligned(t) -> bool:
@@ -66,7 +96,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     not is copied once to a contiguous tensor.  k and v must then share
     strides.  Launches on the current stream and does not synchronise.
     """
-    B, S, H, KVH, D = _check(q, k, v)
+    B, S, H, KVH, D, r = _check(q, k, v)
     q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
     if v.stride() != k.stride():
         k, v = k.contiguous(), v.contiguous()
@@ -74,11 +104,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
-        code = lib.repro_flash_attention_fwd(
+        code = getattr(lib, r.fwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, S, H, KVH, D, *q.stride()[:3],
             *k.stride()[:3], int(bool(causal)), int(window),
-            _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -90,9 +119,10 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the
     output gradient ``dout`` (B, S, H, D), from the forward's ``o`` and
     ``lse``.  Every operand is made contiguous (a no-op on the model path);
-    the results are contiguous, in q's dtype.  Three launches (row sums
-    rowsum(dout * o), dK/dV, dQ) on the current stream, no atomics."""
-    B, S, H, KVH, D = _check(q, k, v)
+    the results are contiguous, in q's dtype.  On the current stream, no
+    atomics: bf16 two launches (dQ, which also forms rowsum(dout * o), then
+    dK/dV), f32 three (the row sums, dK/dV, dQ)."""
+    B, S, H, KVH, D, r = _check(q, k, v)
     _require(o.shape == q.shape and dout.shape == q.shape
              and lse.shape == (B, H, S), "o, dout or lse shape")
     _require(o.dtype == q.dtype and lse.dtype == torch.float32,
@@ -105,11 +135,11 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     dv = torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):
-        code = lib.repro_flash_attention_bwd(
+        code = getattr(lib, r.bwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, H, KVH, D,
-            int(bool(causal)), int(window), _DTYPE_CODES[q.dtype],
+            int(bool(causal)), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1

@@ -40,7 +40,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_chunk: int = 512, kv_chunk: int = 512):
     """``q_chunk`` / ``kv_chunk`` shape the plain CPU version only; the
-    kernels use their own 64 x 64 tiles."""
+    kernels use their own tiles."""
     if q.device.type == "cpu":
         return flash_attention_xla(q, k, v, causal=causal, window=window,
                                    q_chunk=q_chunk, kv_chunk=kv_chunk)

@@ -115,7 +115,10 @@ class DeviceFramePool(FramePool):
                                 device=self.device)
 
     def _indices(self, frames) -> torch.Tensor:
+        """Frame ids as int32 on the device, a negative id counted from the
+        end as numpy and ``jnp.take`` count it (``-1`` is the last frame)."""
         idx = np.atleast_1d(np.asarray(frames)).astype(np.int32)
+        idx = np.where(idx < 0, idx + self.n_frames, idx).astype(np.int32)
         return torch.from_numpy(idx).to(self.device)
 
     def load(self, frame: int, data: np.ndarray) -> None:

@@ -130,6 +130,7 @@ def test_no_build_or_device_decision_at_import():
     from repro_torch.kernels import _build
     assert _build._LIB is None or _build.BuildInfo.path is not None
     assert [s.name for s in _build.sources()] == ["flash_attention.cu",
+                                                  "flash_attention_tc.cu",
                                                   "page_pack.cu",
                                                   "paged_attention.cu"]
     for s in _build.sources():

@@ -329,6 +329,29 @@ class TestWrappersNeverFallBack:
             fa_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
+class TestFlashRoute:
+    """One route per dtype: bf16 to the tensor-core kernels, f32 to the
+    CUDA-core kernels, anything else raises (no route falls back to
+    another)."""
+
+    @pytest.mark.parametrize("D", fa_kernel.SUPPORTED_HEAD_DIMS)
+    @pytest.mark.parametrize("dtype,entry", [
+        (torch.bfloat16, ("repro_flash_attention_tc_fwd",
+                          "repro_flash_attention_tc_bwd")),
+        (torch.float32, ("repro_flash_attention_fwd",
+                         "repro_flash_attention_bwd"))])
+    def test_supported(self, dtype, entry, D):
+        r = fa_kernel.route(dtype, D)
+        assert (r.fwd, r.bwd) == entry
+
+    @pytest.mark.parametrize("dtype,D", [
+        (torch.float16, 128), (torch.float64, 64), (torch.bfloat16, 8),
+        (torch.bfloat16, 72), (torch.float32, 256), (torch.float16, 72)])
+    def test_unsupported_raises(self, dtype, D):
+        with pytest.raises(ValueError):
+            fa_kernel.route(dtype, D)
+
+
 class TestCompatDtypes:
     @pytest.mark.parametrize("name", ["float32", "bfloat16", "int32"])
     def test_numpy_torch_roundtrip(self, name):

@@ -301,12 +301,13 @@ class TestMultiTenantSharedPool:
 
 
 class TestKnownDivergence:
+    """Behaviour that once differed between the packages, held to parity."""
+
     def test_gather_of_unmapped_frame(self):
-        """``DeviceFramePool.gather`` of a -1 (non-resident) frame id: the
-        reference's ``jnp.take`` wraps to the pool's LAST row, the port's
-        ``page_gather`` clamps to row 0 as the reference's own Pallas
-        kernel does.  Callers never rely on either: a -1 entry means the
-        page is not there and whatever comes back is masked or unused."""
+        """``DeviceFramePool.gather`` of a -1 (non-resident) frame id: both
+        packages count it from the end, as ``jnp.take`` does, and return
+        the pool's LAST row (the port's ``page_gather`` kernel itself keeps
+        the Pallas kernel's clamp to row 0; the pool wraps the id first)."""
         rows = np.arange(12, dtype=np.float32).reshape(4, 3)
         outs = []
         for s in SIDES:
@@ -314,9 +315,8 @@ class TestKnownDivergence:
             for f in range(4):
                 pool.load(f, rows[f])
             outs.append(_arr(pool.gather(np.array([2, -1]))))
-        np.testing.assert_array_equal(outs[0][0], outs[1][0])
-        np.testing.assert_array_equal(outs[0][1], rows[3])     # reference
-        np.testing.assert_array_equal(outs[1][1], rows[0])     # port
+        np.testing.assert_array_equal(outs[0], outs[1])
+        np.testing.assert_array_equal(outs[1][1], rows[3])
 
 
 class TestUnifiedStatsAndPolicy:
