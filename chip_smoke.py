@@ -8,13 +8,18 @@ Phases, one JSON line each:
 
 1. ``device``        card name and power limit (``nvidia-smi``), versions;
 2. ``build``         nvcc build of the kernels' library, ptxas resources
-                     of each kernel, tensor-core instructions counted in
-                     its SASS (``cuobjdump``; every bf16 flash kernel must
-                     have some);
+                     of each kernel (registers and spills of every
+                     paged-attention instance apart), tensor-core
+                     instructions counted in its SASS (``cuobjdump``; every
+                     bf16 flash kernel must have some);
 3. ``kernels``       every CUDA kernel against its plain PyTorch version on
                      the card (small shapes incl. window masking, unmapped
-                     pages, rows with no valid position, scatter leaving
-                     other rows alone, gather∘scatter round trip; flash
+                     pages, rows with no valid position, splits that see
+                     only masked rows, paged attention at every cluster
+                     size the plan can pick and at the native context of
+                     32,768 tokens, two calls bit-identical, scatter
+                     leaving other rows alone, gather∘scatter round trip;
+                     flash
                      attention forward and backward, causal / window /
                      non-causal, G 1 and 5, ragged S, D 16-128, q/k/v as
                      views of one fused tensor, f32 (CUDA cores) and bf16
@@ -90,6 +95,7 @@ class Sizes:
     max_new: int = 8
     timing_iters: int = 50
     timing_layers: int = 8           # distinct pools cycled through: L2-cold
+    long_pages: int = 128            # 128 x 256 = 32,768: Qwen3-14B's native
     flash_iters: int = 10            # timed calls at the training shape
     parity_batch: int = 2            # train_parity: one batch of 2 x 512
     parity_seq: int = 512
@@ -183,8 +189,15 @@ FLASH_TC_KERNELS = ("flash_tc_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_tc_fwd<128>`` from the mangled name of a kernel template
-    instance (``..._GLOBAL__N_112flash_tc_fwdILi128EEEv...``)."""
+    """``flash_tc_fwd<128>`` or ``paged_attention_kernel<bf16,128,5>`` (dtype,
+    head dim, query heads a block) from the
+    mangled name of a kernel template instance
+    (``..._GLOBAL__N_112flash_tc_fwdILi128EEEv...``)."""
+    m = re.search(r"\d+(paged_attention_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
+                  r"Li(\d+)E", mangled)
+    if m:
+        dt = "f32" if m.group(2) == "f" else "bf16"
+        return f"{m.group(1)}<{dt},{m.group(3)},{m.group(4)}>"
     m = re.search(r"\d+(flash_\w+?)ILi(\d+)E", mangled)
     return f"{m.group(1)}<{m.group(2)}>" if m else mangled
 
@@ -248,10 +261,18 @@ def phase_build():
         for n in tc:
             require(mma[n]["HGMMA"] + mma[n]["HMMA"] > 0,
                     f"{n}: no tensor-core instruction in its SASS")
+    paged = {n: r for n, r in resources.items()
+             if n.startswith("paged_attention_kernel<")}
+    require(len(paged) == 40, "paged_attention kernels in the build: "
+            f"{sorted(paged)}")
     emit("build", seconds=round(info.seconds, 3), cached=info.cached,
          library=os.path.basename(str(info.path)),
          sources=[s.name for s in _build.sources()],
          spill_bytes_total=spills,
+         paged_attention={n: {k: r.get(k) for k in ("registers",
+                                                    "spill_stores",
+                                                    "spill_loads")}
+                          for n, r in sorted(paged.items())},
          sass_read=("cuobjdump -sass" if mma is not None
                     else "not measured (no cuobjdump)"),
          kernels=resources)
@@ -264,11 +285,32 @@ def _rand(gen, shape, dtype, dev):
                        dtype=torch.float32).to(dtype)
 
 
+# the cluster sizes split_plan can pick (None: the plan's own choice)
+SPLITS = (None, 1, 2, 4, 8)
+
+
+def _attn_splits(what, q, kp, vp, pt, ln, window=0, tol=None):
+    """The paged-attention kernel at every cluster size the plan can pick
+    against the plain version on the same inputs; returns the largest
+    error."""
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_attention_kernel
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    ref = paged_attention_ref(q, kp, vp, pt, ln, window=window)
+    name = str(q.dtype).split(".")[-1]
+    err = 0.0
+    for n in SPLITS:
+        out = paged_attention_kernel(q, kp, vp, pt, ln, window=window,
+                                     n_splits=n)
+        sync(q.device)
+        err = max(err, check_close(out, ref, tol or TOL[name],
+                                   f"{what} n_splits={n}"))
+    return err
+
+
 def _attn_case(gen, dev, B, H, KVH, D, ps, NP, dtype, lengths=None,
                window=0):
     import torch
-    from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     P = B * NP
     q = _rand(gen, (B, H, D), dtype, dev)
     kp = _rand(gen, (P, ps, KVH, D), dtype, dev)
@@ -278,13 +320,10 @@ def _attn_case(gen, dev, B, H, KVH, D, ps, NP, dtype, lengths=None,
                    for i in range(B)]
     pt = torch.arange(P, dtype=torch.int32, device=dev).reshape(B, NP)
     ln = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
-    out = paged_attention(q, kp, vp, pt, ln, window=window)
-    sync(dev)
-    ref = paged_attention_ref(q, kp, vp, pt, ln, window=window)
     name = str(dtype).split(".")[-1]
-    return check_close(out, ref, TOL[name],
-                       f"paged_attention B{B} H{H} KVH{KVH} D{D} ps{ps} "
-                       f"NP{NP} {name} window={window}")
+    return _attn_splits(f"paged_attention B{B} H{H} KVH{KVH} D{D} ps{ps} "
+                        f"NP{NP} {name} window={window}", q, kp, vp, pt, ln,
+                        window)
 
 
 ROW_FLOOR = 5e-4      # bf16 row check: reference rows' rms floored here
@@ -552,11 +591,102 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     return rows, errs, cases
 
 
+def _long_row_check(q, kp, vp, pt, ln) -> dict:
+    """The bf16 long-context case held row by row: each output row (one
+    head; ~0.009 in size, the mean of ~12k random V rows) within
+    ``TOL['bfloat16']`` relative L2 error of its reference row, at every
+    cluster size.  The limit is shown to reject an output that misses one
+    split's tokens or a single 64-row tile (the reference at the length
+    less an eighth, or less 64)."""
+    import torch
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_attention_kernel
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    ref = paged_attention_ref(q, kp, vp, pt, ln)
+    rel = 0.0
+    for n in SPLITS:
+        out = paged_attention_kernel(q, kp, vp, pt, ln, n_splits=n)
+        r = _row_rel_err(out, ref)
+        require(r <= TOL["bfloat16"], f"paged_attention long context "
+                f"bfloat16 n_splits={n}: a row's relative L2 error {r} "
+                f"beyond {TOL['bfloat16']}")
+        rel = max(rel, r)
+    length = int(ln[0])
+    faults = {}
+    for what, drop in (("one_split_dropped", length // 8),
+                       ("one_tile_dropped", 64)):
+        short = torch.tensor([length - drop], dtype=ln.dtype,
+                             device=ln.device)
+        faults[what] = _row_rel_err(
+            paged_attention_ref(q, kp, vp, pt, short), ref)
+    require(min(faults.values()) > TOL["bfloat16"],
+            f"paged_attention long context: the row check does not reject "
+            f"an output missing one split or one tile ({faults})")
+    return {"row_rel_err": rel, "row_rel_limit": TOL["bfloat16"],
+            "row_rel_err_of_faulted_outputs": faults}
+
+
+def _long_context(gen, dev, sz: Sizes, H, KVH, D, ps) -> dict:
+    """B=1 at the model's native context (``long_pages`` pages, full): the
+    kernel against the plain version at every cluster size in bf16 and in
+    f32 (bf16 also row by row, :func:`_long_row_check`), two calls
+    bit-identical, then device time over ``timing_layers`` L2-cold layers
+    against its bound."""
+    import torch
+    from repro_torch.kernels.paged_attention import \
+        paged_attention as pa_kernel
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    NP = sz.long_pages
+    length = NP * ps
+    pt = torch.arange(NP, dtype=torch.int32, device=dev).reshape(1, NP)
+    ln = torch.tensor([length], dtype=torch.int32, device=dev)
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = _rand(gen, (1, H, D), dt, dev)
+        kp = _rand(gen, (NP, ps, KVH, D), dt, dev)
+        vp = _rand(gen, (NP, ps, KVH, D), dt, dev)
+        name = str(dt).split(".")[-1]
+        errs[name] = _attn_splits(f"paged_attention long context {name}", q,
+                                  kp, vp, pt, ln)
+        if dt == torch.bfloat16:
+            rows = _long_row_check(q, kp, vp, pt, ln)
+        require(torch.equal(paged_attention(q, kp, vp, pt, ln),
+                            paged_attention(q, kp, vp, pt, ln)),
+                f"paged_attention: two calls differ (long context {name})")
+        del kp, vp
+    sync(dev)
+    torch.cuda.empty_cache()
+    Lt = sz.timing_layers
+    bf16 = torch.bfloat16
+    kpool = _rand(gen, (Lt, NP, ps, KVH, D), bf16, dev)
+    vpool = _rand(gen, (Lt, NP, ps, KVH, D), bf16, dev)
+    q = _rand(gen, (1, H, D), bf16, dev)
+    ms = time_ms(dev, [lambda l=l: paged_attention(
+        q, kpool[l], vpool[l], pt, ln) for l in range(Lt)], sz.timing_iters)
+    plain_ms = time_ms(dev, [lambda l=l: paged_attention_ref(
+        q, kpool[l], vpool[l], pt, ln) for l in range(Lt)], 4)
+    del kpool, vpool
+    nbytes = (2 * length * KVH * D + 2 * H * D) * 2 + NP * 4 + 4
+    t_ops = 4 * length * H * D / PEAK_FLOPS["bfloat16"]
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops
+            else "operations", "bound_share": bound_ms / ms, "bytes": nbytes,
+            "n_splits": pa_kernel.plan_splits(dev.index or 0, 1, KVH,
+                                              H // KVH, D, NP, ps, bf16),
+            "shape": {"B": 1, "H": H, "KVH": KVH, "D": D, "ps": ps, "NP": NP,
+                      "lengths": [length], "dtype": "bfloat16"},
+            "bfloat16_rows": rows, "max_abs_err_by_dtype": errs}
+
+
 def phase_kernels(dev, sz: Sizes, cfg):
     import torch
     from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
     from repro_torch.kernels.page_pack.ref import (page_gather_ref,
                                                    page_scatter_ref)
+    from repro_torch.kernels.paged_attention import \
+        paged_attention as pa_kernel
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -592,9 +722,8 @@ def phase_kernels(dev, sz: Sizes, cfg):
     check_close(a, b, 1e-6, "paged_attention unmapped pages")
     ln16 = torch.tensor([16], dtype=torch.int32, device=dev)
     hole = torch.tensor([[0, -1, 2, 3]], dtype=torch.int32, device=dev)
-    e = check_close(paged_attention(q, kp, vp, hole, ln16),
-                    paged_attention_ref(q, kp, vp, hole, ln16), TOL["float32"],
-                    "paged_attention unmapped page inside the context")
+    e = _attn_splits("paged_attention unmapped page inside the context", q,
+                     kp, vp, hole, ln16)
     errs["paged_attention"] = max(errs["paged_attention"], e)
     n_cases += 2
     # rows with no valid position: the mean of the V rows read, as the
@@ -607,12 +736,26 @@ def phase_kernels(dev, sz: Sizes, cfg):
             ([[0, 1, 2], [3, -1, -1]], [5, 9], 2):
         pt = torch.tensor(table, dtype=torch.int32, device=dev)
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-        e = check_close(paged_attention(q, kp, vp, pt, ln, window=w),
-                        paged_attention_ref(q, kp, vp, pt, ln, window=w),
-                        TOL["float32"], f"paged_attention no valid position "
-                        f"{table} {lens} window={w}")
+        e = _attn_splits(f"paged_attention no valid position {table} "
+                         f"{lens} window={w}", q, kp, vp, pt, ln, w)
         errs["paged_attention"] = max(errs["paged_attention"], e)
         n_cases += 1
+
+    # a split that sees only masked rows (its page unmapped, or before the
+    # window): 256-row context, 64-token pages, four splits
+    q = _rand(gen, (1, 10, 128), bf16, dev)
+    kp = _rand(gen, (4, 64, 2, 128), bf16, dev)
+    vp = _rand(gen, (4, 64, 2, 128), bf16, dev)
+    ln = torch.tensor([256], dtype=torch.int32, device=dev)
+    for table, w in (([[0, -1, 2, 3]], 0), ([[0, 1, 2, 3]], 40),
+                     ([[-1, -1, 2, -1]], 0)):
+        pt = torch.tensor(table, dtype=torch.int32, device=dev)
+        for dt in (bf16, f32):
+            e = _attn_splits(f"paged_attention masked split {table} "
+                             f"window={w}", q.to(dt), kp.to(dt), vp.to(dt),
+                             pt, ln, w)
+            errs["paged_attention"] = max(errs["paged_attention"], e)
+            n_cases += 1
 
     # ---- kernel 1, the serving path's shapes ------------------------------
     H, KVH, D, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
@@ -665,7 +808,24 @@ def phase_kernels(dev, sz: Sizes, cfg):
     sdpa_ms = time_ms(dev, [lambda: torch.nn.functional
                             .scaled_dot_product_attention(
                                 qg, kg, vg, attn_mask=mask)], it)
+    # determinism: the cluster combine has one order, so two calls agree
+    # bit for bit
+    require(torch.equal(paged_attention(q, kpool[0], vpool[0], pt, ln),
+                        paged_attention(q, kpool[0], vpool[0], pt, ln)),
+            "paged_attention: two calls differ (serving shape)")
+    tile = pa_kernel.TILE_ROWS[bf16]
+    n_serve = pa_kernel.plan_splits(dev.index or 0, B, KVH, H // KVH, D, NP,
+                                    ps, bf16)
+    n_b1 = pa_kernel.plan_splits(dev.index or 0, 1, KVH, H // KVH, D, NP, ps,
+                                 bf16)
+    active = {n: pa_kernel.active_clusters(dev.index or 0, n, D, H // KVH,
+                                           bf16) for n in (1, 2, 4, 8)}
     del kpool, vpool, kg, vg
+
+    # ---- kernel 1 at the model's native context: B=1, 32,768 tokens -------
+    long = _long_context(gen, dev, sz, H, KVH, D, ps)
+    errs["paged_attention_long_context"] = long.pop("max_abs_err_by_dtype")
+    n_cases += 2
 
     # ---- kernels 2 and 3, small shapes -----------------------------------
     for (Pn, n, E) in [(8, 4, 32), (64, 16, 128), (16, 16, 64), (8, 5, 7),
@@ -763,6 +923,12 @@ def phase_kernels(dev, sz: Sizes, cfg):
          else "operations",
          "library_ms": None, "sdpa_on_pregathered_kv_ms": sdpa_ms,
          "batch1_ms": attn_b1_ms, "bytes": attn_bytes,
+         "n_splits": n_serve, "batch1_n_splits": n_b1,
+         "active_clusters_by_size": active,
+         "design": "split-KV over a thread-block cluster (DSMEM combine), "
+         "a producer warp's cp.async.bulk.tensor copies (a page segment "
+         f"each) into an mbarrier ring of {tile}-row stages, consumer warps "
+         "split the tokens", "long_context": long,
          "shape": {"B": B, "H": H, "KVH": KVH, "D": D, "ps": ps, "NP": NP,
                    "lengths": ragged, "dtype": "bfloat16"}},
         {"name": "page_gather", "route": "cuda", "source": src + "page_pack.cu",
@@ -782,7 +948,9 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"}},
     ]
     names = ["paged_attention", "paged_attention_plain",
-             "paged_attention_batch1", "sdpa_on_pregathered_kv", "page_gather",
+             "paged_attention_batch1", "sdpa_on_pregathered_kv",
+             "paged_attention_long_context",
+             "paged_attention_long_context_plain", "page_gather",
              "page_gather_plain", "index_select", "page_scatter",
              "page_scatter_plain", "index_copy_"]
     flash_rows, flash_errs, flash_cases = phase_flash(dev, sz, cfg, names)

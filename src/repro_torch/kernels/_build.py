@@ -30,10 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    # q, k_pool, v_pool, page_table, lengths, out, B, KVH, G, D, NP, ps,
-    # stride_p, stride_t, stride_h, window, dtype_code, stream
+    # q, k_pool, v_pool, page_table, lengths, out, B, KVH, G, D, P, NP, ps,
+    # stride_p, stride_t, stride_h, window, n_splits, dtype_code, stream
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _LL, _LL, _LL, _I, _I, _P],
+                              _I, _LL, _LL, _LL, _I, _I, _I, _P],
+    # n_splits, D, G, dtype_code, *count
+    "repro_paged_attention_active_clusters": [_I, _I, _I, _I,
+                                              ctypes.POINTER(_I)],
     # pool, indices, block, row_bytes, n, pool_rows, stream
     "repro_page_gather": [_P, _P, _P, _LL, _I, _I, _P],
     "repro_page_scatter": [_P, _P, _P, _LL, _I, _I, _P],

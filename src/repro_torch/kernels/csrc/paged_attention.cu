@@ -1,97 +1,135 @@
-// Decode attention through a KV page table, for NVIDIA Hopper (sm_90a).
+// Decode attention through a KV page table, for NVIDIA Hopper (sm_90a):
+// split-KV over a thread-block cluster, fed by a ring of bulk copies.
 //
 // Replaces the TPU kernel `paged_attention_kernel` / `_kernel` of
 // src/repro/kernels/paged_attention/paged_attention.py: one query token per
 // sequence attends to its whole context, whose K/V rows live in a shared
 // frame pool and are found through a per-sequence page table (the address
 // translation of the paper, applied to the KV cache).  Same arithmetic:
-// online softmax with fp32 accumulation, masked scores are -1e30 (finite),
-// the result is divided by max(l, 1e-30).
+// online softmax with fp32 accumulation (in base 2: 1 / ln 2 is folded into
+// q's scale), masked scores are -1e30 (finite), the result is divided by
+// max(l, 1e-30).
 //
 // What bounds it on this card: bytes.  Every valid K and V row is read
-// exactly once, sum_b len_b * KVH * D * 2 elements, and there are only
-// 2 * G * D multiply-adds per K/V row pair read, far below the ~295
-// operations per byte at which the tensor cores would become the limit.
+// once, sum_b len_b * KVH * D * 2 elements, and there are only 2 * G * D
+// multiply-adds per K/V row pair read, two orders of magnitude below the
+// ~295 operations per byte at which the tensor cores would become the
+// limit; so the products stay on the CUDA cores in fp32 (an `mma` would buy
+// nothing), and the design is about keeping bytes in flight on enough SMs
+// and keeping the arithmetic's instruction stream short and branch-free.
 //
 // What the design does about it:
-//  * the pools are read in the model's layout (P, ps, KVH, D) through the
-//    strides that are passed in, so no transposed copy of the pool is ever
-//    made (the TPU wrapper transposes the whole pool on each call);
-//  * the TPU grid (batch, kv_head, page) with a sequential page axis and
-//    accumulators in scratch memory becomes one block per (kv_head, batch)
-//    that loops over 32-token tiles; (m, l, acc) stay in registers;
-//  * a tile of K and V is staged in shared memory once, with 16-byte loads,
-//    and shared by all G query heads of the group, one warp per head, so
-//    K/V bytes are fetched once per group and not once per head;
-//  * the block reads its own page-table entries and its length (no scalar
-//    prefetch); tiles wholly past `length` or wholly before the sliding
-//    window are skipped, and masked rows (unmapped page, past the length,
-//    outside the window) are not fetched at all: they are zero-filled in
-//    shared memory and get probability 0, so a -1 entry can never turn
-//    into an address (the TPU kernel clamps it to frame 0 and masks).
-//  * the block always has 8 warps and every thread takes part in the
-//    loads; the next tile's 16-byte loads are issued into registers before
-//    the current tile is computed, so their latency hides behind the
-//    arithmetic (one block has no neighbour on its SM to hide it);
-//  * within a tile, lane t owns token t for the score (a full D-long dot
-//    product against the query kept in shared memory as fp32; the padded
-//    row stride keeps the 16-byte shared loads free of bank conflicts),
-//    and each lane owns D/32 neighbouring output columns for P.V, with the
-//    32 probabilities passed around by warp shuffles.
-// Not done here (later work): split-KV across blocks for small B*KVH,
-// cp.async/TMA bulk loads, tensor-core products.
+//  * split-KV over a cluster: the grid is (N, KVH * head groups, B) with
+//    cluster dims (N, 1, 1).  Block r of a cluster takes the r-th of N equal
+//    shares, in tiles, of the visible range [first, end) of its sequence
+//    (computed here from `lengths` and `window`); shares that fall wholly
+//    before the window or past the length load nothing.  N is chosen on the
+//    host from shapes alone (`split_plan` in paged_attention.py), so a small
+//    B * KVH still fills the card;
+//  * the splits are combined inside the cluster, not by a second kernel:
+//    each block leaves its (m, l, acc) partial in its own shared memory, and
+//    after a cluster barrier the block of rank 0 reads the others' through
+//    distributed shared memory, in rank order, rescales by exp(m_r - M) and
+//    writes the output.  One launch per call, no scratch in device memory,
+//    no atomics: two calls give identical bits;
+//  * a ring of kStages stages of kTile rows of K and of V in shared memory,
+//    filled by one producer warp with bulk tensor copies
+//    (cp.async.bulk.tensor ... mbarrier::complete_tx) through two tensor
+//    maps that describe the pools in the model layout (P, ps, KVH, D) by
+//    their strides.  One copy moves `seg` = gcd(ps, kTile) rows of one head
+//    (a whole 64-row stage at 256-token pages), addressed through that
+//    segment's page-table entry; a segment never straddles a page.  Each
+//    stage has a "full" mbarrier (expect-tx = the bytes of the segments
+//    copied, set by lane 0 before any copy is issued; a stage with nothing
+//    to copy still arrives) and an "empty" mbarrier on which every consumer
+//    warp arrives when it is done with the stage.  Whole segments, not
+//    rows: a 1-D bulk copy of one 256-byte row costs the copy engine ~60
+//    cycles (measured on an H100), which caps an SM near 7.5 GB/s.
+//  * segments of unmapped pages, or wholly outside [first, end), are never
+//    copied and never turned into an address.  Rows that are masked hold
+//    stale data (or other rows of a copied page), so the consumers drop
+//    them by selects, never by multiplying with p = 0 (0 * NaN is NaN);
+//  * the consumer warps split the tokens of a stage, not the heads: each of
+//    the kTile / 8 warps owns 8 rows and accumulates all the block's query
+//    heads (kG, a template parameter, so the arithmetic has no branches on
+//    the head count), so no warp idles at G = 5.  For the
+//    scores, eight lanes share a row and each keeps its eighth of q for
+//    every head in registers (read from shared memory for every product,
+//    q would make the shared-memory pipe, not the FMAs, set the time); a
+//    lane's 16-byte chunks of a row are every eighth, so the eight lanes
+//    read consecutive bytes.  The softmax runs one head a
+//    lane (lane `part` of each group keeps head `part`'s running max and
+//    sum, in base 2), and each row's probabilities go through shared
+//    memory to P.V, where lane t owns D / 32 neighbouring output columns
+//    of every head.  The warps' partials are combined in warp order with
+//    the same rescaling as the cluster combine.
 //
 // A row for which no position is valid (length <= 0, or every page in
 // reach unmapped) gets the reference's result: its softmax over equal
 // -1e30 scores weighs every position alike, so the output is the mean of
 // the V rows of all NP * ps positions, an unmapped page read as frame 0.
-// Only that case reads a masked row, after the walk.
+// That is decided after the cluster combine (total l == 0), and only that
+// case reads a masked row.
+//
+// Compile-time knobs (tools/paged_decode_sweep.py builds variants of them):
+// REPRO_PA_TILE_BF16 rows a bf16 stage (8 rows a consumer warp),
+// REPRO_PA_STAGES stages, REPRO_PA_MAX_SPLITS the largest cluster the entry
+// points accept (8, the portable limit; the sweep builds 16, which needs
+// the non-portable cluster attribute).
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#ifndef REPRO_PA_TILE_BF16
+#define REPRO_PA_TILE_BF16 64
+#endif
+#ifndef REPRO_PA_STAGES
+#define REPRO_PA_STAGES 4
+#endif
+#ifndef REPRO_PA_MAX_SPLITS
+#define REPRO_PA_MAX_SPLITS 8
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kTile = 32;        // tokens per tile == lanes per warp
-constexpr int kWarps = 8;        // warps per block == query heads per block
-constexpr int kThreads = kWarps * 32;
+constexpr int kStages = REPRO_PA_STAGES;
+constexpr int kRows = 8;           // rows of a stage a consumer warp owns
+constexpr int kParts = 8;          // lanes sharing a row for the scores
+constexpr int kGroups = 32 / kParts;   // rows a warp scores at once
+constexpr int kPasses = kRows / kGroups;
+constexpr int kMaxHeads = 8;       // query heads a block; G > 8 takes more
+constexpr int kMaxSplits = REPRO_PA_MAX_SPLITS;   // largest cluster
+constexpr int kMaxSharedBytes = 232448;
 
-// kCols neighbouring elements of a shared-memory row, read in one access
-template <typename Raw, int kCols>
-struct alignas(sizeof(Raw) * kCols) RawVec { Raw e[kCols]; };
-
-__device__ __forceinline__ float bf16_bits_to_float(unsigned int bits16) {
-  return __uint_as_float(bits16 << 16);
-}
+template <typename Raw, int kN>
+struct alignas(sizeof(Raw) * kN) RawVec { Raw e[kN]; };
 
 template <typename T> struct Elem;
 
 template <> struct Elem<float> {
-  typedef float Raw;                        // storage type of one element
-  static constexpr int kPerChunk = 4;       // elements in 16 bytes
-  __device__ static __forceinline__ float raw_to_float(float r) { return r; }
-  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-  }
+  typedef float Raw;
+  static constexpr int kTile = 32;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  __device__ static __forceinline__ float to_float(float r) { return r; }
   __device__ static __forceinline__ float load(const float* p) { return *p; }
   __device__ static __forceinline__ float from_float(float x) { return x; }
 };
 
 template <> struct Elem<__nv_bfloat16> {
   typedef unsigned short Raw;
-  static constexpr int kPerChunk = 8;
-  __device__ static __forceinline__ float raw_to_float(unsigned short r) {
-    return bf16_bits_to_float(r);
-  }
-  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = bf16_bits_to_float(u.x & 0xffffu); f[1] = __uint_as_float(u.x & 0xffff0000u);
-    f[2] = bf16_bits_to_float(u.y & 0xffffu); f[3] = __uint_as_float(u.y & 0xffff0000u);
-    f[4] = bf16_bits_to_float(u.z & 0xffffu); f[5] = __uint_as_float(u.z & 0xffff0000u);
-    f[6] = bf16_bits_to_float(u.w & 0xffffu); f[7] = __uint_as_float(u.w & 0xffff0000u);
+  static constexpr int kTile = REPRO_PA_TILE_BF16;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static __forceinline__ float to_float(unsigned short r) {
+    return __uint_as_float(static_cast<unsigned int>(r) << 16);
   }
   __device__ static __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
@@ -101,236 +139,626 @@ template <> struct Elem<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Byte offsets into the block's dynamic shared memory.  The warps'
+// partials reuse the ring once every stage is consumed.
+template <typename T, int D, int kG>
+struct Layout {
+  static constexpr int kTile = Elem<T>::kTile;
+  static constexpr int kWarps = kTile / kRows;           // consumer warps
+  static constexpr int kRowBytes = D * (int)sizeof(T);
+  static constexpr int kStageBytes = kTile * kRowBytes;  // K (or V) of one
+  static constexpr int kMasks = kTile / 32;       // valid-row words a stage
+  static constexpr int kRing = 2 * kStages * kStageBytes;  // K, then V
+  static constexpr int kWarpAcc = 0;              // f32 [W][kG][D], in ring
+  static constexpr int kWarpML = kWarpAcc + kWarps * kG * D * 4;  // [W][kG][2]
+  static constexpr int kQ = kRing;                // f32 [kG][D]
+  static constexpr int kBlockAcc = kQ + kG * D * 4;        // f32 [kG][D]
+  static constexpr int kBlockML = kBlockAcc + kG * D * 4;  // f32 [kG][2]
+  static constexpr int kMask = kBlockML + ((kG * 2 * 4 + 15) / 16) * 16;
+  static constexpr int kP = kMask + ((kStages * kMasks * 4 + 15) / 16) * 16;
+  // f32 [W][kRows][8]: a warp's probabilities of a stage, for P.V
+  static constexpr int kBars = kP + kWarps * kRows * 8 * 4;
+  static constexpr int kBytes = kBars + 2 * kStages * 8;   // full, empty
+  static_assert(kWarpML + kWarps * kG * 2 * 4 <= kRing, "partials fit");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-// grid (KVH, B, ceil(G / kWarps)), block (kThreads).
-// q, out: (B, KVH * G, D) contiguous.  k_pool, v_pool: (P, ps, KVH, D) with
-// element strides (stride_p, stride_t, stride_h) and unit stride over D.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// one box {D, 1, seg, 1} of a pool -> this block's shared memory,
+// completion on `bar`; coordinates innermost first
+__device__ __forceinline__ void bulk_copy_box(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              int kvh, int tok, int frame,
+                                              uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(kvh),
+         "r"(tok), "r"(frame), "r"(bar)
+      : "memory");
+}
+
+// grid (N, KVH * ceil(G / kG), B), cluster (N, 1, 1), block
+// (kTile / kRows + 1) warps.  q, out: (B, KVH * G, D) contiguous.
+// k_map, v_map: the pools (P, ps, KVH, D) as 4-d tensor maps, box
+// {D, 1, seg, 1}; v_pool, with element strides (stride_p, stride_t,
+// stride_h), is read directly only where no position is valid.
+template <typename T, int D, int kG>
+__global__ void __launch_bounds__((Elem<T>::kTile / kRows + 1) * 32, 1)
+paged_attention_kernel(
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const T* __restrict__ q,
     const T* __restrict__ v_pool, const int* __restrict__ page_table,
-    const int* __restrict__ lengths, T* __restrict__ out,
-    int G, int NP, int ps, long long stride_p, long long stride_t,
+    const int* __restrict__ lengths, T* __restrict__ out, int G, int NP,
+    int ps, int seg, long long stride_p, long long stride_t,
     long long stride_h, int window, float scale) {
+  typedef Layout<T, D, kG> L;
   typedef typename Elem<T>::Raw Raw;
-  constexpr int kRowBytes = D * (int)sizeof(T);
-  constexpr int kRowStride = kRowBytes + 16;     // pad: conflict-free 16-byte reads
-  constexpr int kChunks = kRowBytes / 16;        // 16-byte chunks per row
-  constexpr int kPerChunk = Elem<T>::kPerChunk;
-  constexpr int kCols = D >= 32 ? D / 32 : 1;    // output columns per lane
-  constexpr int kTileChunks = kTile * kChunks;   // 16-byte loads per tile (K)
-  constexpr int kTasks = (kTileChunks + kThreads - 1) / kThreads;
+  constexpr int kTile = L::kTile;
+  constexpr int kWarps = L::kWarps;
+  constexpr int kThreads = (kWarps + 1) * 32;
+  constexpr int kSlice = D / kParts;             // elements of a row a lane
+  constexpr int kVecBytes =
+      kSlice * (int)sizeof(T) < 16 ? kSlice * (int)sizeof(T) : 16;
+  constexpr int kVec = kVecBytes / (int)sizeof(T);
+  constexpr int kChunks = kSlice / kVec;         // a lane's chunks of a row
+  constexpr int kCols = D >= 32 ? D / 32 : 1;    // P.V columns a lane
+  static_assert(kTile % 32 == 0 && kWarps >= 1, "tile");
+  static_assert(D % kParts == 0 && kSlice % kVec == 0, "slice of a row");
 
-  __shared__ __align__(16) unsigned char k_sm[kTile * kRowStride];
-  __shared__ __align__(16) unsigned char v_sm[kTile * kRowStride];
-  __shared__ __align__(16) float q_sm[kWarps * D];
-  __shared__ int valid_sm[kTile];
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_sm = reinterpret_cast<float*>(smem + L::kQ);
+  float* warp_acc = reinterpret_cast<float*>(smem + L::kWarpAcc);
+  float* warp_ml = reinterpret_cast<float*>(smem + L::kWarpML);
+  float* block_acc = reinterpret_cast<float*>(smem + L::kBlockAcc);
+  float* block_ml = reinterpret_cast<float*>(smem + L::kBlockML);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L::kMask);
+  float* p_sm = reinterpret_cast<float*>(smem + L::kP);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  // full[s] = bars[s], empty[s] = bars[kStages + s]
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int KVH = gridDim.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_splits = (int)cluster.num_blocks();
+  const int head_groups = (G + kG - 1) / kG;
+  const int kvh = blockIdx.y / head_groups;
+  const int g0 = (blockIdx.y - kvh * head_groups) * kG;
+  const int KVH = gridDim.y / head_groups;
+  const int gcount = G - g0 < kG ? G - g0 : kG;
+  const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = blockIdx.z * kWarps + warp;      // query head within the group
-  const bool head_ok = g < G;
-  const long long q_off = ((long long)b * KVH * G + (long long)kvh * G + g) * D;
+  const long long q_base =
+      ((long long)b * KVH * G + (long long)kvh * G + g0) * D;
 
-  if (head_ok) {
-    for (int d = lane; d < D; d += 32)
-      q_sm[warp * D + d] = Elem<T>::load(q + q_off + d) * scale;
+  for (int i = threadIdx.x; i < kG * D; i += kThreads)
+    q_sm[i] = i / D < gcount ? Elem<T>::load(q + q_base + i) * scale : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + kStages + s), kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
+  // this block's share of the visible range, in whole tiles
   const int length = lengths[b];
   const int cap = NP * ps;
   const int end = length < cap ? length : cap;
   int first = 0;
   if (window > 0 && length - window > 0) first = length - window;
   const int* pt = page_table + (long long)b * NP;
+  const int t_start = (first / kTile) * kTile;
+  const int n_tiles = end > t_start ? (end - t_start + kTile - 1) / kTile : 0;
+  const int per = (n_tiles + n_splits - 1) / n_splits;
+  const int tile_lo = rank * per < n_tiles ? rank * per : n_tiles;
+  const int tile_hi = tile_lo + per < n_tiles ? tile_lo + per : n_tiles;
 
-  // this thread's share of a tile: kTasks (row, chunk) pairs of K and of V
-  uint4 k_reg[kTasks], v_reg[kTasks];
-  bool ok_reg[kTasks];
-  auto fetch = [&](int t0) {
+  // consumers: the P.V accumulators of every head, and the running max and
+  // sum of one head (lane `part` of each group of kParts lanes: head
+  // `part`)
+  float acc[kG][kCols];
 #pragma unroll
-    for (int i = 0; i < kTasks; ++i) {
-      const int c = threadIdx.x + i * kThreads;
-      const int r = c / kChunks;
-      const int ch = c - r * kChunks;
-      const int pos = t0 + r;
-      k_reg[i] = make_uint4(0u, 0u, 0u, 0u);
-      v_reg[i] = k_reg[i];
-      ok_reg[i] = false;
-      if (c < kTileChunks && pos < end && pos >= first) {
-        const int page = pos / ps;
-        const int entry = pt[page];
-        if (entry >= 0) {
-          ok_reg[i] = true;
-          const long long off = (long long)entry * stride_p
-              + (long long)(pos - page * ps) * stride_t
-              + (long long)kvh * stride_h + (long long)ch * kPerChunk;
-          k_reg[i] = *reinterpret_cast<const uint4*>(k_pool + off);
-          v_reg[i] = *reinterpret_cast<const uint4*>(v_pool + off);
-        }
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[g][c] = 0.f;
+  float m_own = kNegInf, l_own = 0.f;
+
+  if (warp == kWarps) {
+    // ---------------------------------------------------------- producer
+    // lane j copies segment j of each tile (n_seg <= 32, checked on the
+    // host); its page-table entry is read one tile ahead
+    const int n_seg = kTile / seg;
+    const int seg_shift = __ffs(seg) - 1;       // seg is a power of two
+    const uint32_t seg_bytes = (uint32_t)(seg * L::kRowBytes);
+    auto seg_frame = [&](int i) -> int {
+      const int p0 = t_start + i * kTile + lane * seg;
+      return lane < n_seg && p0 < end && p0 + seg > first ? pt[p0 / ps] : -1;
+    };
+    int frame_next = tile_lo < tile_hi ? seg_frame(tile_lo) : -1;
+    for (int i = tile_lo; i < tile_hi; ++i) {
+      const int k = i - tile_lo;
+      const int s = k % kStages;
+      const uint32_t round = (uint32_t)(k / kStages);
+      const int t0 = t_start + i * kTile;
+      const int frame = frame_next;
+      if (i + 1 < tile_hi) frame_next = seg_frame(i + 1);
+      uint32_t word[L::kMasks];               // a row: mapped and in range
+#pragma unroll
+      for (int j = 0; j < L::kMasks; ++j) {
+        const int r = lane + 32 * j;
+        const int fr = __shfl_sync(0xffffffffu, frame, r >> seg_shift);
+        word[j] = __ballot_sync(0xffffffffu, fr >= 0 && t0 + r >= first
+                                && t0 + r < end);
+      }
+      const int n_copies = __popc(__ballot_sync(0xffffffffu, frame >= 0));
+      mbar_wait(smem_u32(bars + kStages + s), (round & 1u) ^ 1u);
+      const uint32_t full = smem_u32(bars + s);
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < L::kMasks; ++j) masks[s * L::kMasks + j] = word[j];
+        mbar_arrive_expect_tx(full, (uint32_t)n_copies * 2u * seg_bytes);
+      }
+      __syncwarp();
+      if (frame >= 0) {
+        const int p0 = t0 + lane * seg;
+        const int tok = p0 - (p0 / ps) * ps;
+        const int at = s * L::kStageBytes + lane * (int)seg_bytes;
+        bulk_copy_box(smem_u32(smem + at), &k_map, kvh, tok, frame, full);
+        bulk_copy_box(smem_u32(smem + kStages * L::kStageBytes + at), &v_map,
+                      kvh, tok, frame, full);
       }
     }
-  };
-
-  float m = kNegInf;
-  float l = 0.f;                                 // this lane's share of the sum
-  float acc[kCols];
+  } else {
+    // --------------------------------------------------------- consumers
+    // scores: the lanes of a group of kParts share a row; lane `part` owns
+    // the 16-byte chunks part, part + kParts, ... of every row, so a
+    // group's reads of one row are consecutive (no bank conflict), and its
+    // slice of q for every head stays in registers
+    const int grp = lane / kParts;
+    const int part = lane % kParts;
+    const int col = lane * kCols < D ? lane * kCols : 0;   // D == 16: half
+    float qr[kG][kSlice];
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
-
-  int t0 = (first / kTile) * kTile;
-  if (t0 < end) fetch(t0);
-  for (; t0 < end; t0 += kTile) {
-    __syncthreads();       // the previous tile is consumed; q_sm is written
+    for (int g = 0; g < kG; ++g)
 #pragma unroll
-    for (int i = 0; i < kTasks; ++i) {
-      const int c = threadIdx.x + i * kThreads;
-      if (c < kTileChunks) {
-        const int r = c / kChunks;
-        const int ch = c - r * kChunks;
-        *reinterpret_cast<uint4*>(k_sm + r * kRowStride + ch * 16) = k_reg[i];
-        *reinterpret_cast<uint4*>(v_sm + r * kRowStride + ch * 16) = v_reg[i];
-        if (ch == 0) valid_sm[r] = ok_reg[i] ? 1 : 0;
-      }
-    }
-    __syncthreads();
-    if (t0 + kTile < end) fetch(t0 + kTile);     // in flight during the math
-
-    if (head_ok) {
-      const bool valid = valid_sm[lane] != 0;
-      float s = kNegInf;
-      if (valid) {
-        const unsigned char* krow = k_sm + lane * kRowStride;
-        const float4* qw = reinterpret_cast<const float4*>(q_sm + warp * D);
-        // four independent partial sums: with one or two warps on a
-        // scheduler a single chain of 128 dependent FMAs would stall it
-        float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+      for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(krow + ch * 16);
-          float kf[kPerChunk];
-          Elem<T>::unpack(raw, kf);
+        for (int e = 0; e < kVec; ++e)
+          qr[g][c * kVec + e] = q_sm[g * D + (part + kParts * c) * kVec + e];
+    for (int i = tile_lo; i < tile_hi; ++i) {
+      const int k = i - tile_lo;
+      const int s = k % kStages;
+      const uint32_t round = (uint32_t)(k / kStages);
+      mbar_wait(smem_u32(bars + s), round & 1u);
+      const uint32_t vmask =
+          (masks[s * L::kMasks + (warp * kRows) / 32] >> ((warp * kRows) % 32))
+          & ((1u << kRows) - 1u);
+      if (vmask != 0u) {
+        // every lane computes; a masked row is dropped by a select
+        float sc[kPasses][kG];
+        const unsigned char* kbase = smem + s * L::kStageBytes
+            + warp * kRows * L::kRowBytes;
 #pragma unroll
-          for (int j = 0; j < kPerChunk / 4; ++j) {
-            const float4 qv = qw[ch * (kPerChunk / 4) + j];
-            d0 = fmaf(qv.x, kf[4 * j + 0], d0);
-            d1 = fmaf(qv.y, kf[4 * j + 1], d1);
-            d2 = fmaf(qv.z, kf[4 * j + 2], d2);
-            d3 = fmaf(qv.w, kf[4 * j + 3], d3);
+        for (int ps_ = 0; ps_ < kPasses; ++ps_) {
+          const unsigned char* krow =
+              kbase + (ps_ * kGroups + grp) * L::kRowBytes;
+#pragma unroll
+          for (int g = 0; g < kG; ++g) sc[ps_][g] = 0.f;
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const RawVec<Raw, kVec> kv = *reinterpret_cast<
+                const RawVec<Raw, kVec>*>(krow + (part + kParts * c)
+                                          * kVecBytes);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) {
+              const float kf = Elem<T>::to_float(kv.e[e]);
+#pragma unroll
+              for (int g = 0; g < kG; ++g)
+                sc[ps_][g] = fmaf(qr[g][c * kVec + e], kf, sc[ps_][g]);
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+#pragma unroll
+            for (int o = 1; o < kParts; o <<= 1)
+              sc[ps_][g] += __shfl_xor_sync(0xffffffffu, sc[ps_][g], o);
+            if (!((vmask >> (ps_ * kGroups + grp)) & 1u)) sc[ps_][g] = kNegInf;
           }
         }
-        const float dot = (d0 + d1) + (d2 + d3);
-        s = dot;
+        // softmax in base 2 (q carries 1 / ln 2), one head a lane: lane
+        // `part` of each group keeps the running max and sum of head
+        // `part` over its group's rows; each row's probabilities go to
+        // shared memory, where every lane reads them for P.V
+        float* p_warp = p_sm + warp * kRows * 8;   // [row][head]
+        float own[kPasses];
+#pragma unroll
+        for (int ps_ = 0; ps_ < kPasses; ++ps_) {
+          own[ps_] = sc[ps_][0];
+#pragma unroll
+          for (int g = 1; g < kG; ++g)
+            if (part == g) own[ps_] = sc[ps_][g];
+        }
+        float mt = own[0];
+#pragma unroll
+        for (int ps_ = 1; ps_ < kPasses; ++ps_) mt = fmaxf(mt, own[ps_]);
+#pragma unroll
+        for (int o = kParts; o < 32; o <<= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+        float corr = 1.f;
+        const bool moved = mt > m_own;
+        if (moved) {
+          corr = exp2f(m_own - mt);
+          l_own *= corr;
+          m_own = mt;
+        }
+        if (__any_sync(0xffffffffu, moved)) {   // a head's max moved
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            const float cg = __shfl_sync(0xffffffffu, corr, g);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) acc[g][c] *= cg;
+          }
+        }
+#pragma unroll
+        for (int ps_ = 0; ps_ < kPasses; ++ps_) {
+          const bool valid = (vmask >> (ps_ * kGroups + grp)) & 1u;
+          const float pv = valid ? exp2f(own[ps_] - m_own) : 0.f;
+          if (part < kG) p_warp[(ps_ * kGroups + grp) * 8 + part] = pv;
+          l_own += pv;
+        }
+        __syncwarp();
+        // P.V: every row is read, a masked row's values become 0 by a select
+        const unsigned char* vbase = smem + (kStages + s) * L::kStageBytes
+            + warp * kRows * L::kRowBytes + col * (int)sizeof(T);
+#pragma unroll
+        for (int t = 0; t < kRows; ++t) {
+          const bool vt = (vmask >> t) & 1u;
+          const RawVec<Raw, kCols> vv = *reinterpret_cast<
+              const RawVec<Raw, kCols>*>(vbase + t * L::kRowBytes);
+          float vf[kCols];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            vf[c] = vt ? Elem<T>::to_float(vv.e[c]) : 0.f;
+          float pg[kG];
+#pragma unroll
+          for (int g = 0; g + 4 <= kG; g += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(
+                p_warp + t * 8 + g);
+            pg[g] = p4.x; pg[g + 1] = p4.y; pg[g + 2] = p4.z; pg[g + 3] = p4.w;
+          }
+#pragma unroll
+          for (int g = kG / 4 * 4; g < kG; ++g) pg[g] = p_warp[t * 8 + g];
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+#pragma unroll
+            for (int c = 0; c < kCols; ++c)
+              acc[g][c] = fmaf(pg[g], vf[c], acc[g][c]);
+          }
+        }
       }
-      const float m_new = fmaxf(m, warp_max(s));
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float corr = expf(m - m_new);
-      l = l * corr + p;
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) acc[i] *= corr;
-      // P.V without a branch and fully unrolled, so that the shuffles and
-      // shared loads of all 32 tokens can be in flight together; masked
-      // rows are zero in shared memory and have p == 0
-      const int col = lane * kCols < D ? lane * kCols : 0;   // D == 16: half idle
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        const float pt_t = __shfl_sync(0xffffffffu, p, t);
-        const RawVec<Raw, kCols> vv = *reinterpret_cast<
-            const RawVec<Raw, kCols>*>(v_sm + t * kRowStride
-                                       + col * (int)sizeof(T));
-#pragma unroll
-        for (int i = 0; i < kCols; ++i)
-          acc[i] = fmaf(pt_t, Elem<T>::raw_to_float(vv.e[i]), acc[i]);
-      }
-      m = m_new;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(bars + kStages + s));
     }
   }
+  __syncthreads();         // every stage is consumed: the ring is free
 
-  if (head_ok) {
-    const float lsum = warp_sum(l);        // >= 1 once a position is valid
-    float denom = fmaxf(lsum, 1e-30f);
-    if (lsum == 0.f) {               // no valid position (see the header)
-      const int col = lane * kCols < D ? lane * kCols : 0;
+  if (warp < kWarps) {     // this warp's partial
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
-      for (int pos = 0; pos < cap; ++pos) {
-        const int page = pos / ps;
-        const int entry = pt[page] > 0 ? pt[page] : 0;
-        const T* vrow = v_pool + (long long)entry * stride_p
-            + (long long)(pos - page * ps) * stride_t
-            + (long long)kvh * stride_h + col;
+    for (int o = kParts; o < 32; o <<= 1)      // head `part`'s sum
+      l_own += __shfl_xor_sync(0xffffffffu, l_own, o);
+    if (lane < kG) {
+      warp_ml[(warp * kG + lane) * 2] = m_own;
+      warp_ml[(warp * kG + lane) * 2 + 1] = l_own;
+    }
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) acc[i] += Elem<T>::load(vrow + i);
+    for (int g = 0; g < kG; ++g) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int d = lane * kCols + c;
+        if (d < D) warp_acc[(warp * kG + g) * D + d] = acc[g][c];
       }
-      denom = (float)cap;
     }
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int d = lane * kCols + i;
-      if (d < D) out[q_off + d] = Elem<T>::from_float(acc[i] / denom);
+  }
+  __syncthreads();
+
+  // the block's partial: its warps combined in warp order
+  for (int i = threadIdx.x; i < gcount * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i - g * D;
+    float M = kNegInf;
+    for (int w = 0; w < kWarps; ++w)
+      M = fmaxf(M, warp_ml[(w * kG + g) * 2]);
+    float lsum = 0.f, a = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(warp_ml[(w * kG + g) * 2] - M);
+      lsum += warp_ml[(w * kG + g) * 2 + 1] * f;
+      a += warp_acc[(w * kG + g) * D + d] * f;
     }
+    block_acc[g * D + d] = a;
+    if (d == 0) {
+      block_ml[2 * g] = M;
+      block_ml[2 * g + 1] = lsum;
+    }
+  }
+  cluster.sync();          // every block's partial is written
+
+  if (rank == 0) {         // the cluster's result: ranks in order
+    const long long head_off = (long long)kvh * stride_h;
+    for (int i = threadIdx.x; i < gcount * D; i += kThreads) {
+      const int g = i / D;
+      const int d = i - g * D;
+      float M = kNegInf;
+      for (int r = 0; r < n_splits; ++r)
+        M = fmaxf(M, cluster.map_shared_rank(block_ml, r)[2 * g]);
+      float lsum = 0.f, a = 0.f;
+      for (int r = 0; r < n_splits; ++r) {
+        const float* ml = cluster.map_shared_rank(block_ml, r);
+        const float f = exp2f(ml[2 * g] - M);
+        lsum += ml[2 * g + 1] * f;
+        a += cluster.map_shared_rank(block_acc, r)[g * D + d] * f;
+      }
+      float denom = fmaxf(lsum, 1e-30f);
+      if (lsum == 0.f) {   // no valid position (see the header)
+        a = 0.f;
+        for (int pos = 0; pos < cap; ++pos) {
+          const int page = pos / ps;
+          const int entry = pt[page] > 0 ? pt[page] : 0;
+          a += Elem<T>::load(v_pool + (long long)entry * stride_p
+                             + (long long)(pos - page * ps) * stride_t
+                             + head_off + d);
+        }
+        denom = (float)cap;
+      }
+      out[q_base + g * D + d] = Elem<T>::from_float(a / denom);
+    }
+  }
+  cluster.sync();          // no block leaves while rank 0 reads its memory
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
+// entry-point query (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a pool (P, ps, KVH, D) with element strides (sp, st, sh, 1) as a 4-d map
+// (innermost first) whose box is one head's `seg` rows of one page
+template <typename T>
+bool pool_map(CUtensorMap* map, const void* pool, int P, int ps, int KVH,
+              int D, int seg, long long sp, long long st, long long sh) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t es = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)KVH, (cuuint64_t)ps,
+                              (cuuint64_t)P};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * es, (cuuint64_t)st * es,
+                                 (cuuint64_t)sp * es};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1u, (cuuint32_t)seg, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return fn(map, Elem<T>::kMapType, 4, const_cast<void*>(pool), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+template <typename T, int D, int kG>
+using KernelFn = void (*)(const CUtensorMap, const CUtensorMap, const T*,
+                          const T*, const int*, const int*, T*, int, int, int,
+                          int, long long, long long, long long, int, float);
+
+// the instance's launch attributes, set once per device: its dynamic shared
+// memory (and, in a build for clusters above the portable 8, those)
+template <typename T, int D, int kG>
+cudaError_t prepare(KernelFn<T, D, kG>* kern) {
+  typedef Layout<T, D, kG> L;
+  *kern = paged_attention_kernel<T, D, kG>;
+  if (L::kBytes > kMaxSharedBytes) return cudaErrorInvalidValue;
+  static unsigned int configured = 0u;        // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32 || !((configured >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(*kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err != cudaSuccess) return err;
+    if (kMaxSplits > 8) {
+      err = cudaFuncSetAttribute(
+          *kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    if (dev < 32) configured |= 1u << dev;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int D, int kG>
+cudaLaunchConfig_t cluster_config(int grid_y, int grid_z, int n_splits,
+                                  cudaLaunchAttribute* attr) {
+  typedef Layout<T, D, kG> L;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_splits, grid_y, grid_z);
+  cfg.blockDim = dim3((L::kWarps + 1) * 32);
+  cfg.dynamicSmemBytes = L::kBytes;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n_splits;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+struct LaunchArgs {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const int* page_table;
+  const int* lengths;
+  void* out;
+  int B, KVH, G, P, NP, ps;
+  long long stride_p, stride_t, stride_h;
+  int window, n_splits;
+  cudaStream_t stream;
+
+  template <typename T, int D, int kG>
+  cudaError_t run() const {
+    typedef Layout<T, D, kG> L;
+    KernelFn<T, D, kG> kern;
+    cudaError_t err = prepare<T, D, kG>(&kern);
+    if (err != cudaSuccess) return err;
+    const int seg = gcd(ps, L::kTile);
+    if ((seg * L::kRowBytes) % 128 != 0 || L::kTile / seg > 32)
+      return cudaErrorInvalidValue;
+    CUtensorMap k_map, v_map;
+    if (!pool_map<T>(&k_map, k_pool, P, ps, KVH, D, seg, stride_p, stride_t,
+                     stride_h)
+        || !pool_map<T>(&v_map, v_pool, P, ps, KVH, D, seg, stride_p,
+                        stride_t, stride_h))
+      return cudaErrorInvalidValue;
+    const int head_groups = (G + kG - 1) / kG;
+    if ((long long)KVH * head_groups > 65535) return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg =
+        cluster_config<T, D, kG>(KVH * head_groups, B, n_splits, &attr);
+    cfg.stream = stream;
+    // scores in log2 units: softmax by exp2 (1 / ln 2 folded into q's scale)
+    const float scale = 1.4426950408889634f / sqrtf((float)D);
+    err = cudaLaunchKernelEx(&cfg, kern, k_map, v_map, (const T*)q,
+                             (const T*)v_pool, page_table, lengths, (T*)out,
+                             G, NP, ps, seg, stride_p, stride_t, stride_h,
+                             window, scale);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
+};
+
+// how many clusters of n_splits blocks of an instance fit on the device at
+// once (the SMs of a cluster must share a GPC)
+struct ClusterQuery {
+  int n_splits;
+  int* count;
+
+  template <typename T, int D, int kG>
+  cudaError_t run() const {
+    KernelFn<T, D, kG> kern;
+    cudaError_t err = prepare<T, D, kG>(&kern);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config<T, D, kG>(1, 1, n_splits, &attr);
+    return cudaOccupancyMaxActiveClusters(count, kern, &cfg);
+  }
+};
+
+// query heads a block: the group size where it is instantiated, else the
+// next one up (the extra heads have q = 0 and are not written); above 8,
+// groups of 8 in several blocks.  Each instance has no branch on the count.
+template <typename T, int D, class Op>
+cudaError_t dispatch_heads(int G, const Op& op) {
+  if (G == 1) return op.template run<T, D, 1>();
+  if (G == 2) return op.template run<T, D, 2>();
+  if (G <= 4) return op.template run<T, D, 4>();
+  if (G == 5) return op.template run<T, D, 5>();
+  return op.template run<T, D, kMaxHeads>();
+}
+
+template <typename T, class Op>
+cudaError_t dispatch_dim(int D, int G, const Op& op) {
+  switch (D) {
+    case 16: return dispatch_heads<T, 16>(G, op);
+    case 32: return dispatch_heads<T, 32>(G, op);
+    case 64: return dispatch_heads<T, 64>(G, op);
+    case 128: return dispatch_heads<T, 128>(G, op);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_for_dtype(
-    const void* q, const void* k_pool, const void* v_pool,
-    const int* page_table, const int* lengths, void* out,
-    int B, int KVH, int G, int D, int NP, int ps,
-    long long stride_p, long long stride_t, long long stride_h,
-    int window, cudaStream_t stream) {
-  const dim3 grid(KVH, B, (G + kWarps - 1) / kWarps);
-  const dim3 block(kThreads);
-  const float scale = 1.0f / sqrtf((float)D);
-#define REPRO_LAUNCH(DD)                                                     \
-  paged_attention_kernel<T, DD><<<grid, block, 0, stream>>>(                 \
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, page_table, lengths,  \
-      (T*)out, G, NP, ps, stride_p, stride_t, stride_h, window, scale)
-  switch (D) {
-    case 16: REPRO_LAUNCH(16); break;
-    case 32: REPRO_LAUNCH(32); break;
-    case 64: REPRO_LAUNCH(64); break;
-    case 128: REPRO_LAUNCH(128); break;
-    default: return cudaErrorInvalidValue;
-  }
-#undef REPRO_LAUNCH
-  return cudaGetLastError();
+// dtype_code: 0 = float32, 1 = bfloat16
+template <class Op>
+cudaError_t dispatch(int dtype_code, int D, int G, const Op& op) {
+  if (G <= 0) return cudaErrorInvalidValue;
+  if (dtype_code == 0) return dispatch_dim<float>(D, G, op);
+  if (dtype_code == 1) return dispatch_dim<__nv_bfloat16>(D, G, op);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the
-// launch (0 on success); nothing is synchronised.
+// dtype_code: 0 = float32, 1 = bfloat16.  P: frames in the pools.
+// n_splits: blocks a cluster (1..kMaxSplits), chosen by the caller.
+// Returns the cudaError_t of the launch (0 on success); nothing is
+// synchronised.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* lengths, void* out,
-    int B, int KVH, int G, int D, int NP, int ps,
+    int B, int KVH, int G, int D, int P, int NP, int ps,
     long long stride_p, long long stride_t, long long stride_h,
-    int window, int dtype_code, void* stream) {
-  if (B <= 0 || KVH <= 0 || G <= 0 || NP <= 0 || ps <= 0)
+    int window, int n_splits, int dtype_code, void* stream) {
+  if (B <= 0 || B > 65535 || KVH <= 0 || P <= 0 || NP <= 0 || ps <= 0
+      || n_splits < 1 || n_splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* pt = (const int*)page_table;
-  const int* ln = (const int*)lengths;
-  if (dtype_code == 0)
-    return (int)launch_for_dtype<float>(q, k_pool, v_pool, pt, ln, out, B, KVH,
-                                        G, D, NP, ps, stride_p, stride_t,
-                                        stride_h, window, s);
-  if (dtype_code == 1)
-    return (int)launch_for_dtype<__nv_bfloat16>(q, k_pool, v_pool, pt, ln, out,
-                                                B, KVH, G, D, NP, ps, stride_p,
-                                                stride_t, stride_h, window, s);
-  return (int)cudaErrorInvalidValue;
+  const LaunchArgs args = {q, k_pool, v_pool, (const int*)page_table,
+                           (const int*)lengths, out, B, KVH, G, P, NP, ps,
+                           stride_p, stride_t, stride_h, window, n_splits,
+                           (cudaStream_t)stream};
+  return (int)dispatch(dtype_code, D, G, args);
+}
+
+// *count = clusters of n_splits blocks of the (dtype, D, G) instance that
+// fit on the current device at once.  Returns a cudaError_t.
+extern "C" int repro_paged_attention_active_clusters(
+    int n_splits, int D, int G, int dtype_code, int* count) {
+  if (n_splits < 1 || n_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
+  const ClusterQuery query = {n_splits, count};
+  return (int)dispatch(dtype_code, D, G, query);
 }

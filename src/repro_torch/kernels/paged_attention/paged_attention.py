@@ -4,9 +4,24 @@ Counterpart of the reference's Pallas ``paged_attention_kernel``, with one
 difference in layout: this kernel reads the pools in the **model layout**
 ``(P, ps, KVH, D)`` through their strides, so no caller ever transposes a
 pool.  CUDA tensors only; :mod:`.ops` routes CPU tensors to :mod:`.ref`.
+
+The kernel splits each sequence's context over a cluster of ``N`` blocks
+and combines the partial softmaxes inside the cluster (one launch a call).
+``N`` comes from :func:`split_plan`, from shapes alone: the lengths live on
+the device, and reading them would synchronise.
+
+Page sizes: a bulk copy moves ``gcd(ps, tile)`` rows of one head (``tile``
+= 64 rows in bf16, 32 in f32), which must span a multiple of 128 bytes, and
+a stage takes at most 32 copies (:func:`bulk_segment`).  So bf16 serves
+even page sizes (multiples of 4 at head_dim 16) and f32 any page size (even
+ones at head_dim 16); other sizes raise.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 import torch
 
@@ -15,6 +30,59 @@ from repro_torch.kernels._build import check_launch, load_library
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# rows of K and of V a ring stage holds (csrc/paged_attention.cu's kTile)
+TILE_ROWS = {torch.float32: 32, torch.bfloat16: 64}
+HEADS_PER_BLOCK = 8          # query heads a block at most (kMaxHeads)
+MAX_CLUSTER = 8              # the portable cluster size; the kernel's limit
+
+
+def split_plan(B: int, KVH: int, NP: int, ps: int, n_sm: int,
+               max_cluster: int = MAX_CLUSTER, *, active_clusters,
+               tile_rows: int = 64, head_groups: int = 1) -> int:
+    """Blocks a cluster (``N``) for a call, from shapes only: the largest
+    power of two, at most ``max_cluster`` and at most the tiles of the
+    ``NP * ps`` capacity, whose ``B * KVH * head_groups`` clusters all fit
+    on the card at once (``active_clusters(N)``: clusters of N blocks that
+    the device holds at once); 1 where the clusters of one block already
+    fill the card.  Clusters that do not fit would run in a second wave,
+    as long as the first."""
+    clusters = B * KVH * head_groups
+    tiles = -(-(NP * ps) // tile_rows)
+    n = 1
+    while (2 * n <= min(max_cluster, tiles) and clusters < n_sm
+           and clusters <= active_clusters(2 * n)):
+        n *= 2
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(device_index: int, n_splits: int, D: int, G: int,
+                    dtype) -> int:
+    """Clusters of ``n_splits`` blocks of the kernel for (dtype, D, G) that
+    the device holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = load_library().repro_paged_attention_active_clusters(
+            n_splits, D, G, _DTYPE_CODES[dtype], ctypes.byref(count))
+    check_launch(code, "paged_attention occupancy query")
+    return count.value
+
+
+@functools.lru_cache(maxsize=None)
+def plan_splits(device_index: int, B: int, KVH: int, G: int, D: int, NP: int,
+                ps: int, dtype) -> int:
+    """:func:`split_plan` for a call on a device, with the device's own
+    count of co-resident clusters."""
+    return split_plan(
+        B, KVH, NP, ps, sm_count(device_index), tile_rows=TILE_ROWS[dtype],
+        head_groups=-(-G // HEADS_PER_BLOCK),
+        active_clusters=lambda n: active_clusters(device_index, n, D, G,
+                                                  dtype))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -22,10 +90,25 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attention_kernel: {msg}")
 
 
+def bulk_segment(ps: int, D: int, dtype) -> int:
+    """Rows one bulk copy moves at page size ``ps``: ``gcd(ps, tile)``.
+    Raises where its bytes are not a multiple of 128 (a bulk tensor copy's
+    shared-memory alignment) or a stage would need more than 32 copies
+    (one a producer lane)."""
+    tile = TILE_ROWS[dtype]
+    seg = math.gcd(ps, tile)
+    _require(seg * D * dtype.itemsize % 128 == 0 and 32 * seg >= tile,
+             f"page size {ps}: a bulk copy of {seg} rows of {D} elements "
+             f"is not a multiple of 128 bytes, or a stage needs more than 32")
+    return seg
+
+
 def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths, *,
-                           window: int = 0):
+                           window: int = 0, n_splits=None):
     """q: (B, H, D); k/v_pool: (P, ps, KVH, D); page_table: (B, NP) int32
     (-1 = unmapped); lengths: (B,) int32.  Returns (B, H, D) in q's dtype.
+    ``n_splits`` (blocks a cluster) overrides :func:`split_plan`; only
+    checks of the kernel set it.
 
     Launches on the current stream and does not synchronise.  Raises on
     anything the kernel does not take; never falls back.
@@ -67,13 +150,20 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths, *,
     G = H // KVH
     NP = page_table.shape[1]
     _require(NP * ps < 2 ** 31, "context capacity overflows int32")
+    if n_splits is None:
+        n_splits = plan_splits(q.device.index if q.device.index is not None
+                               else torch.cuda.current_device(),
+                               B, KVH, G, D, NP, ps, q.dtype)
+    _require(1 <= n_splits <= MAX_CLUSTER,
+             f"n_splits {n_splits} not in 1..{MAX_CLUSTER}")
+    bulk_segment(ps, D, q.dtype)
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.repro_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, KVH, G, D, NP, ps, sp, st, sh, int(window),
+            B, KVH, G, D, P, NP, ps, sp, st, sh, int(window), int(n_splits),
             _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "paged_attention")

@@ -35,7 +35,8 @@ from repro_torch.kernels.page_pack.ref import (page_gather_ref,
                                                page_scatter_ref)
 from repro_torch.kernels.paged_attention import paged_attention as pa_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_attention_split_ref)
 from repro_torch.models.attention_ops import paged_attention_scan
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -203,6 +204,203 @@ class TestPagedAttentionPlain:
             jnp.asarray(ln.numpy()), interpret=True)
         np.testing.assert_allclose(_f32(out), _f32(want), atol=2e-5,
                                    rtol=2e-5)
+
+
+_JAX_RESULTS = {}
+
+
+def _jax_once(key, *args, **kw):
+    """The JAX kernel (interpret mode) and oracle on one input set, computed
+    once per key: the split cases reuse them for every ``n_splits``."""
+    if key not in _JAX_RESULTS:
+        _JAX_RESULTS[key] = _jax_kernel_and_ref(*args, **kw)
+    return _JAX_RESULTS[key]
+
+
+SPLITS = [1, 2, 3, 8, 16]
+# (rows a tile, consumer warps): the kernel's bf16 and f32 tilings (8 rows
+# a warp), and a small one under which the tests' short contexts span
+# several tiles and splits
+TILINGS = [(64, 8), (32, 4), (4, 2)]
+
+
+class TestPagedAttentionSplit:
+    """The CUDA kernel's algorithm (visible range -> splits -> tiles ->
+    warp slices, two-level rank-order combine) in plain torch, held to the
+    reference's Pallas kernel and oracle at the same tolerances."""
+
+    @staticmethod
+    def _check(out, want, name):
+        for w in want:
+            np.testing.assert_allclose(_f32(out), _f32(w), **_tol(name))
+
+    @pytest.mark.parametrize("tiling", TILINGS, ids=["t64w8", "t32w4", "t4w2"])
+    @pytest.mark.parametrize("n_splits", SPLITS)
+    @pytest.mark.parametrize("B,H,KVH,D,ps,NP", PAGED_SHAPES)
+    @pytest.mark.parametrize("name", ["float32", "bfloat16"])
+    def test_matches_reference(self, B, H, KVH, D, ps, NP, name, n_splits,
+                               tiling):
+        (jq, tq), (jk, tk_), (jv, tv), (jpt, tpt), (jl, tl) = \
+            _paged_inputs(B, H, KVH, D, ps, NP, name)
+        want = _jax_once(("shape", B, H, KVH, D, ps, NP, name), jq, jk, jv,
+                         jpt, jl)
+        out = paged_attention_split_ref(tq, tk_, tv, tpt, tl,
+                                        n_splits=n_splits,
+                                        tile_rows=tiling[0], warps=tiling[1])
+        assert out.dtype == tq.dtype and out.shape == tq.shape
+        self._check(out, want, name)
+
+    @pytest.mark.parametrize("n_splits", SPLITS)
+    @pytest.mark.parametrize("window", [8, 16])
+    def test_window(self, window, n_splits):
+        B, H, KVH, D, ps, NP = 2, 8, 2, 32, 8, 4
+        (jq, tq), (jk, tk_), (jv, tv), (jpt, tpt), _ = \
+            _paged_inputs(B, H, KVH, D, ps, NP, "float32", seed=1)
+        jl, tl = _both(np.array([NP * ps, NP * ps // 2 + 3], np.int32),
+                       "int32")
+        want = _jax_once(("window", window), jq, jk, jv, jpt, jl,
+                         window=window)
+        for tiling in TILINGS:
+            out = paged_attention_split_ref(
+                tq, tk_, tv, tpt, tl, window=window, n_splits=n_splits,
+                tile_rows=tiling[0], warps=tiling[1])
+            self._check(out, want, "float32")
+
+    @pytest.mark.parametrize("n_splits", SPLITS)
+    @pytest.mark.parametrize("case", ["unmapped_inside", "masked_split",
+                                      "masked_split_window"])
+    def test_masked_rows(self, case, n_splits):
+        """An unmapped page inside the context, and splits that see only
+        masked rows (their pages unmapped, or before the window)."""
+        B, H, KVH, D, ps, NP = 1, 10, 2, 16, 4, 4
+        (jq, tq), (jk, tk_), (jv, tv), _, _ = \
+            _paged_inputs(B, H, KVH, D, ps, NP, "float32", seed=5)
+        pt = np.arange(NP, dtype=np.int32).reshape(1, NP)
+        window = 0
+        if case == "unmapped_inside":
+            pt[0, 2] = -1
+        elif case == "masked_split":
+            pt[0, :2] = -1
+        else:
+            window = 5
+        jpt, tpt = _both(pt, "int32")
+        jl, tl = _both(np.array([NP * ps], np.int32), "int32")
+        want = _jax_once(("masked", case), jq, jk, jv, jpt, jl, window=window)
+        out = paged_attention_split_ref(tq, tk_, tv, tpt, tl, window=window,
+                                        n_splits=n_splits, tile_rows=4,
+                                        warps=2)
+        self._check(out, want, "float32")
+
+    @pytest.mark.parametrize("n_splits", SPLITS)
+    @pytest.mark.parametrize("case", ["length_0", "all_unmapped",
+                                      "window_unmapped"])
+    def test_no_valid_position(self, case, n_splits):
+        """The cases of ``TestPagedAttentionPlain::
+        test_no_valid_position_matches_reference``: decided after the
+        combine, the mean of the V rows of all NP·ps positions."""
+        B, H, KVH, D, ps, NP = 2, 4, 2, 16, 4, 3
+        (jq, tq), (jk, tk_), (jv, tv), _, _ = \
+            _paged_inputs(B, H, KVH, D, ps, NP, "float32", seed=4)
+        pt = np.arange(B * NP, dtype=np.int32).reshape(B, NP)
+        lengths = np.array([5, 9], np.int32)
+        window = 0
+        if case == "length_0":
+            lengths[0] = 0
+        elif case == "all_unmapped":
+            pt[1] = -1
+        else:
+            pt[1, 1:] = -1
+            window = 2
+        jl, tl = _both(lengths, "int32")
+        jpt, tpt = _both(pt, "int32")
+        want = _jax_once(("no_valid", case), jq, jk, jv, jpt, jl,
+                         window=window)
+        for tiling in TILINGS:
+            out = paged_attention_split_ref(
+                tq, tk_, tv, tpt, tl, window=window, n_splits=n_splits,
+                tile_rows=tiling[0], warps=tiling[1])
+            self._check(out, want, "float32")
+
+
+class TestSplitPlan:
+    """``split_plan`` picks the cluster size from shapes alone, with the
+    counts of co-resident clusters the card reports."""
+
+    # clusters of N blocks an H100 holds at once at the serving instance
+    # (cudaOccupancyMaxActiveClusters, one block an SM, a cluster in a GPC)
+    H100_ACTIVE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+    @pytest.mark.parametrize("B,KVH,NP,ps,n_sm,want", [
+        (4, 8, 4, 256, 132, 2),      # serving shape: 32 clusters, 30 of 4 fit
+        (1, 8, 4, 256, 132, 8),      # serving, batch 1: 64 blocks
+        (1, 8, 128, 256, 132, 8),    # native context, batch 1
+        (3, 8, 4, 256, 132, 4),      # 24 clusters: 30 of 4 fit, 15 of 8
+        (1, 1, 1, 16, 132, 1),       # one tile: nothing to split
+        (1, 1, 1, 150, 132, 2),      # three 64-row tiles: 2
+        (1, 1, 1, 200, 132, 4),      # four
+        (64, 8, 4, 256, 132, 1),     # B·KVH fills the card
+        (17, 8, 4, 256, 132, 1),
+    ])
+    def test_values(self, B, KVH, NP, ps, n_sm, want):
+        assert pa_kernel.split_plan(
+            B, KVH, NP, ps, n_sm, active_clusters=self.H100_ACTIVE.get) == want
+
+    @pytest.mark.parametrize("B", [1, 2, 3, 4, 8, 16, 32, 64])
+    @pytest.mark.parametrize("KVH", [1, 2, 8])
+    @pytest.mark.parametrize("max_cluster", [8, 16])
+    def test_bounds(self, B, KVH, max_cluster):
+        for NP, ps in ((1, 4), (2, 16), (4, 256), (128, 256)):
+            for tile in (32, 64):
+                n = pa_kernel.split_plan(B, KVH, NP, ps, 132, max_cluster,
+                                         tile_rows=tile,
+                                         active_clusters=self.H100_ACTIVE.get)
+                tiles = -(-(NP * ps) // tile)
+                assert 1 <= n <= max_cluster and n <= max(1, tiles)
+                assert n & (n - 1) == 0                  # a power of two
+                if B * KVH >= 132:
+                    assert n == 1
+                else:
+                    assert B * KVH * n <= 132            # at most one an SM
+                    assert n == 1 or B * KVH <= self.H100_ACTIVE[n]
+
+    @pytest.mark.parametrize("B,NP,want", [(4, 4, 2), (1, 4, 8), (1, 128, 8),
+                                           (2, 4, 4), (3, 4, 4), (8, 4, 2),
+                                           (16, 4, 1), (17, 4, 1)])
+    def test_clusters_must_fit_at_once(self, B, NP, want):
+        """At B=4, 32 clusters of 4 would need 32 of the 30 that fit: the
+        last two would run as a second wave, so N is 2."""
+        n = pa_kernel.split_plan(B, 8, NP, 256, 132,
+                                 active_clusters=self.H100_ACTIVE.get)
+        assert n == want
+        assert B * 8 <= self.H100_ACTIVE[n] or n == 1
+
+    def test_head_groups_count_as_blocks(self):
+        fits = self.H100_ACTIVE.get
+        assert pa_kernel.split_plan(2, 8, 4, 256, 132, head_groups=2,
+                                    active_clusters=fits) == 2
+        assert pa_kernel.split_plan(2, 8, 4, 256, 132,
+                                    active_clusters=fits) == 4
+
+    @pytest.mark.parametrize("dtype,D,ps,seg", [
+        (torch.bfloat16, 128, 256, 64), (torch.bfloat16, 128, 2, 2),
+        (torch.bfloat16, 128, 6, 2), (torch.bfloat16, 32, 4, 4),
+        (torch.bfloat16, 16, 4, 4), (torch.bfloat16, 16, 12, 4),
+        (torch.float32, 128, 256, 32), (torch.float32, 128, 1, 1),
+        (torch.float32, 64, 3, 1), (torch.float32, 16, 2, 2),
+        (torch.float32, 16, 8, 8)])
+    def test_page_sizes_served(self, dtype, D, ps, seg):
+        assert pa_kernel.bulk_segment(ps, D, dtype) == seg
+
+    @pytest.mark.parametrize("dtype,D,ps", [
+        (torch.bfloat16, 128, 1), (torch.bfloat16, 128, 3),
+        (torch.bfloat16, 64, 255), (torch.bfloat16, 16, 2),
+        (torch.bfloat16, 16, 6), (torch.float32, 16, 1),
+        (torch.float32, 16, 3)])
+    def test_page_sizes_refused(self, dtype, D, ps):
+        """A bulk copy below 128 bytes, or a stage of more than 32
+        copies, is refused, never launched."""
+        with pytest.raises(ValueError, match=f"page size {ps}"):
+            pa_kernel.bulk_segment(ps, D, dtype)
 
 
 class TestPagePackPlain:
