@@ -32,23 +32,39 @@ Phases, one JSON line each:
 6. ``serve``         ``ServingEngine`` on full-width, full-depth Qwen3-14B
                      with random weights, greedy, undersized KV pool; launch
                      counters are zeroed just before and read just after;
-7. ``train_parity``  full width, 2 layers, f32, one batch of 2×512: loss and
+7. ``serve_mla_moe`` ``ServingEngine`` on DeepSeek-V3 at published width cut
+                     to 4 layers (3 dense, 1 MoE of 256 experts), paged
+                     latent pools: the same greedy requests on an exact-fit
+                     and an undersized pool give identical tokens; the
+                     engine's latent-pool copies against ``ref.py`` bit for
+                     bit; a batch-1 decode step profiled; counters zeroed
+                     just before the undersized run and read just after;
+8. ``train_parity``  full width, 2 layers, f32, one batch of 2×512: loss and
                      every gradient, kernel path on the card against the
                      plain path on the CPU; one AdamW update on each; and
                      ``PagedAdamW`` against AdamW on the card;
-8. ``train``         ``Trainer`` on full-width Qwen3-14B cut to 4 layers,
+9. ``train``         ``Trainer`` on full-width Qwen3-14B cut to 4 layers,
                      seq 4096, batch 2 in 2 microbatches, remat, bf16
                      params, f32 moments, 4 steps; a checkpoint at step 2
                      restored into a fresh trainer repeats step 3's loss;
                      launch counters zeroed just before the 4 steps and read
                      just after;
-9. ``profile``       only with ``--profile``: one batch-1 decode step under
+10. ``train_moe``    ``Trainer`` on Mixtral-8x7B at published width cut to 2
+                     layers, the same shape and steps, loss and aux loss
+                     each step; a one-layer kernel-path against
+                     plain-path parity first, f32 and bf16 (top-2 flips
+                     counted); the
+                     state after step 2 copied to the host and back repeats
+                     step 3's loss; one MoE layer's forward in its parts;
+11. ``profile``      only with ``--profile``: one batch-1 decode step under
                      ``torch.profiler``, host time against device time
-                     (and, inside ``train``, one training step).
+                     (and, inside ``train`` and ``train_moe``, one training
+                     step).
 
-Then one ``{"kernels": [...]}`` line (per kernel: launches on its own path,
-serve or train; error, time, plain / library time, roofline bound), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` line (per kernel: launches summed over the
+paths that launch it, and by path; error, time, plain / library time,
+roofline bound), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 Any failing phase raises: the run exits non-zero and prints no result.
 """
 
@@ -65,6 +81,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, by input type
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # atol = rtol, as the CPU tests
@@ -105,6 +122,17 @@ class Sizes:
     train_microbatches: int = 2
     train_steps: int = 4
     checkpoint_step: int = 2
+    # serve_mla_moe: DeepSeek-V3 at published width, depth cut to 4 (its
+    # first_k_dense 3 dense layers and one MoE layer); max_batch,
+    # pages_per_seq and max_new as above
+    mla_arch: str = "deepseek_v3_671b"
+    mla_layers: int = 4
+    mla_prompts: tuple = (300, 60, 280, 180, 100, 120)
+    mla_pool_frames: int = 4
+    # train_moe: Mixtral-8x7B at published width, depth cut to 2; seq,
+    # batch, microbatches, steps and the restored step as train
+    moe_arch: str = "mixtral_8x7b"
+    moe_layers: int = 2
 
 
 # ------------------------------------------------------------------- helpers
@@ -455,7 +483,9 @@ FLASH_CASES = [
     (2, 96, 5, 1, 16, False, 0),        # G = 5, non-causal
     (2, 300, 10, 2, 128, True, 0, True),  # q, k, v strided views of one qkv
     (1, 700, 8, 2, 80, True, 200),      # h2o-danube's D and G, window
-]                                       # edges inside several tiles
+                                        # edges inside several tiles
+    (1, 600, 32, 8, 128, True, 256),    # Mixtral-8x7B's heads (G = 4),
+]                                       # a window inside the sequence
 
 
 def phase_flash(dev, sz: Sizes, cfg, names: list):
@@ -680,6 +710,67 @@ def _long_context(gen, dev, sz: Sizes, H, KVH, D, ps) -> dict:
             "bfloat16_rows": rows, "max_abs_err_by_dtype": errs}
 
 
+def _slot_rows(L: int, P: int, per_seq: int, slot: int, dev):
+    """The engine's rows of batch slot ``slot`` in a pool viewed as
+    (L·P, E) (``ServingEngine._rows``)."""
+    import torch
+    return (torch.arange(L, dtype=torch.int32)[:, None] * P + slot * per_seq
+            + torch.arange(per_seq, dtype=torch.int32)[None, :]) \
+        .reshape(-1).to(dev)
+
+
+def _latent_copies(gen, dev, sz: Sizes, iters: int) -> dict:
+    """Page gather / scatter at the rows of DeepSeek-V3's two latent pools
+    (``serve_mla_moe``): one sequence's pages of every layer <-> its batch
+    slot, rows of 256 x 512 (``ckv_pool``, 256 KB) and 256 x 64
+    (``krope_pool``, 32 KB) bf16.  Each against ``page_pack/ref.py`` bit
+    for bit, then device times against the bytes bound, cycling through
+    enough copies of the pool (16 and 2 MB) to exceed twice the L2, as a
+    decode step that has streamed its weights since leaves it cold."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
+    from repro_torch.kernels.page_pack.ref import (page_gather_ref,
+                                                   page_scatter_ref)
+    mcfg = get_config(sz.mla_arch)
+    L, P = sz.mla_layers, sz.max_batch * sz.pages_per_seq
+    out = {}
+    for name, width in (("ckv_pool", mcfg.kv_lora_rank),
+                        ("krope_pool", mcfg.qk_rope_head_dim)):
+        E = mcfg.kv_page_tokens * width
+        n_pools = -(-2 * L2_BYTES // (L * P * E * 2))
+        pools = [_rand(gen, (L * P, E), torch.bfloat16, dev)
+                 for _ in range(n_pools)]
+        pool = pools[0]
+        idx = _slot_rows(L, P, sz.pages_per_seq, min(1, sz.max_batch - 1),
+                         dev)
+        n = idx.numel()
+        blocks = [_rand(gen, (n, E), torch.bfloat16, dev)
+                  for _ in range(n_pools)]
+        got = gather_pages(pool, idx)
+        sync(dev)
+        require(torch.equal(got, page_gather_ref(pool, idx)),
+                f"page_gather {name} rows")
+        want = page_scatter_ref(pool.clone(), idx, blocks[0])
+        res = scatter_pages(pool.clone(), idx, blocks[0])
+        sync(dev)
+        require(torch.equal(res, want), f"page_scatter {name} rows")
+        pairs = list(zip(pools, blocks))
+        g_ms = time_ms(dev, [lambda p=p, b=b: gather_pages(p, idx, out=b)
+                             for p, b in pairs], iters)
+        s_ms = time_ms(dev, [lambda p=p, b=b: scatter_pages(p, idx, b)
+                             for p, b in pairs], iters)
+        del pools, blocks, pairs
+        nbytes = 2 * n * E * 2 + n * 4
+        out[name] = {"row_bytes": E * 2, "rows": n, "pool_rows": L * P,
+                     "pools_cycled": n_pools,
+                     "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "gather_ms": g_ms, "scatter_ms": s_ms,
+                     "gather_exact": True, "scatter_exact": True}
+    return out
+
+
 def phase_kernels(dev, sz: Sizes, cfg):
     import torch
     from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
@@ -877,10 +968,7 @@ def phase_kernels(dev, sz: Sizes, cfg):
     L = sz.serve_layers or cfg.n_layers
     per_seq = NP
     pool = _rand(gen, (L * P, E), bf16, dev)
-    slot = min(2, B - 1)
-    idx = (torch.arange(L, dtype=torch.int32)[:, None] * P + slot * per_seq
-           + torch.arange(per_seq, dtype=torch.int32)[None, :]) \
-        .reshape(-1).to(dev)
+    idx = _slot_rows(L, P, per_seq, min(2, B - 1), dev)
     n = idx.numel()
     blocks = [_rand(gen, (n, E), bf16, dev) for _ in range(2)]
     got = gather_pages(pool, idx, out=blocks[0])
@@ -911,6 +999,10 @@ def phase_kernels(dev, sz: Sizes, cfg):
     copy_bound = copy_bytes / HBM_BYTES_PER_S
     del pool, blocks
 
+    # ---- kernels 2 and 3 at DeepSeek-V3's latent-pool rows ----------------
+    latent = _latent_copies(gen, dev, sz, copy_it)
+    n_cases += 2 * len(latent)
+
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     table = [
@@ -937,7 +1029,9 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "bound_ms": copy_bound * 1e3, "bound_by": "bytes",
          "library_ms": gather_lib, "library": "torch.index_select",
          "bytes": copy_bytes,
-         "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"}},
+         "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"},
+         "latent_pools": {k: {f: v[f] for f in v if "scatter" not in f}
+                          for k, v in latent.items()}},
         {"name": "page_scatter", "route": "cuda",
          "source": src + "page_pack.cu",
          "replaces": ref + "page_pack/page_pack.py:53", "launches": 0,
@@ -945,14 +1039,18 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "bound_ms": copy_bound * 1e3, "bound_by": "bytes",
          "library_ms": scatter_lib, "library": "Tensor.index_copy_",
          "bytes": copy_bytes,
-         "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"}},
+         "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"},
+         "latent_pools": {k: {f: v[f] for f in v if "gather" not in f}
+                          for k, v in latent.items()}},
     ]
     names = ["paged_attention", "paged_attention_plain",
              "paged_attention_batch1", "sdpa_on_pregathered_kv",
              "paged_attention_long_context",
              "paged_attention_long_context_plain", "page_gather",
              "page_gather_plain", "index_select", "page_scatter",
-             "page_scatter_plain", "index_copy_"]
+             "page_scatter_plain", "index_copy_"] + [
+                 f"page_{op}_{pool}" for pool in latent
+                 for op in ("gather", "scatter")]
     flash_rows, flash_errs, flash_cases = phase_flash(dev, sz, cfg, names)
     table += flash_rows
     errs["flash_attention (fwd, grads)"] = flash_errs
@@ -1038,13 +1136,23 @@ def phase_decode_parity(dev, sz: Sizes, cfg):
 
 
 # --------------------------------------------------------------- serve phases
-def _prompts(sz: Sizes, vocab: int):
+def _prompts(lengths, vocab: int):
     import numpy as np
     rng = np.random.default_rng(0)
-    return [rng.integers(0, vocab, size=n) for n in sz.prompts]
+    return [rng.integers(0, vocab, size=n) for n in lengths]
 
 
-def _serve(dev, sz: Sizes, cfg, params, pool_frames):
+def _add_launches(table, path: str, counts: dict, names) -> None:
+    """Credit ``path``'s launches of ``names`` to their rows: ``launches``
+    is the sum over the paths that launch the kernel."""
+    for row in table:
+        if row["name"] in names:
+            by = row.setdefault("launches_by_path", {})
+            by[path] = counts[row["name"]]
+            row["launches"] = sum(by.values())
+
+
+def _serve(dev, sz: Sizes, cfg, params, pool_frames, prompts=None):
     from repro_torch.api import FaultPolicy, Strategy
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(
@@ -1054,7 +1162,7 @@ def _serve(dev, sz: Sizes, cfg, params, pool_frames):
         policy=FaultPolicy(strategy=Strategy.TOUCH_AHEAD, lookahead=4),
         device=dev)
     reqs = [eng.submit(p, max_new_tokens=sz.max_new)
-            for p in _prompts(sz, cfg.vocab_size)]
+            for p in _prompts(prompts or sz.prompts, cfg.vocab_size)]
     sync(dev)
     t0 = time.perf_counter()
     eng.run_until_done()
@@ -1113,8 +1221,8 @@ def phase_serve(dev, sz: Sizes, cfg, table):
         require(counts["page_gather"] > 0 and counts["page_scatter"] > 0
                 and counts["page_gather"] == counts["page_scatter"],
                 f"page gather/scatter launches: {counts}")
-    for row in table:
-        row["launches"] = counts[row["name"]]
+    _add_launches(table, "serve", counts,
+                  ("paged_attention", "page_gather", "page_scatter"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     emit("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          params=n_params, dtype=cfg.dtype, init_seconds=round(init_s, 3),
@@ -1132,6 +1240,169 @@ def phase_serve(dev, sz: Sizes, cfg, table):
          max_memory_allocated=peak, launches=counts,
          first_tokens=[r.generated[:4] for r in reqs])
     return params, cfg
+
+
+# ------------------------------------------------------- phase: serve_mla_moe
+def _arch_config(sz: Sizes, arch: str, **overrides):
+    """``arch`` at published width (or reduced with ``full_width=False``,
+    for a rehearsal on the CPU) with ``overrides``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+    cfg = get_config(arch)
+    if not sz.full_width:
+        cfg = reduced(cfg)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _free(dev) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _moe_decode_floor(dev, cfg, params, iters: int) -> dict:
+    """The dropless MoE layer of one batch-1 decode step alone: device ms
+    against the bytes of all experts' weights (the reference's dense
+    dispatch runs the expert einsums over every expert)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.tree import tree_leaves
+    lp = {k: v[0] for k, v in params["moe_layers"]["moe"].items()
+          if k != "shared"}
+    if "shared" in params["moe_layers"]["moe"]:
+        lp["shared"] = {k: v[0] for k, v in
+                        params["moe_layers"]["moe"]["shared"].items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    x = _rand(gen, (1, 1, cfg.d_model), params["embed"].dtype, dev)
+    with torch.no_grad():
+        ms = time_ms(dev, [lambda: moe_mod.apply_moe(lp, cfg, x,
+                                                     dropless=True)], iters)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(lp))
+    return {"ms": ms, "weight_bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms}
+
+
+def phase_serve_mla_moe(dev, sz: Sizes, table):
+    """``ServingEngine`` on DeepSeek-V3 at published width cut to
+    ``mla_layers`` (its ``first_k_dense`` dense layers and MoE layers
+    after), random weights from a seed, greedy, ``max_batch`` 4, 1024-token
+    context, the paged latent pools.  The same requests on an exact-fit
+    pool, then (counters zeroed just before, read just after) on an
+    undersized pool (spills, fault-back-ins): identical tokens.  Then the
+    engine's copies of both latent pools through the kernels against
+    ``page_pack/ref.py`` bit for bit, one batch-1 decode step profiled, and
+    the MoE layer of that step against its bytes floor."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
+    from repro_torch.kernels.page_pack.ref import (page_gather_ref,
+                                                   page_scatter_ref)
+    from repro_torch.models import decoder
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.mla_arch, n_layers=sz.mla_layers)
+    require(cfg.family == "mla_moe" and cfg.first_k_dense < cfg.n_layers,
+            f"{cfg.name}: no MoE layer at {cfg.n_layers} layers")
+    _free(dev)
+    t0 = time.perf_counter()
+    params = decoder.init_params(cfg, 0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    eng_a, reqs_a, wall_a = _serve(dev, sz, cfg, params, None,
+                                   sz.mla_prompts)
+    require(eng_a.stats.spill_events == 0, "exact-fit pool spilled")
+    kernels.reset_launch_counts()
+    eng, reqs, wall = _serve(dev, sz, cfg, params, sz.mla_pool_frames,
+                             sz.mla_prompts)
+    counts = kernels.launch_counts()
+
+    st = eng.stats
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    step_calls = prompt_tokens + st.decode_steps
+    require(all(r.done and len(r.generated) == sz.max_new for r in reqs),
+            "a request did not finish")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+            "token id out of range")
+    require(st.spill_events > 0 and st.fault_page_ins > 0,
+            f"no spill / fault-back-in: {st}")
+    same = [a.generated == b.generated for a, b in zip(reqs_a, reqs)]
+    require(all(same), f"tokens differ between exact-fit and undersized "
+            f"pool: {same}")
+    if dev.type == "cuda":
+        # two pools (ckv, krope) copied in and out per sequence and step
+        require(counts["page_gather"] > 0
+                and counts["page_gather"] == counts["page_scatter"]
+                and counts["page_gather"] % 2 == 0,
+                f"page gather/scatter launches: {counts}")
+        require(counts["paged_attention"] == 0
+                and counts["flash_attention"] == 0,
+                f"GQA attention kernels on the MLA path: {counts}")
+    _add_launches(table, "serve_mla_moe", counts,
+                  ("page_gather", "page_scatter"))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    # the engine's copies of both latent pools: kernels against ref.py
+    copies = {}
+    for name in ("ckv_pool", "krope_pool"):
+        full = eng.cache[name]
+        L, P = full.shape[:2]
+        flat = full.view((L * P,) + tuple(full.shape[2:]))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        for slot in range(sz.max_batch):
+            rows = eng._rows(L, P, sz.pages_per_seq, slot)
+            require(torch.equal(gather_pages(flat, rows),
+                                page_gather_ref(flat, rows)),
+                    f"{name}: page_gather of slot {slot} differs from ref")
+            blk = _rand(gen, (rows.numel(),) + tuple(flat.shape[1:]),
+                        flat.dtype, dev)
+            require(torch.equal(scatter_pages(flat.clone(), rows, blk),
+                                page_scatter_ref(flat.clone(), rows, blk)),
+                    f"{name}: page_scatter of slot {slot} differs from ref")
+        copies[name] = {"pool": list(full.shape),
+                        "row_bytes": flat[0].numel() * flat.element_size(),
+                        "slots_checked": sz.max_batch, "bit_exact": True}
+    del eng_a, eng
+
+    profile = _decode_profile(dev, sz, cfg, params, 3)
+    moe_floor = _moe_decode_floor(dev, cfg, params, 5)
+    step_bytes = param_bytes - params["embed"].numel() \
+        * params["embed"].element_size()
+    emit("serve_mla_moe", arch=cfg.name, layers=cfg.n_layers,
+         first_k_dense=cfg.first_k_dense, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
+         experts=cfg.n_experts, top_k=cfg.experts_per_token,
+         vocab=cfg.vocab_size, params=n_params, param_bytes=param_bytes,
+         dtype=cfg.dtype, init_seconds=init_s, max_batch=sz.max_batch,
+         max_len=sz.pages_per_seq * cfg.kv_page_tokens,
+         page_tokens=cfg.kv_page_tokens, pool_frames=sz.mla_pool_frames,
+         prompt_lengths=[len(r.prompt) for r in reqs],
+         requests_done=sum(r.done for r in reqs),
+         tokens_generated=st.tokens_generated, decode_steps=st.decode_steps,
+         decode_step_calls=step_calls, wall_seconds=wall,
+         exact_fit_wall_seconds=wall_a,
+         generated_tokens_per_s=st.tokens_generated / wall,
+         processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
+         tokens_identical_exact_fit_vs_undersized=True,
+         spill_events=st.spill_events, fault_page_ins=st.fault_page_ins,
+         engine_stats=dataclasses.asdict(st), max_memory_allocated=peak,
+         launches=counts, latent_pool_copies=copies,
+         decode_step_bytes=step_bytes,
+         decode_step_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         floor_rate="3.35 TB/s, the H100 SXM data sheet",
+         batch1_decode_step=profile, moe_layer_batch1=moe_floor,
+         first_tokens=[r.generated[:4] for r in reqs])
+    del params
+    _free(dev)
 
 
 # ----------------------------------------------------- phase: train parity
@@ -1352,9 +1623,8 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
     if on_card:
         torch.cuda.empty_cache()
 
-    for row in table:
-        if row["name"].startswith("flash_attention"):
-            row["launches"] = counts[row["name"]]
+    _add_launches(table, "train", counts,
+                  ("flash_attention", "flash_attention_bwd"))
     emit("train", arch=cfg.name, layers=sz.train_layers, d_model=cfg.d_model,
          params=n_params, dtype=cfg.dtype, moment_dtype="float32",
          seq=sz.train_seq, global_batch=sz.train_batch,
@@ -1369,6 +1639,293 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
                      "loss_step_after": after_ckpt["loss"],
                      "loss_step_after_restored": again["loss"],
                      "abs_diff": diff}, profile=profile)
+
+
+# ----------------------------------------------------------- phase: train_moe
+MOE_PARITY_TOL = {"float32": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
+                               "top2_flip_share": 2e-2},
+                  "bfloat16": {"loss_rel": 1e-2, "top2_flip_share": 2e-2,
+                               "grad_rel_l2": "2 sqrt(2 f) + 2e-2"}}
+
+
+def _flip_bound(flip: float) -> float:
+    """A gradient leaf's relative L2 error allowed in bf16 when a share
+    ``flip`` of the tokens changed their top-2 experts: each such token's
+    contribution to a gradient (a sum over tokens) changes by about its own
+    size, so the error grows as sqrt(2 f); twice that, plus 2e-2 for the
+    bf16 roundings of the tokens that kept their experts."""
+    return 2 * math.sqrt(2 * flip) + 2e-2
+
+
+def _moe_train_parity(dev, sz: Sizes, cfg, dtype: str) -> dict:
+    """One layer of ``cfg`` at published width in ``dtype``, one
+    microbatch of the train shape (1 x ``train_seq``), remat: loss and
+    every leaf's gradient by the kernel path against the plain path (flash
+    attention's plain chunked version), both on the card.
+
+    float32 (the CUDA-core route) is held as ``train_parity`` holds the
+    dense model: loss within 1e-5 relative, each gradient leaf within 1e-4
+    x max|ref|.  bfloat16 (the tensor-core route the training runs) rounds
+    the two attention outputs differently, which can flip a router's top-2
+    choice near a tie and so move that token's whole expert path: its loss
+    is held to 1e-2 relative and each gradient leaf's relative L2 error to
+    :func:`_flip_bound` of the share of tokens that flipped.  In both the
+    share of tokens whose top-2 set differs is printed and held to 2 %."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decoder
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.attention_ops import flash_attention_xla
+    from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_names
+
+    pcfg = dataclasses.replace(cfg, n_layers=1, dtype=dtype)
+    params = decoder.init_params(pcfg, 7, device=dev)
+    tokens, labels = SyntheticLM(pcfg.vocab_size, sz.train_seq, 1,
+                                 seed=7).batch_at(0)
+    tok = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    router_in = []
+    moe_group = moe_mod._moe_group
+
+    def recording_group(p, c, xf, dropless):
+        router_in.append(xf.detach())
+        return moe_group(p, c, xf, dropless)
+
+    loss_fn = make_loss_fn(pcfg, TrainConfig(remat=True))
+    kernel_fn = attn_mod.flash_attention
+    moe_mod._moe_group = recording_group
+    try:
+        before = kernels.launch_counts()
+        loss_k, g_k = value_and_grad(loss_fn, params, tok, lab)
+        sync(dev)
+        after = kernels.launch_counts()
+        x_k = router_in[0]
+        router_in.clear()
+        attn_mod.flash_attention = flash_attention_xla     # plain, on card
+        loss_p, g_p = value_and_grad(loss_fn, params, tok, lab)
+        sync(dev)
+        x_p = router_in[0]
+    finally:
+        attn_mod.flash_attention = kernel_fn
+        moe_mod._moe_group = moe_group
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    require(dev.type != "cuda" or (fwd == 2 and bwd == 1),
+            f"train_moe parity {dtype}: flash launches fwd {fwd} bwd {bwd}")
+    router = params["moe_layers"]["moe"]["router"][0]
+    k = pcfg.experts_per_token
+    sel_k = torch.topk(x_k.float() @ router, k, dim=-1).indices.sort(-1)[0]
+    sel_p = torch.topk(x_p.float() @ router, k, dim=-1).indices.sort(-1)[0]
+    flip = float((sel_k != sel_p).any(-1).float().mean())
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel, grad_of_max = {}, {}
+    for n, a, b in zip(tree_names(g_k), tree_leaves(g_k), tree_leaves(g_p)):
+        a, b = a.float(), b.float()
+        require(bool(torch.isfinite(a).all()), f"grad {n} not finite")
+        grad_rel[n] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        grad_of_max[n] = float((a - b).abs().max()
+                               / b.abs().max().clamp_min(1e-30))
+    tol = MOE_PARITY_TOL[dtype]
+    require(math.isfinite(float(loss_k)) and loss_rel <= tol["loss_rel"],
+            f"train_moe parity {dtype}: loss {float(loss_k)} vs "
+            f"{float(loss_p)}")
+    require(flip <= tol["top2_flip_share"], f"train_moe parity {dtype}: "
+            f"top-2 differs for {flip} of the tokens")
+    if "grad_of_max" in tol:
+        worst = max(grad_of_max, key=grad_of_max.get)
+        require(grad_of_max[worst] <= tol["grad_of_max"],
+                f"train_moe parity {dtype}: grad {worst} max abs err "
+                f"{grad_of_max[worst]} x max|ref|")
+    else:
+        worst = max(grad_rel, key=grad_rel.get)
+        require(grad_rel[worst] <= _flip_bound(flip),
+                f"train_moe parity {dtype}: grad {worst} relative L2 "
+                f"{grad_rel[worst]} beyond {_flip_bound(flip)} with {flip} "
+                f"of the tokens flipped")
+    return {"dtype": dtype, "loss_kernel": float(loss_k),
+            "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+            "top2_differs_share": flip, "tokens": int(sel_k.shape[0]),
+            "grad_err_of_max": grad_of_max, "grad_rel_l2": grad_rel,
+            "tolerance": tol, "grad_rel_l2_limit": _flip_bound(flip),
+            "flash_launches": {"fwd": fwd, "bwd": bwd}}
+
+
+def _moe_layer_breakdown(dev, sz: Sizes, cfg, params, iters: int) -> dict:
+    """The forward of one MoE layer (``moe._moe_group``) at one microbatch
+    of the train shape, and its einsums alone on tensors of the same
+    shapes: the dispatch einsum, the three expert-FFN einsums and the
+    combine einsum; the rest of the layer (routing, the one-hot dispatch
+    and combine tensors) is the difference.  Times are CUDA-event ms a
+    call (the device is the limit at these sizes): in one run the
+    profiler's kernel sums left out most of the FFN einsums' kernels."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_mod
+    lp = {k: v[0] for k, v in params["moe_layers"]["moe"].items()}
+    T, d = sz.train_seq * sz.train_batch // sz.train_microbatches, cfg.d_model
+    E, f = cfg.n_experts, cfg.moe_d_ff
+    C = moe_mod._capacity(T, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    xf = _rand(gen, (T, d), lp["wi"].dtype, dev)
+    onehot = (torch.rand((T, E, C), generator=gen, device=dev)
+              < 1.0 / T).to(xf.dtype)
+    ein = _rand(gen, (E, C, d), xf.dtype, dev)
+    eout = _rand(gen, (E, C, d), xf.dtype, dev)
+
+    def ffn():
+        h = F.silu(torch.einsum("ecd,edf->ecf", ein, lp["wi"])) \
+            * torch.einsum("ecd,edf->ecf", ein, lp["wg"])
+        return torch.einsum("ecf,efd->ecd", h, lp["wo"])
+
+    def event_ms(fn):
+        ms = time_ms(dev, [fn], iters)
+        return EVENTS_MS[-1] if dev.type == "cuda" else ms
+
+    with torch.no_grad():
+        ms = {"layer": event_ms(lambda: moe_mod._moe_group(lp, cfg, xf,
+                                                           False)),
+              "dispatch_einsum": event_ms(lambda: torch.einsum(
+                  "tec,td->ecd", onehot, xf)),
+              "expert_ffn_einsums": event_ms(ffn),
+              "combine_einsum": event_ms(lambda: torch.einsum(
+                  "tec,ecd->td", onehot, eout))}
+    ms["routing_and_rest"] = ms["layer"] - ms["dispatch_einsum"] \
+        - ms["expert_ffn_einsums"] - ms["combine_einsum"]
+    flops = {"dispatch_einsum": 2 * T * E * C * d,
+             "expert_ffn_einsums": 3 * 2 * E * C * d * f,
+             "combine_einsum": 2 * T * E * C * d}
+    return {"tokens": T, "experts": E, "capacity": C, "timing": "CUDA events",
+            "ms": ms,
+            "share_of_layer": {n: v / ms["layer"] for n, v in ms.items()
+                               if n != "layer"},
+            "flops": flops,
+            "tflops_per_s": {n: flops[n] / ms[n] / 1e9 for n in flops}}
+
+
+def phase_train_moe(dev, sz: Sizes, table, with_profile: bool = False):
+    """``Trainer`` on Mixtral-8x7B at published width, ``moe_layers`` deep:
+    first the one-layer kernel-path / plain-path parity, then
+    ``train_steps`` steps (counters zeroed just before, read just
+    after), loss and aux loss each step; the state after step
+    ``checkpoint_step`` is copied to the host and, after the last step,
+    copied back into the trainer, whose next step must repeat that step's
+    loss exactly.  Then one MoE layer's forward in its parts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import decoder
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.moe_arch, n_layers=sz.moe_layers)
+    require(cfg.family == "moe", cfg.family)
+    parity = {"layers": 1, "seq": sz.train_seq}
+    for dtype in ("float32", "bfloat16"):
+        _free(dev)
+        parity[dtype] = _moe_train_parity(dev, sz, cfg, dtype)
+    _free(dev)
+
+    tcfg = TrainConfig(microbatches=sz.train_microbatches, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4,
+                                             moment_dtype="float32"))
+    ds = SyntheticLM(cfg.vocab_size, sz.train_seq, sz.train_batch, seed=0)
+    t0 = time.perf_counter()
+    params = decoder.init_params(cfg, 0, device=dev)
+    tr = Trainer(cfg, tcfg, params, ds, device=dev)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    tokens_per_step = sz.train_batch * sz.train_seq
+
+    aux_seen = []
+    forward = decoder.forward
+
+    def recording_forward(*a, **kw):
+        out = forward(*a, **kw)
+        aux_seen.append(out[1].detach())
+        return out
+
+    def state():
+        return tree_leaves(tr.params) + tree_leaves(tr.opt_state.mu) \
+            + tree_leaves(tr.opt_state.nu) + [tr.opt_state.step]
+
+    steps, snapshot, snap_s = [], None, None
+    decoder.forward = recording_forward
+    try:
+        kernels.reset_launch_counts()
+        for _ in range(sz.train_steps):
+            t0 = time.perf_counter()
+            tr.run(1, log_every=0)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            aux = sum(float(a) for a in aux_seen) / len(aux_seen)
+            aux_seen.clear()
+            steps.append(dict(tr.history[-1], aux=aux, wall_s=wall,
+                              tokens_per_s=tokens_per_step / wall))
+            if tr.step == sz.checkpoint_step:
+                t0 = time.perf_counter()
+                snapshot = [torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                                        pin_memory=dev.type == "cuda")
+                            .copy_(t) for t in state()]
+                snap_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        profile = _profiled(dev, lambda: tr.run(1, log_every=0), 1) \
+            if with_profile else None
+        t0 = time.perf_counter()
+        for dst, src in zip(state(), snapshot):
+            dst.copy_(src)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        del snapshot
+        tr.step = sz.checkpoint_step
+        tr.run(1, log_every=0)
+        again = tr.history[-1]
+    finally:
+        decoder.forward = forward
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["aux"] > 0 for r in steps),
+            f"train_moe: non-finite loss or no aux term: {steps}")
+    per_step = sz.train_microbatches * sz.moe_layers
+    require(dev.type != "cuda" or (
+        counts["flash_attention"] == 2 * per_step * sz.train_steps
+        and counts["flash_attention_bwd"] == per_step * sz.train_steps),
+        f"flash launches on the train_moe path: {counts}")
+    after_snap = steps[sz.checkpoint_step]
+    diff = abs(again["loss"] - after_snap["loss"])
+    require(diff <= 1e-6 * abs(after_snap["loss"]),
+            f"loss after restore {again['loss']} != {after_snap['loss']}")
+    breakdown = _moe_layer_breakdown(dev, sz, cfg, tr.params, 5)
+    _add_launches(table, "train_moe", counts,
+                  ("flash_attention", "flash_attention_bwd"))
+    emit("train_moe", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, experts=cfg.n_experts,
+         top_k=cfg.experts_per_token, moe_d_ff=cfg.moe_d_ff,
+         window=cfg.sliding_window, vocab=cfg.vocab_size, params=n_params,
+         dtype=cfg.dtype, moment_dtype="float32", seq=sz.train_seq,
+         global_batch=sz.train_batch, microbatches=sz.train_microbatches,
+         remat=True, init_seconds=init_s, steps=steps,
+         mean_tokens_per_s_after_first=(
+             sum(r["tokens_per_s"] for r in steps[1:]) / (len(steps) - 1)
+             if len(steps) > 1 else None),
+         max_memory_allocated=peak, launches=counts,
+         snapshot={"step": sz.checkpoint_step, "to_host_seconds": snap_s,
+                   "restore_seconds": restore_s,
+                   "loss_step_after": after_snap["loss"],
+                   "loss_step_after_restored": again["loss"],
+                   "abs_diff": diff},
+         parity=parity, moe_layer_forward=breakdown, profile=profile)
+    del tr
+    _free(dev)
 
 
 # ------------------------------------------------------------ phase: profile
@@ -1426,6 +1983,13 @@ def _profiled(dev, step, steps: int) -> dict:
 def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
     """Optional (``--profile``): where one batch-1 decode step spends its
     time — host wall clock against summed device time, kernels by name."""
+    emit("profile", layers=cfg.n_layers, batch=1,
+         **_decode_profile(dev, sz, cfg, params, steps))
+
+
+def _decode_profile(dev, sz: Sizes, cfg, params, steps: int) -> dict:
+    """One batch-1 decode step at a third of ``max_len`` (two steps
+    first, unmeasured): :func:`_profiled`, and the context it ran at."""
     import torch
     from repro_torch.models import decoder
 
@@ -1441,20 +2005,14 @@ def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
 
     for _ in range(2):
         step()
-    emit("profile", layers=cfg.n_layers, batch=1, context=context,
-         **_profiled(dev, step, steps))
+    return dict(context=context, **_profiled(dev, step, steps))
 
 
 # ----------------------------------------------------------------------- main
 def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     """All phases after ``device``; returns the kernel table, or None when
     ``stop_after`` names an earlier phase (a partial run while debugging)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.config import reduced
-
-    cfg = get_config(sz.arch)
-    if not sz.full_width:
-        cfg = reduced(cfg)
+    cfg = _arch_config(sz, sz.arch)
     phase_build()
     if stop_after == "profile":            # the profile alone, full depth
         from repro_torch.models import decoder
@@ -1475,8 +2033,14 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     del params
     if stop_after == "serve":
         return None
+    phase_serve_mla_moe(dev, sz, table)
+    if stop_after == "serve_mla_moe":
+        return None
     phase_train_parity(dev, sz, cfg)
     phase_train(dev, sz, cfg, table, with_profile)
+    if stop_after == "train":
+        return None
+    phase_train_moe(dev, sz, table, with_profile)
     return table
 
 
@@ -1496,11 +2060,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", default="",
                     choices=["", "profile", "kernels", "spill_parity",
-                             "serve"],
+                             "serve", "serve_mla_moe", "train"],
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="after serve, profile a batch-1 decode step; after "
-                         "train, one training step")
+                         "train and train_moe, one training step")
     args = ap.parse_args()
     table = run(dev, Sizes(), args.stop_after, args.profile)
     if table is None:
@@ -1509,7 +2073,7 @@ def main() -> int:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             require(math.isfinite(row[key]), f"{row['name']}: {key}")
         require(row["launches"] > 0, f"{row['name']} never launched on "
-                "its path (serve or train)")
+                "a path")
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

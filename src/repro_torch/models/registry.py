@@ -14,17 +14,17 @@ from types import SimpleNamespace
 from repro_torch.models import decoder
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = {
-    "dense": SimpleNamespace(
-        init_params=decoder.init_params,
-        forward=decoder.forward,
-        loss_fn=decoder.loss_fn,
-        init_decode_cache=decoder.init_decode_cache,
-        decode_step=decoder.decode_step,
-    ),
-}
+_DECODER = SimpleNamespace(
+    init_params=decoder.init_params,
+    forward=decoder.forward,
+    loss_fn=decoder.loss_fn,
+    init_decode_cache=decoder.init_decode_cache,
+    decode_step=decoder.decode_step,
+)
 
-NOT_PORTED = ("moe", "mla_moe", "hybrid", "xlstm", "encdec")
+_FAMILIES = {"dense": _DECODER, "moe": _DECODER, "mla_moe": _DECODER}
+
+NOT_PORTED = ("hybrid", "xlstm", "encdec")
 
 
 def model_for(cfg: ModelConfig):

@@ -71,7 +71,8 @@ def _run_both(arch, pool_frames):
     return out
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b",
+                                  "mixtral_8x7b", "deepseek_v3_671b"])
 class TestGreedyServingParity:
     @pytest.mark.parametrize("pool_frames", [None, 3],
                              ids=["exact_fit", "undersized"])
@@ -220,5 +221,5 @@ class TestLauncher:
             t_serve.main(["--requests", "1"])
 
     def test_unported_family_is_named(self):
-        with pytest.raises(NotImplementedError, match="moe"):
-            t_serve.main(["--device", "cpu", "--arch", "mixtral_8x7b"])
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            t_serve.main(["--device", "cpu", "--arch", "zamba2_7b"])

@@ -109,7 +109,8 @@ class TestForward:
         np.testing.assert_array_equal(fwd.detach().numpy(),
                                       logits.detach().numpy())
 
-    @pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b"])
+    @pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b",
+                                      "mixtral_8x7b", "deepseek_v3_671b"])
     def test_decode_matches_forward(self, arch):
         """Twin of ``tests/test_models.py::TestDecodeConsistency`` for the
         port: token-by-token ``decode_step`` == teacher-forced ``forward``

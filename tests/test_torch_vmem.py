@@ -16,17 +16,24 @@ import torch
 import repro.api as jax_api
 import repro.vmem as jax_vmem
 from repro.memory.kv_cache import PagedKVManager as JaxKVManager
+from repro.memory.paged_store import PagedTensorStore as JaxStore
 
 import repro_torch.api as t_api
 import repro_torch.vmem as t_vmem
+from repro_torch.memory import paged_store as t_paged_store
 from repro_torch.memory.kv_cache import PagedKVManager
+from repro_torch.memory.paged_store import PagedTensorStore
 
 
 class _Side:
     """One package's pager vocabulary under common names."""
 
-    def __init__(self, api, vmem, kv, device_kw):
+    def __init__(self, api, vmem, kv, store, device_kw):
         self.api, self.vmem, self.kv, self.device_kw = api, vmem, kv, device_kw
+        self._store = store
+
+    def store(self, *args, **kw):
+        return self._store(*args, **kw, **self.device_kw)
 
     def device_pool(self, n, e, **kw):
         return self.vmem.DeviceFramePool(n, e, **kw, **self.device_kw)
@@ -51,8 +58,9 @@ class _Side:
         return pager, space
 
 
-SIDES = (_Side(jax_api, jax_vmem, JaxKVManager, {}),
-         _Side(t_api, t_vmem, PagedKVManager, {"device": "cpu"}))
+SIDES = (_Side(jax_api, jax_vmem, JaxKVManager, JaxStore, {}),
+         _Side(t_api, t_vmem, PagedKVManager, PagedTensorStore,
+               {"device": "cpu"}))
 
 
 def _arr(x):
@@ -438,3 +446,131 @@ class TestPagedKVManager:
             return [kv.stats], tables
         (stats,), _ = _replay(trace)
         assert stats.spills > 0 and stats.pages_in > 0
+
+
+def _set_frame(st, f, value):
+    """Overwrite frame ``f`` of a store: in place in the port, through the
+    reference's ``frames`` setter there."""
+    if isinstance(st.frames, torch.Tensor):
+        st.frames[f] = torch.full((st.page_elems,), value,
+                                  dtype=st.frames.dtype)
+    else:
+        st.frames = st.frames.at[f].set(value)
+
+
+class TestPagedTensorStore:
+    """Twin of ``tests/test_runtime.py::TestPagedTensorStore``: the same
+    traces on both packages' ``PagedTensorStore``; stats equal field by
+    field, page tables and payloads equal."""
+
+    def test_fault_and_touch_ahead(self):
+        def trace(s):
+            st = s.store(page_elems=8, n_device_frames=4, n_host_pages=16,
+                         strategy=s.api.Strategy.TOUCH_AHEAD, lookahead=4)
+            for v in range(16):
+                st.write_host(v, np.full(8, v, np.float32))
+            out = st.access([0])
+            assert st.stats.faults == 1 and st.resident_pages() == 4
+            more = st.access([1, 2, 3])
+            return [st.stats], [out, more, st.page_table, st.prefetched]
+        (stats,), (out, more, _, _) = _replay(trace)
+        np.testing.assert_array_equal(out[0], np.zeros(8))
+        np.testing.assert_array_equal(more[:, 0], [1.0, 2.0, 3.0])
+        assert stats.faults == 1 and stats.prefetch_hits == 3
+
+    def test_touch_a_page_faults_per_page(self):
+        def trace(s):
+            st = s.store(8, 8, 16, strategy=s.api.Strategy.TOUCH_A_PAGE)
+            for v in range(16):
+                st.write_host(v, np.full(8, v, np.float32))
+            out = st.access([0, 1, 2, 3])
+            return [st.stats], [out, st.page_table]
+        (stats,), _ = _replay(trace)
+        assert stats.faults == 4
+
+    def test_eviction_writeback_roundtrip(self):
+        """The device copy is changed (in place in the port), evicted with
+        writeback and faulted back in."""
+        def trace(s):
+            st = s.store(4, 2, 8, strategy=s.api.Strategy.TOUCH_A_PAGE)
+            st.write_host(0, np.zeros(4, np.float32))
+            st.access([0])
+            _set_frame(st, int(st.page_table[0]), 7.0)
+            st.access([1])
+            st.access([2])                        # evicts page 0 (LRU)
+            assert not st.is_resident(0)
+            return [st.stats], [st.host, st.access([0]), st.page_table,
+                                np.asarray(sorted(st.free_frames))]
+        _, (host, again, _, _) = _replay(trace)
+        np.testing.assert_array_equal(host[0], np.full(4, 7.0))
+        np.testing.assert_array_equal(again[0], np.full(4, 7.0))
+
+    def test_pinned_never_evicted(self):
+        def trace(s):
+            st = s.store(4, 2, 8)
+            st.pin([0])
+            st.access([1])
+            st.pin([1])
+            with pytest.raises(MemoryError):
+                st.access([2])
+            return [st.stats], [st.page_table, st.pinned]
+        _replay(trace)
+
+    def test_seeded_random_trace(self):
+        """Accesses, pins, writebacks and frame edits drawn from one seed
+        over a three-frame pool (Touch-Ahead, lookahead 2)."""
+        def trace(s):
+            rng = np.random.default_rng(11)
+            st = s.store(6, 3, 12, strategy=s.api.Strategy.TOUCH_AHEAD,
+                         lookahead=2)
+            for v in range(12):
+                st.write_host(v, rng.standard_normal(6).astype(np.float32))
+            outs = []
+            for _ in range(40):
+                op = rng.integers(0, 10)
+                v = int(rng.integers(0, 12))
+                if op < 6:
+                    outs.append(st.access([v, (v + 1) % 12]))
+                elif op == 6 and st.is_resident(v):
+                    _set_frame(st, int(st.page_table[v]), float(v) + 0.5)
+                elif op == 7 and st.is_resident(v):
+                    st.write_back(v)
+                elif op == 8 and st.is_resident(v) and not st.pinned.any():
+                    st.pin([v])
+                elif op == 9:
+                    st.unpin(np.flatnonzero(st.pinned).tolist())
+                st.ensure_resident([v])
+                outs.append(st.frame_ids([v]))
+            return [st.stats], outs + [st.host, st.page_table, st.frames]
+        (stats,), _ = _replay(trace)
+        assert stats.faults > 0 and stats.evictions > 0
+
+    def test_shared_pool_and_injected_pager(self):
+        """Two stores on one pool contend for its frames; a store given a
+        pager follows that pager's policy."""
+        def trace(s):
+            pool = s.device_pool(3, 4)
+            a = s.store(4, 0, 6, pool=pool,
+                        strategy=s.api.Strategy.TOUCH_A_PAGE)
+            b = s.store(4, 0, 6, pool=pool,
+                        strategy=s.api.Strategy.TOUCH_AHEAD, lookahead=2)
+            for v in range(6):
+                a.write_host(v, np.full(4, v, np.float32))
+                b.write_host(v, np.full(4, 10 + v, np.float32))
+            outs = [a.access([0, 1]), b.access([3]), a.access([0])]
+            pager = s.vmem.Pager(s.device_pool(4, 4),
+                                 policy=s.policy("TOUCH_AHEAD", lookahead=3))
+            c = s.store(4, 0, 8, pager=pager)
+            assert c.lookahead == 3 and c.pager is pager
+            outs.append(c.access([2]))
+            return [a.stats, b.stats, c.stats], outs + [a.page_table,
+                                                        b.page_table]
+        _replay(trace)
+
+    def test_store_stats_alias_and_default_device(self):
+        assert t_paged_store.StoreStats is t_vmem.PagingStats
+        if torch.cuda.is_available():
+            assert PagedTensorStore(4, 2, 8).frames.is_cuda
+            return
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PagedTensorStore(4, 2, 8)
