@@ -11,7 +11,9 @@ Phases, one JSON line each:
                      of each kernel (registers and spills of every
                      paged-attention instance apart), tensor-core
                      instructions counted in its SASS (``cuobjdump``; every
-                     bf16 flash kernel must have some);
+                     bf16 flash kernel must have some, head_dim 192's
+                     included, and the head_dim 192 flash kernels no
+                     spills);
 3. ``kernels``       every CUDA kernel against its plain PyTorch version on
                      the card (small shapes incl. window masking, unmapped
                      pages, rows with no valid position, splits that see
@@ -21,9 +23,16 @@ Phases, one JSON line each:
                      leaving other rows alone, gather∘scatter round trip;
                      flash
                      attention forward and backward, causal / window /
-                     non-causal, G 1 and 5, ragged S, D 16-128, q/k/v as
+                     non-causal, G 1 and 5, ragged S, D 16-192, q/k/v as
                      views of one fused tensor, f32 (CUDA cores) and bf16
                      (tensor cores); and each path's shapes), with times;
+                     paged attention at head_dim 80 (H2O-Danube's heads, a
+                     window that masks) and 112 (Zamba2-7B's) and at page
+                     sizes 1, 3 and 17 (row copies) with the cost of small
+                     pages; flash at DeepSeek-V3's H=128, D=192 (bf16 at
+                     S=4096, f32 shorter); the copies at the Qwen3 and the
+                     latent rows against index_select / index_copy_ and an
+                     empty kernel (the launch floor);
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -32,6 +41,15 @@ Phases, one JSON line each:
 6. ``serve``         ``ServingEngine`` on full-width, full-depth Qwen3-14B
                      with random weights, greedy, undersized KV pool; launch
                      counters are zeroed just before and read just after;
+6b. ``serve_danube`` ``ServingEngine`` on H2O-Danube-1.8B at published width
+                     and depth (24 layers, head_dim 80), the serve settings
+                     and undersized pool, its window off (it masks nothing
+                     inside the 1,024-token context; with it the decoder
+                     keeps a ring buffer, not the paged pools); counters
+                     zeroed just before the kernel path and read just
+                     after (paged attention = 24 x decode_step calls); the
+                     plain path on the card gives the same greedy tokens;
+                     then the published config on its ring path;
 7. ``serve_mla_moe`` ``ServingEngine`` on DeepSeek-V3 at published width cut
                      to 4 layers (3 dense, 1 MoE of 256 experts), paged
                      latent pools: the same greedy requests on an exact-fit
@@ -49,6 +67,12 @@ Phases, one JSON line each:
                      restored into a fresh trainer repeats step 3's loss;
                      launch counters zeroed just before the 4 steps and read
                      just after;
+9b. ``train_mla``   ``Trainer`` on DeepSeek-V3 at published width cut to its
+                     3 dense layers (first_k_dense), seq 4096, batch 2 in 2
+                     microbatches, remat, 3 steps: flash at head_dim 192;
+                     first a one-layer f32 kernel-path against plain-path
+                     parity of the loss and every gradient; counters zeroed
+                     just before the steps and read just after;
 10. ``train_moe``    ``Trainer`` on Mixtral-8x7B at published width cut to 2
                      layers, the same shape and steps, loss and aux loss
                      each step; a one-layer kernel-path against
@@ -133,6 +157,20 @@ class Sizes:
     # batch, microbatches, steps and the restored step as train
     moe_arch: str = "mixtral_8x7b"
     moe_layers: int = 2
+    # serve_danube: H2O-Danube-1.8B at published width and depth, the
+    # serve settings above (prompts, batch, context, undersized pool)
+    danube_arch: str = "h2o_danube_1_8b"
+    # kernels: paged attention at D=80 with Danube's heads and a window
+    # shorter than the context, at D=112 with Zamba2-7B's heads
+    danube_kernel_window: int = 300
+    zamba_arch: str = "zamba2_7b"
+    small_page_sizes: tuple = (1, 3, 17)
+    # train_mla: DeepSeek-V3 at published width cut to its first_k_dense
+    # (3) dense layers; seq, batch and microbatches as train; its parity at
+    # one layer, one sequence of mla_parity_seq, f32
+    mla_train_layers: int = 3
+    mla_train_steps: int = 3
+    mla_parity_seq: int = 1024
 
 
 # ------------------------------------------------------------------- helpers
@@ -217,17 +255,20 @@ FLASH_TC_KERNELS = ("flash_tc_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_tc_fwd<128>`` or ``paged_attention_kernel<bf16,128,5>`` (dtype,
-    head dim, query heads a block) from the
-    mangled name of a kernel template instance
+    """``flash_tc_fwd<128>``, ``flash_tc_bwd_dkdv<192,1>`` (head dim, pass)
+    or ``paged_attention_kernel<bf16,128,5>`` (dtype, head dim, query heads
+    a block) from the mangled name of a kernel template instance
     (``..._GLOBAL__N_112flash_tc_fwdILi128EEEv...``)."""
     m = re.search(r"\d+(paged_attention_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
                   r"Li(\d+)E", mangled)
     if m:
         dt = "f32" if m.group(2) == "f" else "bf16"
         return f"{m.group(1)}<{dt},{m.group(3)},{m.group(4)}>"
-    m = re.search(r"\d+(flash_\w+?)ILi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+    m = re.search(r"\d+(flash_\w+?)ILi(\d+)E(?:Li(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    args = ",".join(a for a in m.group(2, 3) if a is not None)
+    return f"{m.group(1)}<{args}>"
 
 
 def _ptxas_by_kernel(log: str) -> dict:
@@ -280,12 +321,22 @@ def phase_build():
     spills = sum(int(n) for n in
                  re.findall(r"(\d+) bytes spill (?:stores|loads)", info.log))
     resources = _ptxas_by_kernel(info.log)
+    if not info.cached:
+        wide = [n for n in resources
+                if n.startswith("flash_") and "<192" in n]
+        require(len(wide) == 7, f"head_dim 192 flash kernels: {wide}")
+        for n in wide:
+            r = resources[n]
+            require(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0,
+                    f"{n} spills: {r.get('ptxas')}")
     mma = _sass_mma_counts(str(info.path))
     if mma is not None:
         for name, c in mma.items():
             resources.setdefault(name, {})["sass_tensor_core_instructions"] = c
         tc = [n for n in mma if n.split("<")[0] in FLASH_TC_KERNELS]
-        require(len(tc) == 3 * 8, f"bf16 flash kernels in the SASS: {tc}")
+        # nine head dims, three kernels each; dK/dV at 192 in two passes
+        require(len(tc) == 3 * 9 + 1, f"bf16 flash kernels in the SASS: "
+                f"{tc}")
         for n in tc:
             require(mma[n]["HGMMA"] + mma[n]["HMMA"] > 0,
                     f"{n}: no tensor-core instruction in its SASS")
@@ -485,20 +536,120 @@ FLASH_CASES = [
     (1, 700, 8, 2, 80, True, 200),      # h2o-danube's D and G, window
                                         # edges inside several tiles
     (1, 600, 32, 8, 128, True, 256),    # Mixtral-8x7B's heads (G = 4),
-]                                       # a window inside the sequence
+                                        # a window inside the sequence
+    (1, 333, 8, 2, 192, True, 0),       # DeepSeek-V3's MLA head_dim, GQA
+    (2, 150, 4, 4, 192, True, 40),      # ... with a window
+    (1, 260, 4, 4, 192, False, 0),      # ... non-causal
+]
 
 
-def phase_flash(dev, sz: Sizes, cfg, names: list):
-    """Flash attention: the cases above in f32 and bf16, then the training
-    shape (B=1, S=4096, H=40, KVH=8, D=128, causal) in f32 and in bf16:
-    errors against the plain version, kernel / plain / SDPA times, FLOP
-    bounds."""
+def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int) -> dict:
+    """One causal bf16 shape: the kernels' forward and backward against the
+    plain version (rows) and autograd of it (2e-2 x max|ref|); kernel /
+    plain / SDPA device ms; FLOPs, bytes and the bound.  Seven time_ms
+    calls, in the order of ``FLASH_TIMED``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
+    bf16 = torch.bfloat16
+    what = f"flash_attention B{B} S{S} H{H} KVH{KVH} D{D} bf16"
+    q = _rand(gen, (B, S, H, D), bf16, dev).requires_grad_(True)
+    k = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
+    v = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
+    dout = _rand(gen, (B, S, H, D), bf16, dev)
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(q, k, v)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout)
+    sync(dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = flash_attention_ref(qt, kt, vt).transpose(1, 2)
+    err_fwd, rel_fwd = _flash_close(o, ref.detach(), False, what)
+    want = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
+    err_bwd = max(_close_max(a, b, f"{what} d{n}")
+                  for a, b, n in zip((dq, dk, dv), want, "qkv"))
+    del want
+    with torch.no_grad():
+        plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+            qt, kt, vt, o.transpose(1, 2), dout.transpose(1, 2))]
+    rel_bwd = max(_flash_close(a, b, True, f"{what} d{n}, plain backward")[1]
+                  for a, b, n in zip((dq, dk, dv), plain, "qkv"))
+    del plain, dq, dk, dv
+    with torch.no_grad():
+        fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(q, k, v)], it)
+        bwd_ms = time_ms(dev, [lambda: flash_attention_bwd(
+            q, k, v, o, lse, dout)], it)
+        plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
+            qt, kt, vt)], max(2, it // 3))
+    plain_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        ref, (q, k, v), dout, retain_graph=True)], max(2, it // 3))
+    del ref
+    sync(dev)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)], it)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    sdpa_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        lib, (q, k, v), dout.transpose(1, 2), retain_graph=True)], it)
+    del lib
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2))
+
+    sdpa_fwd_bwd_ms = time_ms(dev, [sdpa_fwd_bwd], it)
+    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
+    el = 2                                        # bf16 bytes
+    fwd_flops = 4 * B * H * D * pairs             # QK^T and PV
+    bwd_flops = 10 * B * H * D * pairs            # S, dP, dV, dK, dQ
+    fwd_bytes = el * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
+    bwd_bytes = el * (6 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * H * S
+
+    def bound(flops, nbytes):
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_mem = nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_mem) * 1e3, \
+            "operations" if t_ops >= t_mem else "bytes"
+
+    fb, fby = bound(fwd_flops, fwd_bytes)
+    bb, bby = bound(bwd_flops, bwd_bytes)
+    del q, k, v, o, lse, dout
+    sync(dev)
+    torch.cuda.empty_cache()
+    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
+                      "dtype": "bfloat16", "causal": True},
+            "errs": (err_fwd, rel_fwd, err_bwd, rel_bwd),
+            "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fb,
+                    "bound_by": fby, "library_ms": sdpa_fwd_ms,
+                    "flops": fwd_flops, "bytes": fwd_bytes,
+                    "tflops_per_s": fwd_flops / fwd_ms / 1e9,
+                    "max_abs_err": err_fwd},
+            "bwd": {"ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bb,
+                    "bound_by": bby, "library_ms": sdpa_bwd_ms,
+                    "library_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+                    "flops": bwd_flops, "bytes": bwd_bytes,
+                    "tflops_per_s": bwd_flops / bwd_ms / 1e9,
+                    "max_abs_err": err_bwd}}
+
+
+FLASH_TIMED = ("flash_attention", "flash_attention_bwd",
+               "flash_attention_plain", "flash_attention_plain_bwd", "sdpa",
+               "sdpa_bwd", "sdpa_fwd_bwd")
+
+
+def phase_flash(dev, sz: Sizes, cfg, names: list):
+    """Flash attention: the cases above in f32 and bf16, then the training
+    shape (B=1, S=4096, H=40, KVH=8, D=128, causal) in f32 and in bf16,
+    then DeepSeek-V3's (H=KVH=128, D=192: nope 128 + rope 64) in bf16 at
+    the training shape's S and in f32 at a shorter one: errors against the
+    plain version, kernel / plain / SDPA times, FLOP bounds."""
+    import torch
+    from repro_torch.configs import get_config
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -519,105 +670,53 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     errs["float32_training_shape"] = dict(zip(keys, e[0] + e[1]))
     sync(dev)
     torch.cuda.empty_cache()
-    bf16 = torch.bfloat16
-    q = _rand(gen, (B, S, H, D), bf16, dev).requires_grad_(True)
-    k = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
-    v = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
-    dout = _rand(gen, (B, S, H, D), bf16, dev)
-    with torch.no_grad():
-        o, lse = flash_attention_fwd(q, k, v)
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout)
-    sync(dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ref = flash_attention_ref(qt, kt, vt).transpose(1, 2)
-    err_fwd, rel_fwd = _flash_close(o, ref.detach(), False,
-                                    "flash_attention, training shape")
-    want = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
-    err_bwd = max(_close_max(a, b, f"flash_attention_bwd, training shape "
-                             f"d{n}") for a, b, n in zip((dq, dk, dv), want,
-                                                         "qkv"))
-    del want
-    with torch.no_grad():
-        plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
-            qt, kt, vt, o.transpose(1, 2), dout.transpose(1, 2))]
-    rel_bwd = max(_flash_close(a, b, True, f"flash_attention_bwd, training "
-                               f"shape d{n}, plain backward")[1]
-                  for a, b, n in zip((dq, dk, dv), plain, "qkv"))
-    del plain
-    errs["bfloat16_training_shape"] = dict(zip(keys, (err_fwd, rel_fwd,
-                                                      err_bwd, rel_bwd)))
     it = sz.flash_iters
-    with torch.no_grad():
-        fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(q, k, v)], it)
-        bwd_ms = time_ms(dev, [lambda: flash_attention_bwd(
-            q, k, v, o, lse, dout)], it)
-        plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
-            qt, kt, vt)], max(2, it // 3))
-    plain_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
-        ref, (q, k, v), dout, retain_graph=True)], max(2, it // 3))
-    del ref
-    with torch.no_grad():
-        sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)], it)
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    sdpa_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
-        lib, (q, k, v), dout.transpose(1, 2), retain_graph=True)],
-        it)
-    del lib
+    main = _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it)
+    errs["bfloat16_training_shape"] = dict(zip(keys, main["errs"]))
+    names += list(FLASH_TIMED)
 
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2))
+    # DeepSeek-V3's MLA at head_dim 192, the train_mla shape's one layer
+    mcfg = get_config(sz.mla_arch)
+    D2 = mcfg.qk_nope_head_dim + mcfg.qk_rope_head_dim
+    H2 = mcfg.n_heads
+    e = _flash_case(gen, dev, 1, sz.mla_parity_seq // 2, H2, H2, D2,
+                    torch.float32, True, 0)
+    errs["float32_head_dim_192"] = dict(zip(keys, e[0] + e[1]))
+    wide = _flash_bf16_shape(gen, dev, 1, S, H2, H2, D2, it)
+    errs["bfloat16_head_dim_192"] = dict(zip(keys, wide["errs"]))
+    names += [f"{n}_d{D2}" for n in FLASH_TIMED]
 
-    sdpa_fwd_bwd_ms = time_ms(dev, [sdpa_fwd_bwd], it)
-    names += ["flash_attention", "flash_attention_bwd",
-              "flash_attention_plain", "flash_attention_plain_bwd",
-              "sdpa", "sdpa_bwd", "sdpa_fwd_bwd"]
-
-    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
-    el = 2                                        # bf16 bytes
-    fwd_flops = 4 * B * H * D * pairs             # QK^T and PV
-    bwd_flops = 10 * B * H * D * pairs            # S, dP, dV, dK, dQ
-    fwd_bytes = el * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
-    bwd_bytes = el * (6 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * H * S
-
-    def bound(flops, nbytes):
-        t_ops = flops / PEAK_FLOPS["bfloat16"]
-        t_mem = nbytes / HBM_BYTES_PER_S
-        return max(t_ops, t_mem) * 1e3, \
-            "operations" if t_ops >= t_mem else "bytes"
-
-    fb, fby = bound(fwd_flops, fwd_bytes)
-    bb, bby = bound(bwd_flops, bwd_bytes)
     src = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
     design = {"instruction": "mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, "
               "operands by ldmatrix", "loads": "cp.async, 2 stages"}
     tpu = "src/repro/kernels/flash_attention/flash_attention.py:79"
-    shape = {"B": B, "S": S, "H": H, "KVH": KVH, "D": D, "dtype": "bfloat16",
-             "causal": True}
+    d192 = {"arch": mcfg.name, "shape": wide["shape"],
+            "design": "forward 64-key tiles, dQ 32-key tiles, dK and dV in "
+            "two passes (no spills)"}
+    f, b = main["fwd"], main["bwd"]
     rows = [
         {"name": "flash_attention", "route": "cuda", "source": src,
-         "replaces": tpu, "launches": 0, "max_abs_err": err_fwd,
-         "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fb,
-         "bound_by": fby, "library_ms": sdpa_fwd_ms,
+         "replaces": tpu, "launches": 0, "max_abs_err": f["max_abs_err"],
+         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
          "library": "F.scaled_dot_product_attention (enable_gqa)",
-         **design, "flops": fwd_flops, "bytes": fwd_bytes,
-         "tflops_per_s": fwd_flops / fwd_ms / 1e9, "shape": shape},
+         **design, "flops": f["flops"], "bytes": f["bytes"],
+         "tflops_per_s": f["tflops_per_s"], "shape": main["shape"],
+         "head_dim_192": {**d192, **wide["fwd"]}},
         {"name": "flash_attention_bwd", "route": "cuda", "source": src,
          "replaces": tpu, "note": "the TPU kernel has no backward: the "
          "reference differentiates src/repro/models/attention_ops.py:77 "
-         "flash_attention_xla with XLA", "launches": 0, "max_abs_err": err_bwd, "ms": bwd_ms,
-         "plain_ms": plain_bwd_ms, "bound_ms": bb, "bound_by": bby,
-         "library_ms": sdpa_bwd_ms,
+         "flash_attention_xla with XLA", "launches": 0,
+         "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+         "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+         "bound_by": b["bound_by"], "library_ms": b["library_ms"],
          "library": "autograd of F.scaled_dot_product_attention",
-         "library_fwd_bwd_ms": sdpa_fwd_bwd_ms, **design,
-         "flops": bwd_flops,
-         "bytes": bwd_bytes, "tflops_per_s": bwd_flops / bwd_ms / 1e9,
-         "shape": shape},
+         "library_fwd_bwd_ms": b["library_fwd_bwd_ms"], **design,
+         "flops": b["flops"], "bytes": b["bytes"],
+         "tflops_per_s": b["tflops_per_s"], "shape": main["shape"],
+         "head_dim_192": {**d192, **wide["bwd"]}},
     ]
-    cases = 2 * len(FLASH_CASES) + 2
+    cases = 2 * len(FLASH_CASES) + 4
     return rows, errs, cases
 
 
@@ -756,10 +855,20 @@ def _latent_copies(gen, dev, sz: Sizes, iters: int) -> dict:
         sync(dev)
         require(torch.equal(res, want), f"page_scatter {name} rows")
         pairs = list(zip(pools, blocks))
+        il = idx.long()
         g_ms = time_ms(dev, [lambda p=p, b=b: gather_pages(p, idx, out=b)
                              for p, b in pairs], iters)
         s_ms = time_ms(dev, [lambda p=p, b=b: scatter_pages(p, idx, b)
                              for p, b in pairs], iters)
+        g_plain = time_ms(dev, [lambda p=p, b=b: page_gather_ref(p, idx, b)
+                                for p, b in pairs], iters)
+        s_plain = time_ms(dev, [lambda p=p, b=b: page_scatter_ref(p, idx, b)
+                                for p, b in pairs], iters)
+        g_lib = time_ms(dev, [lambda p=p, b=b: torch.index_select(
+            p, 0, il, out=b) for p, b in pairs], iters)
+        s_lib = time_ms(dev, [lambda p=p, b=b: p.index_copy_(0, il, b)
+                              for p, b in pairs], iters)
+        floor = _copy_floor_ms(dev, n, E * 2, iters)
         del pools, blocks, pairs
         nbytes = 2 * n * E * 2 + n * 4
         out[name] = {"row_bytes": E * 2, "rows": n, "pool_rows": L * P,
@@ -767,7 +876,208 @@ def _latent_copies(gen, dev, sz: Sizes, iters: int) -> dict:
                      "bytes": nbytes,
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "gather_ms": g_ms, "scatter_ms": s_ms,
+                     "gather_plain_ms": g_plain, "scatter_plain_ms": s_plain,
+                     "gather_library_ms": g_lib, "scatter_library_ms": s_lib,
+                     "empty_kernel_ms": floor,
+                     "plan": _copy_plan_of(dev, n, E * 2),
                      "gather_exact": True, "scatter_exact": True}
+    return out
+
+
+def _copy_plan_of(dev, n: int, row_bytes: int) -> dict:
+    from repro_torch.kernels.page_pack import page_pack as pk
+    mode, piece, blocks, stages = _copy_plan(dev, n, row_bytes)
+    if mode == pk.WORDS:
+        return {"mode": "words", "blocks": _copy_blocks(dev, n, row_bytes)}
+    return {"mode": "bulk", "piece_bytes": piece, "blocks": blocks,
+            "stages": stages}
+
+
+def _timed_attn(gen, dev, sz: Sizes, H, KVH, D, ps, NP, lengths, window=0):
+    """bf16 device ms of ``paged_attention`` over ``timing_layers`` L2-cold
+    pools of B = len(lengths) sequences, its plain version's, and the bytes
+    bound (each valid K and V row of D elements read once)."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, Lt, bf16 = len(lengths), sz.timing_layers, torch.bfloat16
+    kpool = _rand(gen, (Lt, B * NP, ps, KVH, D), bf16, dev)
+    vpool = _rand(gen, (Lt, B * NP, ps, KVH, D), bf16, dev)
+    q = _rand(gen, (B, H, D), bf16, dev)
+    pt = torch.arange(B * NP, dtype=torch.int32, device=dev).reshape(B, NP)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ms = time_ms(dev, [lambda l=l: paged_attention(
+        q, kpool[l], vpool[l], pt, ln, window=window) for l in range(Lt)],
+        sz.timing_iters)
+    plain = time_ms(dev, [lambda l=l: paged_attention_ref(
+        q, kpool[l], vpool[l], pt, ln, window=window) for l in range(Lt)],
+        max(4, sz.timing_iters // 5))
+    rows = sum(min(n, window) if window else n for n in lengths)
+    nbytes = (2 * rows * KVH * D + 2 * B * H * D) * 2 + pt.numel() * 4 + B * 4
+    t_ops = 4 * rows * H * D / PEAK_FLOPS["bfloat16"]
+    del kpool, vpool
+    return {"ms": ms, "plain_ms": plain,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops
+            else "operations", "bytes": nbytes}
+
+
+def _head_dim_cases(gen, dev, sz: Sizes) -> dict:
+    """``paged_attention`` at the head dims that run the next instance up
+    (80 and 112 on the 128 instance): H2O-Danube-1.8B's heads (H=32, KVH=8,
+    D=80) with a window shorter than the context, Zamba2-7B's (H=32,
+    KVH=32, D=112); f32 and bf16 at every cluster size against the plain
+    version at the serving shape (4 sequences, 256-token pages, ragged) and
+    at batch 1, then bf16 device times (:func:`_timed_attn`)."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    B, NP, ps = sz.max_batch, sz.pages_per_seq, 256
+    ragged = [max(1, int(ps * NP * f)) for f in (0.2, 0.3, 0.6, 1.0)][:B]
+    for arch, window in ((sz.danube_arch, sz.danube_kernel_window),
+                         (sz.zamba_arch, 0)):
+        c = get_config(arch)
+        H, KVH, D = c.n_heads, c.n_kv_heads, c.head_dim
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            errs[name] = max(
+                _attn_case(gen, dev, B, H, KVH, D, ps, NP, dt, lengths=ragged,
+                           window=window),
+                _attn_case(gen, dev, 1, H, KVH, D, ps, NP, dt,
+                           lengths=[ps * NP - 5], window=window))
+        out[f"head_dim_{D}"] = {
+            "arch": c.name, "H": H, "KVH": KVH, "D": D, "ps": ps, "NP": NP,
+            "lengths": ragged, "window": window,
+            "masked_by_window": window > 0 and max(ragged) > window,
+            "max_abs_err": errs, "cluster_sizes_checked": list(SPLITS),
+            "instance_head_dim": 128,
+            **_timed_attn(gen, dev, sz, H, KVH, D, ps, NP, ragged, window)}
+    return out
+
+
+def _page_size_cases(gen, dev, sz: Sizes, cfg) -> dict:
+    """Page sizes a bulk segment cannot serve (row copies by ``cp.async``):
+    ``small_page_sizes`` at D 16 and 128, f32 and bf16, every cluster size,
+    against the plain version; then the cost of small pages: bf16 device
+    time of the serving shape (Qwen3-14B's heads, 4 x 1024-token contexts)
+    at 256-token pages (bulk), 16 (bulk, 16-row segments) and each small
+    size."""
+    import torch
+    from repro_torch.kernels.paged_attention import \
+        paged_attention as pa_kernel
+    errs, modes = {}, {}
+    for D in (16, 128):
+        for ps in sz.small_page_sizes:
+            NP = max(2, -(-70 // ps))
+            for dt in (torch.float32, torch.bfloat16):
+                name = str(dt).split(".")[-1]
+                seg = pa_kernel.bulk_segment(ps, D, dt)
+                modes[f"D{D}_ps{ps}_{name}"] = \
+                    f"bulk, {seg}-row segments" if seg else "row copies"
+                e = _attn_case(gen, dev, 2, 8, 2, D, ps, NP, dt)
+                errs[f"D{D}_ps{ps}_{name}"] = e
+    require(any(m == "row copies" for m in modes.values()),
+            f"no case took the row copies: {modes}")
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    context = sz.pages_per_seq * cfg.kv_page_tokens
+    cost = {}
+    for ps in (256, 16) + tuple(sz.small_page_sizes):
+        NP = -(-context // ps)
+        t = _timed_attn(gen, dev, sz, H, KVH, D, ps, NP,
+                        [context] * sz.max_batch)
+        cost[str(ps)] = {"ms": t["ms"], "bound_ms": t["bound_ms"],
+                         "segment_rows": pa_kernel.bulk_segment(
+                             ps, D, torch.bfloat16)}
+    return {"max_abs_err": errs, "copies": modes,
+            "bf16_ms_by_page_size": cost,
+            "cost_shape": {"B": sz.max_batch, "H": H, "KVH": KVH, "D": D,
+                           "context": context}}
+
+
+def _copy_plan(dev, n: int, row_bytes: int) -> tuple:
+    """The page copies' plan for ``n`` rows of ``row_bytes`` on ``dev``."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.page_pack import page_pack as pk
+    return pk.copy_plan(n, row_bytes, sm_count(dev.index or 0))
+
+
+def _copy_blocks(dev, n: int, row_bytes: int) -> int:
+    """Blocks of the copy's grid: the bulk plan's, or the word loop's one
+    block a (row, 16 KB piece) of 16-byte words (csrc/page_pack.cu)."""
+    blocks = _copy_plan(dev, n, row_bytes)[2]
+    return blocks or n * -(-row_bytes // 16384)
+
+
+def _copy_floor_ms(dev, n: int, row_bytes: int, iters: int) -> float:
+    """An empty kernel launched with the copy's grid, timed as the copy
+    is: the launch floor under its time."""
+    from repro_torch.kernels.page_pack import page_pack as pk
+    blocks = _copy_blocks(dev, n, row_bytes)
+    return time_ms(dev, [lambda: pk.empty_launch(blocks, dev)], iters)
+
+
+def _bulk_copy_cases(gen, dev, sz: Sizes, cfg) -> dict:
+    """The bulk copies (copies of 16 MB and more) where they clamp and
+    where a row ends in a shorter piece: a slot's rows of every layer of
+    Qwen3-14B (512 KB) and of H2O-Danube-1.8B (320 KB), whose rows split
+    into whole 32 KB pieces, and Danube's rows widened by 16 bytes, whose
+    last piece is shorter (no configuration's page row has one).  Indices
+    of -1 (row 0), at the pool's end and far past it (the last row).
+    Gather and scatter against ``page_pack/ref.py`` on the clamped list,
+    bit for bit; a scatter's list clamps onto rows that no other index
+    names (-1 and one past the pool), and the whole pool is compared, so a
+    row written twice, or not at all, shows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.page_pack import page_pack as pk
+    from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
+    from repro_torch.kernels.page_pack.ref import (page_gather_ref,
+                                                   page_scatter_ref)
+    danube = get_config(sz.danube_arch)
+    cases = [(c.name, c.n_layers,
+              c.kv_page_tokens * c.n_kv_heads * c.head_dim)
+             for c in (cfg, danube)]
+    cases.append((danube.name + " rows + 16 B", danube.n_layers,
+                  cases[-1][2] + 8))
+    out = {}
+    for name, L, E in cases:
+        row_bytes = E * 2
+        per = sz.pages_per_seq
+        n = L * per
+        P = 2 * n                          # rows: two slots a layer
+        mode, piece, _, _ = _copy_plan(dev, n, row_bytes)
+        require(mode == pk.BULK, f"{name}: {n} rows of {row_bytes} B "
+                "do not take the bulk copies")
+        pool = _rand(gen, (P, E), torch.bfloat16, dev)
+        # gather: the slot's rows, three of them replaced by clamped ones
+        idx = _slot_rows(L, 2 * per, per, 1, dev)
+        idx[0], idx[n // 2], idx[-1] = -1, P, P + 1000
+        want = page_gather_ref(pool, idx.clamp(max=P - 1))
+        got = gather_pages(pool, idx)
+        sync(dev)
+        require(torch.equal(got, want), f"page_gather {name} bulk rows, "
+                "clamped indices")
+        # scatter: rows 1 .. P - 2 once at most, so rows 0 and P - 1 are
+        # named only by -1 and the past-the-pool index
+        idx = torch.randperm(P - 2, generator=gen, device=dev)[:n] \
+            .to(torch.int32) + 1
+        idx[0], idx[n // 2] = -1, P + 1000
+        blk = _rand(gen, (n, E), torch.bfloat16, dev)
+        want = page_scatter_ref(pool.clone(), idx.clamp(max=P - 1), blk)
+        res = scatter_pages(pool.clone(), idx, blk)
+        sync(dev)
+        require(torch.equal(res, want), f"page_scatter {name} bulk rows, "
+                "clamped indices")
+        out[name] = {"rows": n, "row_bytes": row_bytes, "pool_rows": P,
+                     "piece_bytes": piece,
+                     "last_piece_bytes": row_bytes % piece or piece,
+                     "gather_indices": "-1, pool_rows, pool_rows + 1000",
+                     "scatter_indices": "-1, pool_rows + 1000",
+                     "gather_exact": True, "scatter_exact": True}
+        del pool, blk, got, res, want
+    require(any(v["last_piece_bytes"] < v["piece_bytes"]
+                for v in out.values()), "no bulk case had a shorter piece")
     return out
 
 
@@ -918,6 +1228,15 @@ def phase_kernels(dev, sz: Sizes, cfg):
     errs["paged_attention_long_context"] = long.pop("max_abs_err_by_dtype")
     n_cases += 2
 
+    # ---- kernel 1 at head dims 80 and 112, and at small page sizes --------
+    wide = _head_dim_cases(gen, dev, sz)
+    errs["paged_attention_head_dims"] = {k: v["max_abs_err"]
+                                         for k, v in wide.items()}
+    n_cases += 4 * len(wide)
+    small_pages = _page_size_cases(gen, dev, sz, cfg)
+    errs["paged_attention_page_sizes"] = small_pages["max_abs_err"]
+    n_cases += len(small_pages["max_abs_err"])
+
     # ---- kernels 2 and 3, small shapes -----------------------------------
     for (Pn, n, E) in [(8, 4, 32), (64, 16, 128), (16, 16, 64), (8, 5, 7),
                        (8, 5, 3)]:
@@ -997,11 +1316,17 @@ def phase_kernels(dev, sz: Sizes, cfg):
                                 for b in blocks], copy_it)
     copy_bytes = 2 * n * E * pool.element_size() + n * 4
     copy_bound = copy_bytes / HBM_BYTES_PER_S
+    copy_floor = _copy_floor_ms(dev, n, E * pool.element_size(), copy_it)
+    copy_plan = _copy_plan_of(dev, n, E * pool.element_size())
     del pool, blocks
 
     # ---- kernels 2 and 3 at DeepSeek-V3's latent-pool rows ----------------
     latent = _latent_copies(gen, dev, sz, copy_it)
     n_cases += 2 * len(latent)
+
+    # ---- kernels 2 and 3, bulk copies that clamp and end in short pieces --
+    bulk_cases = _bulk_copy_cases(gen, dev, sz, cfg)
+    n_cases += 2 * len(bulk_cases)
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
@@ -1020,7 +1345,9 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "design": "split-KV over a thread-block cluster (DSMEM combine), "
          "a producer warp's cp.async.bulk.tensor copies (a page segment "
          f"each) into an mbarrier ring of {tile}-row stages, consumer warps "
-         "split the tokens", "long_context": long,
+         "split the tokens; pages a segment cannot serve copied row by row "
+         "(cp.async); head dims 80 and 112 on the 128 instance",
+         "long_context": long, **wide, "small_pages": small_pages,
          "shape": {"B": B, "H": H, "KVH": KVH, "D": D, "ps": ps, "NP": NP,
                    "lengths": ragged, "dtype": "bfloat16"}},
         {"name": "page_gather", "route": "cuda", "source": src + "page_pack.cu",
@@ -1028,29 +1355,43 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "max_abs_err": 0.0, "ms": gather_ms, "plain_ms": gather_plain,
          "bound_ms": copy_bound * 1e3, "bound_by": "bytes",
          "library_ms": gather_lib, "library": "torch.index_select",
-         "bytes": copy_bytes,
+         "bytes": copy_bytes, "empty_kernel_ms": copy_floor,
+         "plan": copy_plan,
          "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"},
          "latent_pools": {k: {f: v[f] for f in v if "scatter" not in f}
-                          for k, v in latent.items()}},
+                          for k, v in latent.items()},
+         "bulk_cases": bulk_cases},
         {"name": "page_scatter", "route": "cuda",
          "source": src + "page_pack.cu",
          "replaces": ref + "page_pack/page_pack.py:53", "launches": 0,
          "max_abs_err": 0.0, "ms": scatter_ms, "plain_ms": scatter_plain,
          "bound_ms": copy_bound * 1e3, "bound_by": "bytes",
          "library_ms": scatter_lib, "library": "Tensor.index_copy_",
-         "bytes": copy_bytes,
+         "bytes": copy_bytes, "empty_kernel_ms": copy_floor,
+         "plan": copy_plan,
          "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"},
          "latent_pools": {k: {f: v[f] for f in v if "gather" not in f}
-                          for k, v in latent.items()}},
+                          for k, v in latent.items()},
+         "bulk_cases": bulk_cases},
     ]
+    # the time_ms calls above, in the order they ran
     names = ["paged_attention", "paged_attention_plain",
              "paged_attention_batch1", "sdpa_on_pregathered_kv",
              "paged_attention_long_context",
-             "paged_attention_long_context_plain", "page_gather",
-             "page_gather_plain", "index_select", "page_scatter",
-             "page_scatter_plain", "index_copy_"] + [
-                 f"page_{op}_{pool}" for pool in latent
-                 for op in ("gather", "scatter")]
+             "paged_attention_long_context_plain"] + [
+                 f"paged_attention_{k}{p}" for k in wide
+                 for p in ("", "_plain")] + [
+                 f"paged_attention_page_size_{ps}{p}"
+                 for ps in small_pages["bf16_ms_by_page_size"]
+                 for p in ("", "_plain")] + [
+                 "page_gather", "page_gather_plain", "index_select",
+                 "page_scatter", "page_scatter_plain", "index_copy_",
+                 "page_copy_empty_kernel"] + [
+                 f"{what}_{pool}" for pool in latent
+                 for what in ("page_gather", "page_scatter",
+                              "page_gather_plain", "page_scatter_plain",
+                              "index_select", "index_copy_",
+                              "empty_kernel")]
     flash_rows, flash_errs, flash_cases = phase_flash(dev, sz, cfg, names)
     table += flash_rows
     errs["flash_attention (fwd, grads)"] = flash_errs
@@ -1240,6 +1581,105 @@ def phase_serve(dev, sz: Sizes, cfg, table):
          max_memory_allocated=peak, launches=counts,
          first_tokens=[r.generated[:4] for r in reqs])
     return params, cfg
+
+
+# -------------------------------------------------------- phase: serve_danube
+def phase_serve_danube(dev, sz: Sizes, table):
+    """``ServingEngine`` on H2O-Danube-1.8B at published width and depth (24
+    layers, d_model 2560, 32/8 heads of head_dim 80: paged attention's 128
+    instance with the columns past 80 zero-filled), random weights from a
+    seed, the ``serve`` phase's settings, requests and undersized pool.
+
+    The decoder gives a sliding-window config a ring buffer
+    (``decoder.uses_ring``, as the reference does), which never reaches
+    ``paged_attention``.  The engine's context (``max_len`` 1,024) is
+    inside Danube's 4,096-token window, where the window masks nothing, so
+    the phase serves the model with the window off, which decodes through
+    the paged pools.  That config runs the kernel path first, counters
+    zeroed just before and read just after (``paged_attention`` launches =
+    24 x decode_step calls; page copies; spills and fault page-ins), then
+    the plain path (``paged_attention_ref``) on the card: identical greedy
+    tokens.  Last the published config on its own ring path (plain torch,
+    no kernel), which must finish every request: the two layouts place a
+    batch's new token at the first sequence's offset in their own ways
+    (the reference's lock-step write), so their tokens are not compared."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decoder
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.danube_arch)
+    max_len = sz.pages_per_seq * cfg.kv_page_tokens
+    require(decoder.uses_ring(cfg) and max_len <= cfg.sliding_window,
+            f"{cfg.name}: window {cfg.sliding_window} at context {max_len}")
+    paged = dataclasses.replace(cfg, sliding_window=0)
+    _free(dev)
+    t0 = time.perf_counter()
+    params = decoder.init_params(cfg, 0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    kernels.reset_launch_counts()
+    eng, reqs, wall = _serve(dev, sz, paged, params, sz.pool_frames)
+    counts = kernels.launch_counts()
+    st = eng.stats
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    step_calls = prompt_tokens + st.decode_steps
+    require(all(r.done and len(r.generated) == sz.max_new for r in reqs),
+            "a request did not finish")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+            "token id out of range")
+    require(st.spill_events > 0 and st.fault_page_ins > 0,
+            f"no spill / fault-back-in: {st}")
+    if dev.type == "cuda":
+        require(counts["paged_attention"] == cfg.n_layers * step_calls,
+                f"paged_attention launches {counts['paged_attention']} != "
+                f"{cfg.n_layers} layers x {step_calls} decode_step calls")
+        require(counts["page_gather"] > 0
+                and counts["page_gather"] == counts["page_scatter"],
+                f"page gather/scatter launches: {counts}")
+    _add_launches(table, "serve_danube", counts,
+                  ("paged_attention", "page_gather", "page_scatter"))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    stats = dataclasses.asdict(st)
+    del eng
+
+    kernel_fn = attn_mod.paged_attention
+    attn_mod.paged_attention = paged_attention_ref      # plain path, on card
+    try:
+        _, reqs_p, wall_p = _serve(dev, sz, paged, params, sz.pool_frames)
+    finally:
+        attn_mod.paged_attention = kernel_fn
+    same = [a.generated == b.generated for a, b in zip(reqs, reqs_p)]
+    require(all(same), f"greedy tokens differ between the kernel and the "
+            f"plain path: {same}")
+    ring_eng, reqs_r, wall_r = _serve(dev, sz, cfg, params, sz.pool_frames)
+    require(all(r.done and len(r.generated) == sz.max_new for r in reqs_r),
+            "a request did not finish on the ring path")
+    emit("serve_danube", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, window=cfg.sliding_window,
+         window_in_the_paged_runs="off (masks nothing at this context)",
+         params=n_params, dtype=cfg.dtype, init_seconds=init_s,
+         max_batch=sz.max_batch, max_len=max_len,
+         page_tokens=cfg.kv_page_tokens, pool_frames=sz.pool_frames,
+         prompt_lengths=[len(r.prompt) for r in reqs],
+         requests_done=sum(r.done for r in reqs),
+         tokens_generated=st.tokens_generated, decode_steps=st.decode_steps,
+         decode_step_calls=step_calls, wall_seconds=wall,
+         plain_path_wall_seconds=wall_p, ring_path_wall_seconds=wall_r,
+         generated_tokens_per_s=st.tokens_generated / wall,
+         processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
+         tokens_identical_kernel_vs_plain=True,
+         ring_path_spill_events=ring_eng.stats.spill_events,
+         spill_events=st.spill_events, fault_page_ins=st.fault_page_ins,
+         engine_stats=stats, max_memory_allocated=peak,
+         launches=counts, first_tokens=[r.generated[:4] for r in reqs])
+    del params, ring_eng
+    _free(dev)
 
 
 # ------------------------------------------------------- phase: serve_mla_moe
@@ -1641,6 +2081,145 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
                      "abs_diff": diff}, profile=profile)
 
 
+# ----------------------------------------------------------- phase: train_mla
+MLA_PARITY_TOL = {"loss_rel": 1e-5, "grad_of_max": 1e-4}    # float32
+
+
+def _mla_train_parity(dev, sz: Sizes, cfg) -> dict:
+    """One layer of DeepSeek-V3 at published width in float32, one
+    sequence of ``mla_parity_seq``, remat: loss and every leaf's gradient by
+    the kernel path (flash at head_dim 192, the CUDA-core route) against
+    the plain path (the chunked ``flash_attention_xla``), both on the card.
+    Held as ``train_parity`` holds the dense model: loss within 1e-5
+    relative, each gradient leaf within 1e-4 x max|ref| (f32 sums over
+    d_model 7168 and 128 heads in another order)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import decoder
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models.attention_ops import flash_attention_xla
+    from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_names
+
+    pcfg = dataclasses.replace(cfg, n_layers=1,
+                               first_k_dense=min(cfg.first_k_dense, 1),
+                               dtype="float32")
+    params = decoder.init_params(pcfg, 7, device=dev)
+    tokens, labels = SyntheticLM(pcfg.vocab_size, sz.mla_parity_seq, 1,
+                                 seed=7).batch_at(0)
+    tok = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    loss_fn = make_loss_fn(pcfg, TrainConfig(remat=True))
+    before = kernels.launch_counts()
+    loss_k, g_k = value_and_grad(loss_fn, params, tok, lab)
+    sync(dev)
+    after = kernels.launch_counts()
+    kernel_fn = mla_mod.flash_attention
+    mla_mod.flash_attention = flash_attention_xla          # plain, on card
+    try:
+        loss_p, g_p = value_and_grad(loss_fn, params, tok, lab)
+        sync(dev)
+    finally:
+        mla_mod.flash_attention = kernel_fn
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    require(dev.type != "cuda" or (fwd == 2 and bwd == 1),
+            f"train_mla parity: flash launches fwd {fwd} bwd {bwd}")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(math.isfinite(float(loss_k))
+            and loss_rel <= MLA_PARITY_TOL["loss_rel"],
+            f"train_mla parity: loss {float(loss_k)} vs {float(loss_p)}")
+    grad_of_max = {}
+    for n, a, b in zip(tree_names(g_k), tree_leaves(g_k), tree_leaves(g_p)):
+        require(bool(torch.isfinite(a).all()), f"grad {n} not finite")
+        grad_of_max[n] = float((a - b).abs().max()
+                               / b.abs().max().clamp_min(1e-30))
+    worst = max(grad_of_max, key=grad_of_max.get)
+    require(grad_of_max[worst] <= MLA_PARITY_TOL["grad_of_max"],
+            f"train_mla parity: grad {worst} max abs err "
+            f"{grad_of_max[worst]} x max|ref|")
+    del params, g_k, g_p
+    return {"layers": 1, "dtype": "float32", "seq": sz.mla_parity_seq,
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_err": loss_rel, "grad_err_of_max": grad_of_max,
+            "tolerance": MLA_PARITY_TOL,
+            "flash_launches": {"fwd": fwd, "bwd": bwd}}
+
+
+def phase_train_mla(dev, sz: Sizes, table):
+    """``Trainer`` on DeepSeek-V3 at published width cut to
+    ``mla_train_layers`` (its first_k_dense dense layers: one MoE layer
+    alone is 11.3 B parameters, ~135 GB with f32 moments), random weights
+    from a seed: first the one-layer kernel-path / plain-path parity, then
+    ``mla_train_steps`` steps at the train shape (seq 4096, batch 2 in 2
+    microbatches, remat, bf16 params, f32 moments), counters zeroed just
+    before the steps and read just after: flash attention at head_dim 192
+    (q and k nope 128 + rope 64, v zero-padded to 192), finite losses."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import decoder
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.mla_arch, n_layers=sz.mla_train_layers)
+    require(cfg.family == "mla_moe", cfg.family)
+    _free(dev)
+    parity = _mla_train_parity(dev, sz, cfg)
+    _free(dev)
+
+    tcfg = TrainConfig(microbatches=sz.train_microbatches, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4,
+                                             moment_dtype="float32"))
+    ds = SyntheticLM(cfg.vocab_size, sz.train_seq, sz.train_batch, seed=0)
+    t0 = time.perf_counter()
+    params = decoder.init_params(cfg, 0, device=dev)
+    tr = Trainer(cfg, tcfg, params, ds, device=dev)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    tokens_per_step = sz.train_batch * sz.train_seq
+    steps = []
+    kernels.reset_launch_counts()
+    for _ in range(sz.mla_train_steps):
+        t0 = time.perf_counter()
+        tr.run(1, log_every=0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        steps.append(dict(tr.history[-1], wall_s=wall,
+                          tokens_per_s=tokens_per_step / wall))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in steps), f"train_mla: non-finite loss: {steps}")
+    per_step = sz.train_microbatches * cfg.n_layers
+    require(dev.type != "cuda" or (
+        counts["flash_attention"] == 2 * per_step * sz.mla_train_steps
+        and counts["flash_attention_bwd"] == per_step * sz.mla_train_steps),
+        f"flash launches on the train_mla path: {counts}")
+    _add_launches(table, "train_mla", counts,
+                  ("flash_attention", "flash_attention_bwd"))
+    emit("train_mla", arch=cfg.name, layers=cfg.n_layers,
+         first_k_dense=cfg.first_k_dense, d_model=cfg.d_model,
+         heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+         kv_lora_rank=cfg.kv_lora_rank,
+         qk_head_dim=cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+         v_head_dim=cfg.v_head_dim, vocab=cfg.vocab_size, params=n_params,
+         dtype=cfg.dtype, moment_dtype="float32", seq=sz.train_seq,
+         global_batch=sz.train_batch, microbatches=sz.train_microbatches,
+         remat=True, init_seconds=init_s, steps=steps,
+         mean_tokens_per_s_after_first=(
+             sum(r["tokens_per_s"] for r in steps[1:]) / (len(steps) - 1)
+             if len(steps) > 1 else None),
+         max_memory_allocated=peak, launches=counts, parity=parity)
+    del tr
+    _free(dev)
+
+
 # ----------------------------------------------------------- phase: train_moe
 MOE_PARITY_TOL = {"float32": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
                                "top2_flip_share": 2e-2},
@@ -2033,12 +2612,18 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     del params
     if stop_after == "serve":
         return None
+    phase_serve_danube(dev, sz, table)
+    if stop_after == "serve_danube":
+        return None
     phase_serve_mla_moe(dev, sz, table)
     if stop_after == "serve_mla_moe":
         return None
     phase_train_parity(dev, sz, cfg)
     phase_train(dev, sz, cfg, table, with_profile)
     if stop_after == "train":
+        return None
+    phase_train_mla(dev, sz, table)
+    if stop_after == "train_mla":
         return None
     phase_train_moe(dev, sz, table, with_profile)
     return table
@@ -2060,7 +2645,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", default="",
                     choices=["", "profile", "kernels", "spill_parity",
-                             "serve", "serve_mla_moe", "train"],
+                             "serve", "serve_danube", "serve_mla_moe",
+                             "train", "train_mla"],
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="after serve, profile a batch-1 decode step; after "

@@ -16,6 +16,7 @@ wrapper the first time it launches.  A failing build raises
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -31,15 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # q, k_pool, v_pool, page_table, lengths, out, B, KVH, G, D, P, NP, ps,
-    # stride_p, stride_t, stride_h, window, n_splits, dtype_code, stream
+    # seg, stride_p, stride_t, stride_h, window, n_splits, dtype_code, stream
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _LL, _LL, _LL, _I, _I, _I, _P],
+                              _I, _I, _LL, _LL, _LL, _I, _I, _I, _P],
     # n_splits, D, G, dtype_code, *count
     "repro_paged_attention_active_clusters": [_I, _I, _I, _I,
                                               ctypes.POINTER(_I)],
-    # pool, indices, block, row_bytes, n, pool_rows, stream
-    "repro_page_gather": [_P, _P, _P, _LL, _I, _I, _P],
-    "repro_page_scatter": [_P, _P, _P, _LL, _I, _I, _P],
+    # pool, indices, block, row_bytes, n, pool_rows, mode, piece, blocks,
+    # stages, stream
+    "repro_page_gather": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P],
+    "repro_page_scatter": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P],
+    # blocks, stream
+    "repro_empty_launch": [_I, _P],
     # q, k, v, o, lse, B, S, H, KVH, D, sq_b, sq_s, sq_h, sk_b, sk_s, sk_h,
     # causal, window, stream: f32 on the CUDA cores, bf16 on the tensor cores
     **dict.fromkeys(
@@ -160,6 +166,12 @@ def load_library() -> ctypes.CDLL:
     BuildInfo.seconds = time.perf_counter() - t0
     _LIB = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of a CUDA device (the kernels' plans read it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_launch(code: int, what: str) -> None:

@@ -559,8 +559,10 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// 192: DeepSeek-V3's MLA (nope 128 + rope 64); its dK/dV kernel needs
+// 231,424 B of shared memory (dkdv_smem), 1,024 under a block's 232,448
 #define REPRO_FOR_EACH_HEAD_DIM(X) \
-  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(192)
 
 bool shapes_ok(int B, int S, int H, int KVH) {
   return B > 0 && B <= 65535 && S > 0 && H > 0 && H <= 65535 && KVH > 0

@@ -62,6 +62,29 @@
 //  * forward and dQ launch their heaviest (latest) q tiles first, dK/dV
 //    its heaviest (earliest) k tiles first: the q / k tile is the slowest
 //    grid axis.
+//
+// Head dim 192 (DeepSeek-V3's MLA: nope 128 + rope 64, V zero-padded to
+// 192 as the reference does).  The tiles above stop fitting there, in
+// shared memory (the forward's 128 q rows and two stages of 128 keys are
+// 256,000 B at 200 elements a row, over the 232,448 a block may have) and
+// in registers (an accumulator row of 192 columns is 96 f32 a lane).  So
+// at D > 128 the instances change their shapes, not their structure:
+//  * the forward takes 64-key tiles (153,600 B): the O accumulator grows
+//    from 64 to 96 registers a lane while the score tile shrinks from 64
+//    to 32, so the live set stays that of D = 128;
+//  * dQ takes 32-key tiles (153,600 B), for the same trade (96 + 16 + 16
+//    against 64 + 32 + 32);
+//  * dK/dV, which at D = 128 already holds 128 accumulator registers a
+//    lane (255 registers in all), would need 192: it runs as two passes
+//    of the same kernel instead (template kPass), a dV pass (S^T -> P^T,
+//    dV += P^T dO) and a dK pass (S^T, dP^T -> dS^T, dK += dS^T Q), each
+//    with one 96-register accumulator.  The dK pass recomputes S^T, so the
+//    backward does 6 products of a tile where the fused kernel does 5
+//    (counted with dQ's: S, dP, dQ; S, dV; S, dP, dK), for no spills.
+//    Separate passes keep every sum in one order: no atomics at D = 192
+//    either.
+// D <= 128 keeps the tiles, the single fused dK/dV kernel and the timings
+// of the design above.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,6 +111,18 @@ constexpr int kDqBK = 64;                        //   per 64-key tile,
 constexpr int kDqMinBlocks = 1;                  //   1 block an SM
 constexpr int kKvBK = kWarps * kRowsPerWarp;     // dK/dV: 128 keys
 constexpr int kKvBQ = 64;                        //   per 64-row q tile
+constexpr int kWideD = 128;                      // head dims above: the
+constexpr int kFwdBKWide = 64;                   //   forward's keys a tile,
+constexpr int kDqBKWide = 32;                    //   dQ's keys a tile
+
+// keys a tile of the forward and of dQ at head dim D
+template <int D> struct KeyTile {
+  static constexpr int kFwd = D > kWideD ? kFwdBKWide : kFwdBK;
+  static constexpr int kDq = D > kWideD ? kDqBKWide : kDqBK;
+};
+
+// what a dK/dV launch computes: both (D <= 128), or one of the two passes
+enum { kBothPass = 0, kDvPass = 1, kDkPass = 2 };
 
 // bf16 elements per shared-memory row: D + 8, i.e. 2D + 16 bytes = an odd
 // multiple of 4 words modulo 32 banks, so 8 rows at one column hit 8
@@ -311,7 +346,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
     long long sq_h, long long sk_b, long long sk_s, long long sk_h,
     int causal, int window, float scale_log2) {
   constexpr int LD = Smem<D>::kLD;
-  constexpr int kBQ = kFwdBQ, kBK = kFwdBK, kM = kFwdM;
+  constexpr int kBQ = kFwdBQ, kBK = KeyTile<D>::kFwd, kM = kFwdM;
   constexpr int kNT = kFwdWarps * 32;
   constexpr int kND = D / 8, kNK = kBK / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -442,7 +477,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     float* __restrict__ delta, bf16* __restrict__ dq, int S, int KVH,
     int G, int causal, int window, float scale_log2, float scale) {
   constexpr int LD = Smem<D>::kLD;
-  constexpr int kBQ = kDqBQ, kBK = kDqBK;
+  constexpr int kBQ = kDqBQ, kBK = KeyTile<D>::kDq;
   constexpr int kND = D / 8, kNK = kBK / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);       // kBQ x LD
@@ -557,7 +592,9 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
 // by the most q tiles).  Layouts as flash_tc_bwd_dq; delta is its output.
 // Each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so P^T
 // and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q.
-template <int D>
+// kPass: both gradients, or only dV (no V, no dP^T) or only dK (see the
+// header: head dims above 128).
+template <int D, int kPass>
 __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -590,8 +627,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
   const int n_i = max(0, i_hi - i_lo);
   const int n_it = G * n_i;
 
+  constexpr bool kDv = kPass != kDkPass, kDk = kPass != kDvPass;
   load_tile<D, kBK>(Ks, k + kv_off, sk, k0, S);
-  load_tile<D, kBK>(Vs, v + kv_off, sk, k0, S);
+  if (kDk) load_tile<D, kBK>(Vs, v + kv_off, sk, k0, S);
   // iteration `it`: head kvh * G + it / n_i, q tile i_lo + it % n_i
   auto load_q_tile = [&](int it, int stage) {
     const int gg = it / n_i;
@@ -621,7 +659,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
   }
   cp_async_commit();
 
-  float dk_acc[1][kND][4], dv_acc[1][kND][4];
+  // a pass's unused accumulator is one tile, never touched
+  float dk_acc[1][kDk ? kND : 1][4], dv_acc[1][kDv ? kND : 1][4];
   zero(dk_acc);
   zero(dv_acc);
 
@@ -666,22 +705,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     }
     uint32_t pa[1][kBQ / 16][4];
     pack_a<1, kBQ>(s, pa);
-    mma_ab<D, 1, kBQ>(dv_acc, pa, dOt, lane);
+    if constexpr (kDv) mma_ab<D, 1, kBQ>(dv_acc, pa, dOt, lane);
 
-    float dp[1][kNQ][4];
-    zero(dp);
-    mma_abt<D, 1, kBQ>(dp, Vs, r0, dOt, lane);
+    if constexpr (kDk) {
+      float dp[1][kNQ][4];
+      zero(dp);
+      mma_abt<D, 1, kBQ>(dp, Vs, r0, dOt, lane);
 #pragma unroll
-    for (int i = 0; i < kNQ; ++i) {
-      const float2 dl = *reinterpret_cast<const float2*>(Dt + 8 * i + 2 * tq);
+      for (int i = 0; i < kNQ; ++i) {
+        const float2 dl = *reinterpret_cast<const float2*>(Dt + 8 * i + 2 * tq);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t w = pa[0][i >> 1][(i & 1) * 2 + (e >> 1)];
-        const float p = __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-        dp[0][i][e] = p * (dp[0][i][e] - ((e & 1) ? dl.y : dl.x));  // dS / scale
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t w = pa[0][i >> 1][(i & 1) * 2 + (e >> 1)];
+          const float p = __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+          dp[0][i][e] = p * (dp[0][i][e] - ((e & 1) ? dl.y : dl.x));  // dS / scale
+        }
       }
+      mma_pb<D, 1, kBQ>(dk_acc, dp, Qt, lane);
     }
-    mma_pb<D, 1, kBQ>(dk_acc, dp, Qt, lane);
     if (more) store_stat(st ^ 1, next_stat);
   }
 
@@ -692,21 +733,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     const long long off = kv_off + (long long)kp * sk + 2 * tq;
 #pragma unroll
     for (int i = 0; i < kND; ++i) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
-          pack_bf16(dk_acc[0][i][2 * hf] * scale,
-                    dk_acc[0][i][2 * hf + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
-          pack_bf16(dv_acc[0][i][2 * hf], dv_acc[0][i][2 * hf + 1]);
+      if constexpr (kDk)
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+            pack_bf16(dk_acc[0][i][2 * hf] * scale,
+                      dk_acc[0][i][2 * hf + 1] * scale);
+      if constexpr (kDv)
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+            pack_bf16(dv_acc[0][i][2 * hf], dv_acc[0][i][2 * hf + 1]);
     }
   }
 }
 
 // ------------------------------------------------------------------ launch
 template <int D> constexpr int fwd_smem() {
-  return (kFwdBQ + 4 * kFwdBK) * Smem<D>::kLD * 2;
+  return (kFwdBQ + 4 * KeyTile<D>::kFwd) * Smem<D>::kLD * 2;
 }
 template <int D> constexpr int dq_smem() {
-  return (2 * kDqBQ + 4 * kDqBK) * Smem<D>::kLD * 2;
+  return (2 * kDqBQ + 4 * KeyTile<D>::kDq) * Smem<D>::kLD * 2;
 }
 template <int D> constexpr int dkdv_smem() {
   return (2 * kKvBK + 4 * kKvBQ) * Smem<D>::kLD * 2 + 4 * kKvBQ * 4;
@@ -736,6 +779,22 @@ cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int D, int kPass>
+cudaError_t dkdv_for(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dk, void* dv, int B, int S, int H, int KVH,
+                     int causal, int window, cudaStream_t stream) {
+  const int smem_kv = dkdv_smem<D>();
+  cudaError_t e = allow_smem(flash_tc_bwd_dkdv<D, kPass>, smem_kv);
+  if (e != cudaSuccess) return e;
+  flash_tc_bwd_dkdv<D, kPass><<<dim3(KVH, B, (S + kKvBK - 1) / kKvBK),
+                                kThreads, smem_kv, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      delta, (bf16*)dk, (bf16*)dv, S, H, H / KVH, causal, window,
+      scale_log2_of(D), 1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t bwd_for(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
@@ -754,15 +813,16 @@ cudaError_t bwd_for(const void* q, const void* k, const void* v,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const int smem_kv = dkdv_smem<D>();
-  e = allow_smem(flash_tc_bwd_dkdv<D>, smem_kv);
-  if (e != cudaSuccess) return e;
-  flash_tc_bwd_dkdv<D><<<dim3(KVH, B, (S + kKvBK - 1) / kKvBK), kThreads,
-                         smem_kv, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, S, H, H / KVH, causal, window,
-      scale_log2_of(D), scale);
-  return cudaGetLastError();
+  if constexpr (D > kWideD) {     // two passes (see the header)
+    e = dkdv_for<D, kDvPass>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KVH,
+                             causal, window, stream);
+    if (e != cudaSuccess) return e;
+    return dkdv_for<D, kDkPass>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                KVH, causal, window, stream);
+  } else {
+    return dkdv_for<D, kBothPass>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                  H, KVH, causal, window, stream);
+  }
 }
 
 bool shapes_ok(int B, int S, int H, int KVH) {
@@ -771,7 +831,7 @@ bool shapes_ok(int B, int S, int H, int KVH) {
 }
 
 #define REPRO_FOR_EACH_HEAD_DIM(X) \
-  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(192)
 
 }  // namespace
 

@@ -64,6 +64,29 @@
 //    of every head.  The warps' partials are combined in warp order with
 //    the same rescaling as the cluster combine.
 //
+// Head dims (design (b) of the two that fit this layout): the instances are
+// built for D = 16, 32, 64 and 128, whose rows split evenly into the eight
+// lanes' 16-byte chunks and the 32 lanes' P.V columns.  A head dim between
+// them (80: H2O-Danube, 112: Zamba2) runs the next instance up (128): the
+// tensor maps describe the pools with their true D, and their box is the
+// instance's width, so the bulk copy zero-fills the columns past D in
+// shared memory; q is zero-padded the same way, so the padded columns add
+// 0 to every score, and the output columns past D are never written.
+// Device memory sees D's bytes only; shared memory and the consumers'
+// arithmetic pay for the instance's width (1.6x at 80, 1.14x at 112).
+//
+// Page sizes: a bulk copy of `seg` rows must span a multiple of 128 bytes
+// and a stage may take at most 32 of them (one a producer lane).  Where
+// gcd(ps, kTile) fails that (odd pages, ps = 1, small pages at D = 16) the
+// host passes seg = 0 and the producer warp copies rows instead: each lane
+// issues 16-byte `cp.async` copies of the stage's chunks (row-major over
+// the lanes, so neighbouring lanes read neighbouring bytes of a row),
+// zero-filling the chunks past D, and arrives on the stage's full barrier
+// through `cp.async.mbarrier.arrive.noinc` when its copies land (the
+// barrier then counts 32 such arrivals and lane 0's plain one, which
+// publishes the stage's masks).  The consumers are the same in both modes.
+// 256-token pages take the bulk path, as before.
+//
 // A row for which no position is valid (length <= 0, or every page in
 // reach unmapped) gets the reference's result: its softmax over equal
 // -1e30 scores weighs every position alike, so the output is the mean of
@@ -193,6 +216,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// the stage's full barrier counts one arrival of this lane when all its
+// earlier cp.async copies have landed (no increment of the pending count)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// 16-byte asynchronous copy; `ok` false zero-fills the 16 bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
 // one box {D, 1, seg, 1} of a pool -> this block's shared memory,
 // completion on `bar`; coordinates innermost first
 __device__ __forceinline__ void bulk_copy_box(uint32_t dst,
@@ -208,19 +245,22 @@ __device__ __forceinline__ void bulk_copy_box(uint32_t dst,
 }
 
 // grid (N, KVH * ceil(G / kG), B), cluster (N, 1, 1), block
-// (kTile / kRows + 1) warps.  q, out: (B, KVH * G, D) contiguous.
-// k_map, v_map: the pools (P, ps, KVH, D) as 4-d tensor maps, box
-// {D, 1, seg, 1}; v_pool, with element strides (stride_p, stride_t,
-// stride_h), is read directly only where no position is valid.
+// (kTile / kRows + 1) warps.  D is the instance's (shared-memory) head dim,
+// head_dim <= D the tensors'.  q, out: (B, KVH * G, head_dim) contiguous.
+// k_map, v_map: the pools (P, ps, KVH, head_dim) as 4-d tensor maps, box
+// {D, 1, seg, 1} (unused when seg == 0: row copies); k_pool and v_pool,
+// with element strides (stride_p, stride_t, stride_h), are read directly
+// by the row copies, and v_pool where no position is valid.
 template <typename T, int D, int kG>
 __global__ void __launch_bounds__((Elem<T>::kTile / kRows + 1) * 32, 1)
 paged_attention_kernel(
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const T* __restrict__ q,
-    const T* __restrict__ v_pool, const int* __restrict__ page_table,
-    const int* __restrict__ lengths, T* __restrict__ out, int G, int NP,
-    int ps, int seg, long long stride_p, long long stride_t,
-    long long stride_h, int window, float scale) {
+    const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+    const int* __restrict__ page_table, const int* __restrict__ lengths,
+    T* __restrict__ out, int G, int NP, int ps, int seg, int head_dim,
+    long long stride_p, long long stride_t, long long stride_h, int window,
+    float scale) {
   typedef Layout<T, D, kG> L;
   typedef typename Elem<T>::Raw Raw;
   constexpr int kTile = L::kTile;
@@ -258,13 +298,20 @@ paged_attention_kernel(
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long q_base =
-      ((long long)b * KVH * G + (long long)kvh * G + g0) * D;
+      ((long long)b * KVH * G + (long long)kvh * G + g0) * head_dim;
 
-  for (int i = threadIdx.x; i < kG * D; i += kThreads)
-    q_sm[i] = i / D < gcount ? Elem<T>::load(q + q_base + i) * scale : 0.f;
+  for (int i = threadIdx.x; i < kG * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i - g * D;
+    q_sm[i] = g < gcount && d < head_dim
+                  ? Elem<T>::load(q + q_base + g * head_dim + d) * scale
+                  : 0.f;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(smem_u32(bars + s), 1);
+      // bulk: lane 0's expect-tx arrival; rows: 32 cp.async arrivals and
+      // lane 0's
+      mbar_init(smem_u32(bars + s), seg > 0 ? 1 : 33);
       mbar_init(smem_u32(bars + kStages + s), kWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -294,8 +341,59 @@ paged_attention_kernel(
     for (int c = 0; c < kCols; ++c) acc[g][c] = 0.f;
   float m_own = kNegInf, l_own = 0.f;
 
-  if (warp == kWarps) {
-    // ---------------------------------------------------------- producer
+  if (warp == kWarps && seg == 0) {
+    // --------------------------------------------- producer: row copies
+    // the 16-byte chunks of a stage's rows, row-major over the lanes;
+    // lane j looks up the frames of rows j, j + 32, ...
+    constexpr int kChunksRow = L::kRowBytes / 16;
+    constexpr int kElemsChunk = 16 / (int)sizeof(T);
+    const int live = head_dim / kElemsChunk;    // chunks with data in a row
+    for (int i = tile_lo; i < tile_hi; ++i) {
+      const int k = i - tile_lo;
+      const int s = k % kStages;
+      const uint32_t round = (uint32_t)(k / kStages);
+      const int t0 = t_start + i * kTile;
+      int fr[L::kMasks];
+      uint32_t word[L::kMasks];
+#pragma unroll
+      for (int j = 0; j < L::kMasks; ++j) {
+        const int pos = t0 + lane + 32 * j;
+        fr[j] = pos >= first && pos < end ? pt[pos / ps] : -1;
+        word[j] = __ballot_sync(0xffffffffu, fr[j] >= 0);
+      }
+      mbar_wait(smem_u32(bars + kStages + s), (round & 1u) ^ 1u);
+      const uint32_t full = smem_u32(bars + s);
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < L::kMasks; ++j) masks[s * L::kMasks + j] = word[j];
+      }
+      __syncwarp();
+      unsigned char* kdst = smem + s * L::kStageBytes;
+      unsigned char* vdst = smem + (kStages + s) * L::kStageBytes;
+#pragma unroll
+      for (int it = 0; it < kTile * kChunksRow / 32; ++it) {
+        const int c = lane + 32 * it;
+        const int r = c / kChunksRow;
+        const int ch = c - r * kChunksRow;
+        // every lane's row of this step lies in [32 w, 32 w + 32), w =
+        // it / kChunksRow: lane (r & 31) holds its frame in fr[w]
+        const int f = __shfl_sync(0xffffffffu, fr[it / kChunksRow], r & 31);
+        if (f >= 0) {
+          const int pos = t0 + r;
+          const long long at = (long long)f * stride_p
+              + (long long)(pos - (pos / ps) * ps) * stride_t
+              + (long long)kvh * stride_h
+              + (ch < live ? ch * kElemsChunk : 0);
+          const int dst = r * L::kRowBytes + ch * 16;
+          cp_async16(smem_u32(kdst + dst), k_pool + at, ch < live);
+          cp_async16(smem_u32(vdst + dst), v_pool + at, ch < live);
+        }
+      }
+      cp_async_arrive_noinc(full);
+      if (lane == 0) mbar_arrive(full);       // publishes the masks
+    }
+  } else if (warp == kWarps) {
+    // ------------------------------------------------ producer: bulk copies
     // lane j copies segment j of each tile (n_seg <= 32, checked on the
     // host); its page-table entry is read one tile ahead
     const int n_seg = kTile / seg;
@@ -492,10 +590,11 @@ paged_attention_kernel(
   }
   __syncthreads();
 
-  // the block's partial: its warps combined in warp order
-  for (int i = threadIdx.x; i < gcount * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i - g * D;
+  // the block's partial: its warps combined in warp order (the columns
+  // past head_dim hold zeros and are left out)
+  for (int i = threadIdx.x; i < gcount * head_dim; i += kThreads) {
+    const int g = i / head_dim;
+    const int d = i - g * head_dim;
     float M = kNegInf;
     for (int w = 0; w < kWarps; ++w)
       M = fmaxf(M, warp_ml[(w * kG + g) * 2]);
@@ -515,9 +614,9 @@ paged_attention_kernel(
 
   if (rank == 0) {         // the cluster's result: ranks in order
     const long long head_off = (long long)kvh * stride_h;
-    for (int i = threadIdx.x; i < gcount * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i - g * D;
+    for (int i = threadIdx.x; i < gcount * head_dim; i += kThreads) {
+      const int g = i / head_dim;
+      const int d = i - g * head_dim;
       float M = kNegInf;
       for (int r = 0; r < n_splits; ++r)
         M = fmaxf(M, cluster.map_shared_rank(block_ml, r)[2 * g]);
@@ -540,7 +639,7 @@ paged_attention_kernel(
         }
         denom = (float)cap;
       }
-      out[q_base + g * D + d] = Elem<T>::from_float(a / denom);
+      out[q_base + g * head_dim + d] = Elem<T>::from_float(a / denom);
     }
   }
   cluster.sync();          // no block leaves while rank 0 reads its memory
@@ -568,19 +667,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a pool (P, ps, KVH, D) with element strides (sp, st, sh, 1) as a 4-d map
-// (innermost first) whose box is one head's `seg` rows of one page
+// a pool (P, ps, KVH, head_dim) with element strides (sp, st, sh, 1) as a
+// 4-d map (innermost first) whose box is one head's `seg` rows of one page,
+// `box_d` >= head_dim columns wide (the columns past head_dim are out of
+// bounds: the copy writes zeros there)
 template <typename T>
 bool pool_map(CUtensorMap* map, const void* pool, int P, int ps, int KVH,
-              int D, int seg, long long sp, long long st, long long sh) {
+              int head_dim, int box_d, int seg, long long sp, long long st,
+              long long sh) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t es = sizeof(T);
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)KVH, (cuuint64_t)ps,
-                              (cuuint64_t)P};
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)KVH,
+                              (cuuint64_t)ps, (cuuint64_t)P};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * es, (cuuint64_t)st * es,
                                  (cuuint64_t)sp * es};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1u, (cuuint32_t)seg, 1u};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, 1u, (cuuint32_t)seg, 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
   return fn(map, Elem<T>::kMapType, 4, const_cast<void*>(pool), dims,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -588,12 +690,11 @@ bool pool_map(CUtensorMap* map, const void* pool, int P, int ps, int KVH,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
-
 template <typename T, int D, int kG>
 using KernelFn = void (*)(const CUtensorMap, const CUtensorMap, const T*,
-                          const T*, const int*, const int*, T*, int, int, int,
-                          int, long long, long long, long long, int, float);
+                          const T*, const T*, const int*, const int*, T*, int,
+                          int, int, int, int, long long, long long, long long,
+                          int, float);
 
 // the instance's launch attributes, set once per device: its dynamic shared
 // memory (and, in a build for clusters above the portable 8, those)
@@ -645,7 +746,7 @@ struct LaunchArgs {
   const int* page_table;
   const int* lengths;
   void* out;
-  int B, KVH, G, P, NP, ps;
+  int B, KVH, G, head_dim, P, NP, ps, seg;
   long long stride_p, stride_t, stride_h;
   int window, n_splits;
   cudaStream_t stream;
@@ -656,14 +757,19 @@ struct LaunchArgs {
     KernelFn<T, D, kG> kern;
     cudaError_t err = prepare<T, D, kG>(&kern);
     if (err != cudaSuccess) return err;
-    const int seg = gcd(ps, L::kTile);
-    if ((seg * L::kRowBytes) % 128 != 0 || L::kTile / seg > 32)
+    // seg: rows a bulk copy moves, or 0 for row copies (bulk_segment in
+    // paged_attention.py); a bulk segment divides the page and the tile,
+    // spans a multiple of 128 bytes, and a stage takes at most 32
+    if (seg < 0 || (seg > 0 && (ps % seg != 0 || L::kTile % seg != 0
+                                || (seg * L::kRowBytes) % 128 != 0
+                                || L::kTile / seg > 32)))
       return cudaErrorInvalidValue;
-    CUtensorMap k_map, v_map;
-    if (!pool_map<T>(&k_map, k_pool, P, ps, KVH, D, seg, stride_p, stride_t,
-                     stride_h)
-        || !pool_map<T>(&v_map, v_pool, P, ps, KVH, D, seg, stride_p,
-                        stride_t, stride_h))
+    CUtensorMap k_map = {}, v_map = {};
+    if (seg > 0
+        && (!pool_map<T>(&k_map, k_pool, P, ps, KVH, head_dim, D, seg,
+                         stride_p, stride_t, stride_h)
+            || !pool_map<T>(&v_map, v_pool, P, ps, KVH, head_dim, D, seg,
+                            stride_p, stride_t, stride_h)))
       return cudaErrorInvalidValue;
     const int head_groups = (G + kG - 1) / kG;
     if ((long long)KVH * head_groups > 65535) return cudaErrorInvalidValue;
@@ -672,11 +778,11 @@ struct LaunchArgs {
         cluster_config<T, D, kG>(KVH * head_groups, B, n_splits, &attr);
     cfg.stream = stream;
     // scores in log2 units: softmax by exp2 (1 / ln 2 folded into q's scale)
-    const float scale = 1.4426950408889634f / sqrtf((float)D);
+    const float scale = 1.4426950408889634f / sqrtf((float)head_dim);
     err = cudaLaunchKernelEx(&cfg, kern, k_map, v_map, (const T*)q,
-                             (const T*)v_pool, page_table, lengths, (T*)out,
-                             G, NP, ps, seg, stride_p, stride_t, stride_h,
-                             window, scale);
+                             (const T*)k_pool, (const T*)v_pool, page_table,
+                             lengths, (T*)out, G, NP, ps, seg, head_dim,
+                             stride_p, stride_t, stride_h, window, scale);
     const cudaError_t last = cudaGetLastError();
     return err != cudaSuccess ? err : last;
   }
@@ -712,12 +818,16 @@ cudaError_t dispatch_heads(int G, const Op& op) {
   return op.template run<T, D, kMaxHeads>();
 }
 
+// the instance of a head dim: its own where built, else the next one up
+// (80 and 112 run the 128 instance; see the header)
 template <typename T, class Op>
 cudaError_t dispatch_dim(int D, int G, const Op& op) {
   switch (D) {
     case 16: return dispatch_heads<T, 16>(G, op);
     case 32: return dispatch_heads<T, 32>(G, op);
     case 64: return dispatch_heads<T, 64>(G, op);
+    case 80:
+    case 112:
     case 128: return dispatch_heads<T, 128>(G, op);
     default: return cudaErrorInvalidValue;
   }
@@ -735,21 +845,22 @@ cudaError_t dispatch(int dtype_code, int D, int G, const Op& op) {
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16.  P: frames in the pools.
-// n_splits: blocks a cluster (1..kMaxSplits), chosen by the caller.
+// n_splits: blocks a cluster (1..kMaxSplits), chosen by the caller; seg:
+// rows of a bulk copy, or 0 for row copies (bulk_segment, on the host).
 // Returns the cudaError_t of the launch (0 on success); nothing is
 // synchronised.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* lengths, void* out,
-    int B, int KVH, int G, int D, int P, int NP, int ps,
+    int B, int KVH, int G, int D, int P, int NP, int ps, int seg,
     long long stride_p, long long stride_t, long long stride_h,
     int window, int n_splits, int dtype_code, void* stream) {
   if (B <= 0 || B > 65535 || KVH <= 0 || P <= 0 || NP <= 0 || ps <= 0
       || n_splits < 1 || n_splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const LaunchArgs args = {q, k_pool, v_pool, (const int*)page_table,
-                           (const int*)lengths, out, B, KVH, G, P, NP, ps,
-                           stride_p, stride_t, stride_h, window, n_splits,
+                           (const int*)lengths, out, B, KVH, G, D, P, NP, ps,
+                           seg, stride_p, stride_t, stride_h, window, n_splits,
                            (cudaStream_t)stream};
   return (int)dispatch(dtype_code, D, G, args);
 }

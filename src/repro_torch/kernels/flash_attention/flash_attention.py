@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import check_launch, load_library
 
-SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192)
 
 
 class Route(NamedTuple):

@@ -10,11 +10,15 @@ and combines the partial softmaxes inside the cluster (one launch a call).
 ``N`` comes from :func:`split_plan`, from shapes alone: the lengths live on
 the device, and reading them would synchronise.
 
-Page sizes: a bulk copy moves ``gcd(ps, tile)`` rows of one head (``tile``
-= 64 rows in bf16, 32 in f32), which must span a multiple of 128 bytes, and
-a stage takes at most 32 copies (:func:`bulk_segment`).  So bf16 serves
-even page sizes (multiples of 4 at head_dim 16) and f32 any page size (even
-ones at head_dim 16); other sizes raise.
+Head dims: the kernel is built for 16, 32, 64 and 128; 80 and 112 run the
+128 instance, the columns past D zero-filled in shared memory and never
+written out (:func:`instance_head_dim`).
+
+Page sizes: every ``ps >= 1``.  A bulk copy moves ``gcd(ps, tile)`` rows of
+one head (``tile`` = 64 rows in bf16, 32 in f32) where those span a
+multiple of 128 bytes and a stage takes at most 32 copies; other page
+sizes (odd ones, ``ps = 1``, small pages at head_dim 16) are copied row by
+row with 16-byte ``cp.async`` copies (:func:`bulk_segment` returns 0).
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ import math
 import torch
 
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels._build import check_launch, load_library
+from repro_torch.kernels._build import check_launch, load_library, sm_count
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+INSTANCE_HEAD_DIMS = (16, 32, 64, 128)   # csrc/paged_attention.cu's builds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # rows of K and of V a ring stage holds (csrc/paged_attention.cu's kTile)
 TILE_ROWS = {torch.float32: 32, torch.bfloat16: 64}
@@ -53,11 +58,6 @@ def split_plan(B: int, KVH: int, NP: int, ps: int, n_sm: int,
            and clusters <= active_clusters(2 * n)):
         n *= 2
     return n
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,17 +90,26 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attention_kernel: {msg}")
 
 
+def instance_head_dim(D: int) -> int:
+    """The head dim of the kernel instance that serves ``D``: ``D`` itself
+    where it is built, else the next one up (its rows in shared memory are
+    that wide)."""
+    _require(D in SUPPORTED_HEAD_DIMS,
+             f"head_dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    return min(d for d in INSTANCE_HEAD_DIMS if d >= D)
+
+
 def bulk_segment(ps: int, D: int, dtype) -> int:
-    """Rows one bulk copy moves at page size ``ps``: ``gcd(ps, tile)``.
-    Raises where its bytes are not a multiple of 128 (a bulk tensor copy's
-    shared-memory alignment) or a stage would need more than 32 copies
-    (one a producer lane)."""
+    """Rows one bulk copy moves at page size ``ps``: ``gcd(ps, tile)``,
+    where its bytes in shared memory (rows of :func:`instance_head_dim`)
+    are a multiple of 128 (a bulk tensor copy's alignment) and a stage
+    needs at most 32 copies (one a producer lane); else 0, and the
+    producer copies the pages row by row."""
+    _require(ps >= 1, f"page size {ps}")
     tile = TILE_ROWS[dtype]
     seg = math.gcd(ps, tile)
-    _require(seg * D * dtype.itemsize % 128 == 0 and 32 * seg >= tile,
-             f"page size {ps}: a bulk copy of {seg} rows of {D} elements "
-             f"is not a multiple of 128 bytes, or a stage needs more than 32")
-    return seg
+    row_bytes = instance_head_dim(D) * dtype.itemsize
+    return seg if seg * row_bytes % 128 == 0 and 32 * seg >= tile else 0
 
 
 def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths, *,
@@ -156,14 +165,15 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths, *,
                                B, KVH, G, D, NP, ps, q.dtype)
     _require(1 <= n_splits <= MAX_CLUSTER,
              f"n_splits {n_splits} not in 1..{MAX_CLUSTER}")
-    bulk_segment(ps, D, q.dtype)
+    seg = bulk_segment(ps, D, q.dtype)
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.repro_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, KVH, G, D, P, NP, ps, sp, st, sh, int(window), int(n_splits),
+            B, KVH, G, D, P, NP, ps, seg, sp, st, sh, int(window),
+            int(n_splits),
             _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "paged_attention")

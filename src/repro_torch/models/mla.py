@@ -13,9 +13,10 @@ torch, as in the reference (which has no Pallas kernel for it either).
 
 Training / prefill (:func:`apply_mla`) expands per-head K/V and calls
 ``kernels.flash_attention.ops.flash_attention`` at head_dim
-``qk_nope_head_dim + qk_rope_head_dim`` (192 at DeepSeek-V3's widths).  A
-CPU tensor takes the plain chunked version; the CUDA kernels do not serve
-head_dim 192 and raise ``ValueError`` — there is no fallback.
+``qk_nope_head_dim + qk_rope_head_dim`` (192 at DeepSeek-V3's widths), V
+zero-padded to it as the reference pads it.  A CPU tensor takes the plain
+chunked version; a CUDA tensor the hand-written kernels at 192 (bf16 on
+the tensor cores, f32 on the CUDA cores) — there is no fallback.
 
 The reference's mesh-bound ``_mla_update_and_attend_dist`` is not ported
 (it belongs with the distribution layer); with no mesh it calls the local

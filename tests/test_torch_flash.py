@@ -59,6 +59,7 @@ class TestFlashAttentionPlain:
         (2, 48, 4, 2, 32),    # GQA + a tail (48 % 32 != 0)
         (1, 128, 8, 1, 64),   # MQA
         (1, 40, 10, 2, 16),   # a group of 5 query heads (Qwen3-14B's G)
+        (1, 48, 2, 2, 192),   # DeepSeek-V3's MLA head_dim (nope + rope)
     ])
     @pytest.mark.parametrize("name", ["float32", "bfloat16"])
     def test_causal_matches_reference(self, B, S, H, KVH, D, name):
@@ -138,12 +139,53 @@ class TestFlashAttentionPlain:
 XLA_CASES = [
     # B, Sq, Sk, H, KVH, D, causal, window, q_offset, kv_chunk
     (1, 16, 16, 4, 4, 8, True, 0, 0, 16),
+    (1, 40, 40, 4, 4, 192, True, 0, 0, 16),   # MLA's head_dim 192
     (2, 33, 33, 8, 1, 32, True, 0, 0, 16),    # MQA, padded last chunk
     (2, 40, 40, 10, 2, 16, True, 8, 0, 16),   # G = 5, sliding window
     (1, 24, 24, 4, 2, 16, False, 0, 0, 8),    # non-causal
     (2, 5, 21, 4, 2, 16, True, 0, 16, 8),     # q_offset: a chunk of decode
     (1, 7, 30, 4, 2, 16, True, 6, 23, 8),     # q_offset + window
 ]
+
+
+class TestFlashHeadDim192:
+    """Head dim 192 (DeepSeek-V3: q, k nope 128 + rope 64; v zero-padded
+    to 192 as ``mla.apply_mla`` pads it): the plain versions the CUDA
+    kernels are held to on the card, against the reference."""
+
+    @pytest.mark.parametrize("causal,window", [(True, 0), (True, 12),
+                                               (False, 0)])
+    def test_forward_matches_pallas(self, causal, window):
+        q, k, v = _inputs(1, 40, 4, 2, 192, seed=11)
+        v[..., 128:] = 0.0                       # V padded as MLA pads it
+        jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+        kern = jax_flash_attention(jq, jk, jv, causal=causal, window=window,
+                                   block_q=16, block_k=16, interpret=True)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        got_ref = flash_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                                      tv.transpose(1, 2), causal=causal,
+                                      window=window).transpose(1, 2)
+        got_ops = flash_attention(tq, tk, tv, causal=causal, window=window,
+                                  kv_chunk=16)
+        for got in (got_ref, got_ops):
+            np.testing.assert_allclose(_f32(got), _f32(kern), **F32)
+            assert np.all(_f32(got)[..., 128:] == 0.0)
+
+    @pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2)])
+    def test_backward_ref_matches_reference_vjp(self, H, KVH):
+        """The plain backward at D=192 equals ``jax.vjp`` of the
+        reference's oracle."""
+        q, k, v = _inputs(1, 33, H, KVH, 192, seed=12)
+        cot = np.random.default_rng(13).standard_normal(
+            q.shape).astype(np.float32)
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash_ref(q, k, v, causal=True),
+                         *(jnp.asarray(_kl(x)) for x in (q, k, v)))
+        want = vjp(jnp.asarray(_kl(cot)))
+        tq, tk, tv, tc = (torch.from_numpy(_kl(x)) for x in (q, k, v, cot))
+        o = flash_attention_ref(tq, tk, tv)
+        got = flash_attention_bwd_ref(tq, tk, tv, o, tc)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_f32(g), np.asarray(w), **GRAD)
 
 
 class TestFlashAttentionXla:

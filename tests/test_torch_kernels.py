@@ -10,6 +10,8 @@ versions on the GPU by ``chip_smoke.py``).  Tolerances are those of
 order), bf16 2e-2 (one bf16 rounding of the output); copies are exact.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from repro.models.attention_ops import paged_attention_xla
 
 from repro_torch import kernels as tk
 from repro_torch.compat import numpy_to_torch, torch_to_numpy
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.page_pack import ops as pack_ops
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -91,6 +94,8 @@ PAGED_SHAPES = [
     (3, 8, 1, 64, 8, 4),     # MQA
     (2, 16, 8, 128, 16, 2),  # production-like head_dim
     (2, 10, 2, 32, 8, 3),    # group of 5 query heads (Qwen3-14B's G)
+    (2, 32, 8, 80, 16, 2),   # H2O-Danube-1.8B's heads and head_dim
+    (1, 32, 32, 112, 8, 3),  # Zamba2-7B's heads and head_dim
 ]
 
 
@@ -387,7 +392,9 @@ class TestSplitPlan:
         (torch.bfloat16, 16, 4, 4), (torch.bfloat16, 16, 12, 4),
         (torch.float32, 128, 256, 32), (torch.float32, 128, 1, 1),
         (torch.float32, 64, 3, 1), (torch.float32, 16, 2, 2),
-        (torch.float32, 16, 8, 8)])
+        (torch.float32, 16, 8, 8), (torch.bfloat16, 80, 256, 64),
+        (torch.bfloat16, 112, 256, 64), (torch.float32, 80, 256, 32),
+        (torch.float32, 112, 3, 1), (torch.bfloat16, 80, 2, 2)])
     def test_page_sizes_served(self, dtype, D, ps, seg):
         assert pa_kernel.bulk_segment(ps, D, dtype) == seg
 
@@ -397,15 +404,134 @@ class TestSplitPlan:
         (torch.bfloat16, 16, 6), (torch.float32, 16, 1),
         (torch.float32, 16, 3)])
     def test_page_sizes_refused(self, dtype, D, ps):
-        """A bulk copy below 128 bytes, or a stage of more than 32
-        copies, is refused, never launched."""
-        with pytest.raises(ValueError, match=f"page size {ps}"):
-            pa_kernel.bulk_segment(ps, D, dtype)
+        """The page sizes a bulk copy cannot serve (below 128 bytes, or a
+        stage of more than 32 copies), once refused, now go to the
+        producer's row copies: ``bulk_segment`` is 0, and the kernel
+        launches."""
+        assert pa_kernel.bulk_segment(ps, D, dtype) == 0
+
+    @pytest.mark.parametrize("D", pa_kernel.SUPPORTED_HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_every_page_size_has_a_copy(self, dtype, D):
+        """Every ps >= 1 is served: a bulk segment that divides the page
+        and the tile, spans a multiple of 128 bytes of the instance's rows
+        and needs at most 32 copies a stage, or 0 (row copies); 256-token
+        pages take whole-tile segments, as before."""
+        tile = pa_kernel.TILE_ROWS[dtype]
+        row = pa_kernel.instance_head_dim(D) * dtype.itemsize
+        for ps in range(1, 520):
+            seg = pa_kernel.bulk_segment(ps, D, dtype)
+            if seg:
+                assert ps % seg == 0 and tile % seg == 0
+                assert seg * row % 128 == 0 and tile // seg <= 32
+            else:
+                g = math.gcd(ps, tile)
+                assert g * row % 128 != 0 or tile // g > 32
+        assert pa_kernel.bulk_segment(256, D, dtype) == tile
+        with pytest.raises(ValueError, match="page size 0"):
+            pa_kernel.bulk_segment(0, D, dtype)
+
+    @pytest.mark.parametrize("D,inst", [(16, 16), (32, 32), (64, 64),
+                                        (80, 128), (112, 128), (128, 128)])
+    def test_instance_head_dim(self, D, inst):
+        """80 and 112 run the 128 instance (columns past D zero-filled)."""
+        assert pa_kernel.instance_head_dim(D) == inst
+
+    @pytest.mark.parametrize("D", [8, 48, 96, 192, 256])
+    def test_unsupported_head_dim_raises(self, D):
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            pa_kernel.instance_head_dim(D)
+
+
+def _kernel_head_dims(cfg):
+    """(head_dim that decode sends to ``paged_attention``, head_dim that
+    training and prefill send to flash attention); None where the family
+    has no such call (MLA decodes through its latent page scan; xLSTM has
+    no attention)."""
+    if cfg.family == "xlstm":
+        return None, None
+    if cfg.family == "mla_moe":
+        return None, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
+class TestHeadDimCoverage:
+    """Every config's published head dims are served by the CUDA kernels
+    (the CPU tests run at reduced head dims, which cannot show a gap):
+    Zamba2-7B's 112 among them, ahead of its family's port."""
+
+    @pytest.mark.parametrize("arch", ARCH_IDS)
+    def test_kernels_serve_the_published_head_dims(self, arch):
+        decode, train = _kernel_head_dims(get_config(arch))
+        if decode is not None:
+            assert decode in pa_kernel.SUPPORTED_HEAD_DIMS
+            pa_kernel.instance_head_dim(decode)
+        if train is not None:
+            assert train in fa_kernel.SUPPORTED_HEAD_DIMS
+            for dtype in (torch.bfloat16, torch.float32):
+                fa_kernel.route(dtype, train)
+
+    def test_named_gaps_are_closed(self):
+        assert get_config("h2o_danube_1_8b").head_dim == 80
+        assert get_config("zamba2_7b").head_dim == 112
+        assert _kernel_head_dims(get_config("deepseek_v3_671b"))[1] == 192
+
+
+class TestCopyPlan:
+    """``page_pack.copy_plan``: bulk copies, cut by ``piece_plan``, for
+    large copies; the word loop, which takes no plan, for small ones."""
+
+    @pytest.mark.parametrize("n,row_bytes,want", [
+        (160, 524288, (pack_kernel.BULK, 32768, 528, 3)),   # Qwen3-14B's rows
+        (96, 327680, (pack_kernel.BULK, 32768, 528, 3)),    # H2O-Danube's
+        (96, 327696, (pack_kernel.BULK, 29792, 528, 3)),
+        (16, 262144, (pack_kernel.WORDS, 0, 0, 0)),         # ckv_pool rows
+        (16, 32768, (pack_kernel.WORDS, 0, 0, 0)),          # krope_pool rows
+        (1, 16, (pack_kernel.WORDS, 0, 0, 0)),
+        (3, 100000, (pack_kernel.WORDS, 0, 0, 0))])
+    def test_values(self, n, row_bytes, want):
+        assert pack_kernel.copy_plan(n, row_bytes, 132) == want
+
+    @pytest.mark.parametrize("n", [1, 2, 16, 160, 2000])
+    @pytest.mark.parametrize("row_bytes", [16, 4096, 32768, 262144, 524288,
+                                           327680, 1 << 22])
+    @pytest.mark.parametrize("n_sm", [1, 132])
+    def test_bounds(self, n, row_bytes, n_sm):
+        mode, piece, blocks, stages = pack_kernel.copy_plan(n, row_bytes,
+                                                            n_sm)
+        if mode == pack_kernel.BULK:
+            per_row = -(-row_bytes // piece)
+            assert n * row_bytes >= pack_kernel.BULK_MIN_BYTES
+            assert piece % 16 == 0
+            assert piece <= pack_kernel.MAX_PIECE
+            assert per_row == -(-row_bytes // pack_kernel.MAX_PIECE)
+            assert piece - 16 < -(-row_bytes // per_row) <= piece
+            assert 1 <= blocks <= pack_kernel.BLOCKS_PER_SM * n_sm
+            assert blocks <= n * per_row
+            assert stages == pack_kernel.STAGES
+        else:
+            assert mode == pack_kernel.WORDS
+            assert n * row_bytes < pack_kernel.BULK_MIN_BYTES
+            assert (piece, blocks, stages) == (0, 0, 0)
+
+    def test_piece_plan_largest_pieces(self):
+        """Large copies: pieces of MAX_PIECE where they divide the row
+        (every page row of the repo's configs), else the fewest pieces a
+        row evened out, the last one shorter; a grid of at most
+        ``BLOCKS_PER_SM`` blocks a SM, fewer where there are fewer
+        pieces."""
+        assert pack_kernel.piece_plan(160, 524288, 132) == (32768, 528)
+        assert pack_kernel.piece_plan(96, 327680, 132) == (32768, 528)
+        piece, blocks = pack_kernel.piece_plan(96, 327696, 132)
+        assert 0 < 327696 - 10 * piece < piece == 29792
+        assert pack_kernel.piece_plan(2, 327680, 132) == (32768, 20)
 
 
 class TestPagePackPlain:
     @pytest.mark.parametrize("P,n,elems", [(8, 4, 32), (64, 16, 128),
-                                           (16, 16, 64), (8, 5, 7)])
+                                           (16, 16, 64), (8, 5, 7),
+                                           (64, 16, 256 * 64),
+                                           (8, 4, 256 * 512)])
     @pytest.mark.parametrize("name", ["float32", "bfloat16", "int32"])
     def test_gather(self, P, n, elems, name):
         rng = np.random.default_rng(P * 1000 + n)

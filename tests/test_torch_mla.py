@@ -138,22 +138,29 @@ class TestApplyMla:
 
 class TestFlashHeadDim192:
     """The MLA forward's flash call has head_dim nope + rope = 192 at
-    DeepSeek-V3's widths; the CUDA kernels do not serve it and raise (no
-    fallback to the plain version on the card)."""
+    DeepSeek-V3's widths; the CUDA kernels serve it on both routes (bf16
+    on the tensor cores, f32 on the CUDA cores), with no fallback to the
+    plain version on the card."""
 
     def test_deepseek_qk_head_dim_is_192(self):
         cfg = get_config(ARCH)
         assert cfg.qk_nope_head_dim + cfg.qk_rope_head_dim == 192
-        assert 192 not in fa_kernel.SUPPORTED_HEAD_DIMS
+        assert 192 in fa_kernel.SUPPORTED_HEAD_DIMS
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     def test_route_error_names_192(self, dtype):
-        with pytest.raises(ValueError, match="head_dim 192"):
-            fa_kernel.route(dtype, 192)
+        """192 has a route in each dtype (it raised before the kernels
+        served it); a head dim past it still raises, naming itself."""
+        want = fa_kernel.TENSOR_CORES if dtype == torch.bfloat16 \
+            else fa_kernel.CUDA_CORES
+        assert fa_kernel.route(dtype, 192) == want
+        with pytest.raises(ValueError, match="head_dim 200"):
+            fa_kernel.route(dtype, 200)
 
     def test_non_cpu_tensors_go_to_the_kernel_binding(self):
         """A tensor not on the CPU never takes the plain version: the MLA
-        forward reaches the binding, which raises."""
+        forward reaches the binding, which raises for a tensor that is not
+        on a CUDA device."""
         cfg = get_config(ARCH)
         H, d = 2, 64
         small = dataclasses.replace(cfg, n_heads=H, d_model=d, q_lora_rank=32)
@@ -161,7 +168,8 @@ class TestFlashHeadDim192:
             torch.Generator().manual_seed(0), small, torch.bfloat16))
         x = torch.zeros((1, 4, d), dtype=torch.bfloat16, device="meta")
         pos = torch.arange(4, device="meta").expand(1, 4)
-        with pytest.raises(ValueError, match="flash_attention_kernel"):
+        with pytest.raises(ValueError,
+                           match="flash_attention_kernel: q must be a CUDA"):
             t_mla.apply_mla(p, small, x, pos)
 
 

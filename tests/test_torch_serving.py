@@ -46,12 +46,19 @@ _CACHE = {}
 
 
 def _run_both(arch, pool_frames):
-    """Serve the scenario on both packages; cached per (arch, pool)."""
+    """Serve the scenario on both packages; cached per (arch, pool).  An
+    ``arch`` of the form ``name/head_dimN`` keeps the reduced config but
+    with head_dim N (the published one: the decode kernel's head dims) and
+    no sliding window, so that both packages decode through the paged
+    pools and ``paged_attention`` at head_dim N (a sliding-window config
+    decodes through a ring buffer instead)."""
     key = (arch, pool_frames)
     if key in _CACHE:
         return _CACHE[key]
-    jcfg = jax_reduced(jax_get_config(arch))
-    cfg = reduced(get_config(arch))
+    name, _, hd = arch.partition("/head_dim")
+    over = {"head_dim": int(hd), "sliding_window": 0} if hd else {}
+    jcfg = jax_reduced(jax_get_config(name), **over)
+    cfg = reduced(get_config(name), **over)
     jparams = jax_model_for(jcfg).init_params(jcfg, jax.random.PRNGKey(0))
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
                              "cpu")
@@ -72,7 +79,8 @@ def _run_both(arch, pool_frames):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b",
-                                  "mixtral_8x7b", "deepseek_v3_671b"])
+                                  "mixtral_8x7b", "deepseek_v3_671b",
+                                  "h2o_danube_1_8b/head_dim80"])
 class TestGreedyServingParity:
     @pytest.mark.parametrize("pool_frames", [None, 3],
                              ids=["exact_fit", "undersized"])

@@ -68,10 +68,9 @@ def build(names: dict, parent) -> dict:
             raise SystemExit(f"nvcc failed on {n}:\n{log}")
         lib = ctypes.CDLL(str(out / f"{n}.so"))
         fn = lib.repro_paged_attention
-        # the parent's signature has neither P (the eleventh) nor n_splits
-        # (the third from last)
-        fn.argtypes = sig if n != "parent" else \
-            sig[:10] + sig[11:-3] + sig[-2:]
+        # the parent (a split kernel from before the row copies) has no
+        # seg (the fourteenth)
+        fn.argtypes = sig if n != "parent" else sig[:13] + sig[14:]
         fn.restype = ctypes.c_int
         libs[n] = (fn, log)
     return libs
@@ -92,7 +91,7 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     from chip_smoke import _ptxas_by_kernel
     from repro_torch.kernels.paged_attention.paged_attention import (
-        plan_splits)
+        bulk_segment, plan_splits)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     libs = build(variants(), args.parent)
@@ -130,12 +129,11 @@ def main() -> int:
         B, _, _ = q.shape
         k, v = kp[layer], vp[layer]
         sp, st, sh, _ = k.stride()
-        dims = (B, KVH, H // KVH, D) if n == "parent" else \
-            (B, KVH, H // KVH, D, k.shape[0])
-        tail = (1, stream) if n == "parent" else (splits, 1, stream)
+        seg = () if n == "parent" else (bulk_segment(ps, D, bf16),)
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pt.data_ptr(),
-                  ln.data_ptr(), out.data_ptr(), *dims, pt.shape[1], ps, sp,
-                  st, sh, 0, *tail)
+                  ln.data_ptr(), out.data_ptr(), B, KVH, H // KVH, D,
+                  k.shape[0], pt.shape[1], ps, *seg, sp, st, sh, 0, splits,
+                  1, stream)
 
     def measure(n, fn, name, splits):
         q, _, _, _, _, ref, bound = data[name]

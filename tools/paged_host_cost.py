@@ -85,11 +85,14 @@ def main() -> int:
         return paged_attention(q, kp[i % L], vp[i % L], pt, ln)
 
     # the C entry point with its arguments ready; the split kernel's
-    # signature adds P (after D) and n_splits (after window)
+    # signature adds P (after D) and n_splits (after window), the row
+    # copies' seg (after ps)
     fn = _build.load_library().repro_paged_attention
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    split = len(_build.SIGNATURES["repro_paged_attention"]) == 20
+    n_args = len(_build.SIGNATURES["repro_paged_attention"])
+    split = n_args >= 20
+    seg = (pa.bulk_segment(ps, D, bf16),) if n_args == 21 else ()
     sp, st, sh, _ = kp[0].stride()
     n = pa.plan_splits(0, B, KVH, G, D, NP, ps, bf16) if split else None
     c_args = []
@@ -97,7 +100,8 @@ def main() -> int:
         head = (q.data_ptr(), kp[layer].data_ptr(), vp[layer].data_ptr(),
                 pt.data_ptr(), ln.data_ptr(), out.data_ptr(), B, KVH, G, D)
         c_args.append(head + ((B * NP,) if split else ()) +
-                      (NP, ps, sp, st, sh, 0) + ((n,) if split else ()) +
+                      (NP, ps) + seg + (sp, st, sh, 0) +
+                      ((n,) if split else ()) +
                       (1, stream))
 
     def c_entry(i):
