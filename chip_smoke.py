@@ -27,12 +27,15 @@ Phases, one JSON line each:
                      views of one fused tensor, f32 (CUDA cores) and bf16
                      (tensor cores); and each path's shapes), with times;
                      paged attention at head_dim 80 (H2O-Danube's heads, a
-                     window that masks) and 112 (Zamba2-7B's) and at page
-                     sizes 1, 3 and 17 (row copies) with the cost of small
-                     pages; flash at DeepSeek-V3's H=128, D=192 (bf16 at
-                     S=4096, f32 shorter); the copies at the Qwen3 and the
-                     latent rows against index_select / index_copy_ and an
-                     empty kernel (the launch floor);
+                     window that masks) and 112 (Zamba2-7B's), each beside
+                     SDPA on pre-gathered K/V, and at page sizes 1, 3 and
+                     17 (row copies) with the cost of small pages; flash at
+                     DeepSeek-V3's H=128, D=192 and Zamba2-7B's H=32,
+                     D=112 (bf16 at S=4096, f32 shorter); the copies at the
+                     Qwen3, the latent and the Zamba2 KV rows against
+                     index_select / index_copy_ and an empty kernel (the
+                     launch floor), Zamba2's with -1 and past-the-pool
+                     indices;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -50,6 +53,18 @@ Phases, one JSON line each:
                      after (paged attention = 24 x decode_step calls); the
                      plain path on the card gives the same greedy tokens;
                      then the published config on its ring path;
+6c. ``serve_hybrid`` ``ServingEngine`` on Zamba2-7B at published width and
+                     depth (81 Mamba2 layers, 13 groups of 6 and a tail of
+                     3, one shared attention block at 13 sites, head_dim
+                     112), the serve settings and undersized pool; counters
+                     zeroed just before the kernel path and read just
+                     after (paged attention = 13 x decode_step calls); at
+                     the model's first 15 layers, every bf16 kernel call
+                     of the path against its plain version, and in f32
+                     the plain path on the card gives the same greedy
+                     tokens (bf16 logits tie); the bytes a step moves per
+                     sequence, paged KV against pinned Mamba state against
+                     the weights; a batch-1 decode step profiled;
 7. ``serve_mla_moe`` ``ServingEngine`` on DeepSeek-V3 at published width cut
                      to 4 layers (3 dense, 1 MoE of 256 experts), paged
                      latent pools: the same greedy requests on an exact-fit
@@ -73,6 +88,13 @@ Phases, one JSON line each:
                      first a one-layer f32 kernel-path against plain-path
                      parity of the loss and every gradient; counters zeroed
                      just before the steps and read just after;
+9c. ``train_hybrid`` ``Trainer`` on Zamba2-7B at published width cut to
+                     15 layers (2 groups of 6 and a tail of 3), the train
+                     shape, 3 steps: flash at head_dim 112, finite losses
+                     and gradient norms (Mamba2's chunk of 128); first a
+                     one-group f32 kernel-path against plain-path parity
+                     of the loss and every gradient; counters zeroed just
+                     before the steps and read just after;
 10. ``train_moe``    ``Trainer`` on Mixtral-8x7B at published width cut to 2
                      layers, the same shape and steps, loss and aux loss
                      each step; a one-layer kernel-path against
@@ -171,6 +193,17 @@ class Sizes:
     mla_train_layers: int = 3
     mla_train_steps: int = 3
     mla_parity_seq: int = 1024
+    # serve_hybrid: Zamba2-7B (zamba_arch) at published width and depth,
+    # the serve settings above; the kernel-vs-plain comparison at its
+    # first hybrid_plain_layers layers
+    hybrid_plain_layers: int = 15
+    # train_hybrid: Zamba2-7B at published width cut to 15 layers (2
+    # groups of 6 and a 3-layer tail); seq, batch and microbatches as
+    # train; its parity at one group, one sequence of hybrid_parity_seq,
+    # f32
+    hybrid_train_layers: int = 15
+    hybrid_train_steps: int = 3
+    hybrid_parity_seq: int = 1024
 
 
 # ------------------------------------------------------------------- helpers
@@ -540,6 +573,7 @@ FLASH_CASES = [
     (1, 333, 8, 2, 192, True, 0),       # DeepSeek-V3's MLA head_dim, GQA
     (2, 150, 4, 4, 192, True, 40),      # ... with a window
     (1, 260, 4, 4, 192, False, 0),      # ... non-causal
+    (1, 190, 4, 4, 112, True, 0),       # Zamba2-7B's head_dim, G = 1
 ]
 
 
@@ -645,9 +679,10 @@ FLASH_TIMED = ("flash_attention", "flash_attention_bwd",
 def phase_flash(dev, sz: Sizes, cfg, names: list):
     """Flash attention: the cases above in f32 and bf16, then the training
     shape (B=1, S=4096, H=40, KVH=8, D=128, causal) in f32 and in bf16,
-    then DeepSeek-V3's (H=KVH=128, D=192: nope 128 + rope 64) in bf16 at
-    the training shape's S and in f32 at a shorter one: errors against the
-    plain version, kernel / plain / SDPA times, FLOP bounds."""
+    then DeepSeek-V3's (H=KVH=128, D=192: nope 128 + rope 64) and
+    Zamba2-7B's (H=KVH=32, D=112) in bf16 at the training shape's S and in
+    f32 at a shorter one: errors against the plain version, kernel / plain
+    / SDPA times, FLOP bounds."""
     import torch
     from repro_torch.configs import get_config
 
@@ -686,6 +721,17 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     errs["bfloat16_head_dim_192"] = dict(zip(keys, wide["errs"]))
     names += [f"{n}_d{D2}" for n in FLASH_TIMED]
 
+    # Zamba2-7B's shared attention at head_dim 112, the train_hybrid
+    # shape's one application (H = KVH = 32)
+    zcfg = get_config(sz.zamba_arch)
+    H3, KVH3, D3 = zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim
+    e = _flash_case(gen, dev, 1, sz.hybrid_parity_seq // 2, H3, KVH3, D3,
+                    torch.float32, True, 0)
+    errs[f"float32_head_dim_{D3}"] = dict(zip(keys, e[0] + e[1]))
+    z = _flash_bf16_shape(gen, dev, 1, S, H3, KVH3, D3, it)
+    errs[f"bfloat16_head_dim_{D3}"] = dict(zip(keys, z["errs"]))
+    names += [f"{n}_d{D3}" for n in FLASH_TIMED]
+
     src = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
     design = {"instruction": "mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, "
               "operands by ldmatrix", "loads": "cp.async, 2 stages"}
@@ -693,6 +739,7 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     d192 = {"arch": mcfg.name, "shape": wide["shape"],
             "design": "forward 64-key tiles, dQ 32-key tiles, dK and dV in "
             "two passes (no spills)"}
+    d112 = {"arch": zcfg.name, "shape": z["shape"]}
     f, b = main["fwd"], main["bwd"]
     rows = [
         {"name": "flash_attention", "route": "cuda", "source": src,
@@ -702,7 +749,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "library": "F.scaled_dot_product_attention (enable_gqa)",
          **design, "flops": f["flops"], "bytes": f["bytes"],
          "tflops_per_s": f["tflops_per_s"], "shape": main["shape"],
-         "head_dim_192": {**d192, **wide["fwd"]}},
+         "head_dim_192": {**d192, **wide["fwd"]},
+         f"head_dim_{D3}": {**d112, **z["fwd"]}},
         {"name": "flash_attention_bwd", "route": "cuda", "source": src,
          "replaces": tpu, "note": "the TPU kernel has no backward: the "
          "reference differentiates src/repro/models/attention_ops.py:77 "
@@ -714,9 +762,10 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "library_fwd_bwd_ms": b["library_fwd_bwd_ms"], **design,
          "flops": b["flops"], "bytes": b["bytes"],
          "tflops_per_s": b["tflops_per_s"], "shape": main["shape"],
-         "head_dim_192": {**d192, **wide["bwd"]}},
+         "head_dim_192": {**d192, **wide["bwd"]},
+         f"head_dim_{D3}": {**d112, **z["bwd"]}},
     ]
-    cases = 2 * len(FLASH_CASES) + 4
+    cases = 2 * len(FLASH_CASES) + 6
     return rows, errs, cases
 
 
@@ -893,10 +942,14 @@ def _copy_plan_of(dev, n: int, row_bytes: int) -> dict:
             "stages": stages}
 
 
-def _timed_attn(gen, dev, sz: Sizes, H, KVH, D, ps, NP, lengths, window=0):
+def _timed_attn(gen, dev, sz: Sizes, H, KVH, D, ps, NP, lengths, window=0,
+                library=False):
     """bf16 device ms of ``paged_attention`` over ``timing_layers`` L2-cold
     pools of B = len(lengths) sequences, its plain version's, and the bytes
-    bound (each valid K and V row of D elements read once)."""
+    bound (each valid K and V row of D elements read once).  ``library``:
+    also SDPA on K/V gathered beforehand, masked to each sequence's length
+    and window (a yardstick, not the same inputs: the gather is not
+    timed)."""
     import torch
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -912,11 +965,27 @@ def _timed_attn(gen, dev, sz: Sizes, H, KVH, D, ps, NP, lengths, window=0):
     plain = time_ms(dev, [lambda l=l: paged_attention_ref(
         q, kpool[l], vpool[l], pt, ln, window=window) for l in range(Lt)],
         max(4, sz.timing_iters // 5))
+    lib = None
+    if library:
+        S = NP * ps
+        kg = kpool[0][pt.long()].reshape(B, S, KVH, D).transpose(1, 2)
+        vg = vpool[0][pt.long()].reshape(B, S, KVH, D).transpose(1, 2)
+        qg = q.reshape(B, KVH, H // KVH, D)
+        pos = torch.arange(S, device=dev)[None, :]
+        mask = pos < ln[:, None]
+        if window:
+            mask &= pos >= ln[:, None] - window
+        mask = mask[:, None, None, :]
+        lib = time_ms(dev, [lambda: torch.nn.functional
+                            .scaled_dot_product_attention(
+                                qg, kg, vg, attn_mask=mask)],
+                      sz.timing_iters)
+        del kg, vg
     rows = sum(min(n, window) if window else n for n in lengths)
     nbytes = (2 * rows * KVH * D + 2 * B * H * D) * 2 + pt.numel() * 4 + B * 4
     t_ops = 4 * rows * H * D / PEAK_FLOPS["bfloat16"]
     del kpool, vpool
-    return {"ms": ms, "plain_ms": plain,
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops
             else "operations", "bytes": nbytes}
@@ -928,7 +997,8 @@ def _head_dim_cases(gen, dev, sz: Sizes) -> dict:
     D=80) with a window shorter than the context, Zamba2-7B's (H=32,
     KVH=32, D=112); f32 and bf16 at every cluster size against the plain
     version at the serving shape (4 sequences, 256-token pages, ragged) and
-    at batch 1, then bf16 device times (:func:`_timed_attn`)."""
+    at batch 1, then bf16 device times (:func:`_timed_attn`, SDPA on
+    pre-gathered K/V beside them)."""
     import torch
     from repro_torch.configs import get_config
     out = {}
@@ -952,7 +1022,9 @@ def _head_dim_cases(gen, dev, sz: Sizes) -> dict:
             "masked_by_window": window > 0 and max(ragged) > window,
             "max_abs_err": errs, "cluster_sizes_checked": list(SPLITS),
             "instance_head_dim": 128,
-            **_timed_attn(gen, dev, sz, H, KVH, D, ps, NP, ragged, window)}
+            "library": "SDPA on pre-gathered K/V, length and window mask",
+            **_timed_attn(gen, dev, sz, H, KVH, D, ps, NP, ragged, window,
+                          library=True)}
     return out
 
 
@@ -1079,6 +1151,74 @@ def _bulk_copy_cases(gen, dev, sz: Sizes, cfg) -> dict:
     require(any(v["last_piece_bytes"] < v["piece_bytes"]
                 for v in out.values()), "no bulk case had a shorter piece")
     return out
+
+
+def _hybrid_copies(gen, dev, sz: Sizes, iters: int) -> dict:
+    """Page gather / scatter at Zamba2-7B's KV rows (``serve_hybrid``): one
+    sequence's pages of every shared-attention site <-> its batch slot,
+    rows of 256 x 32 x 112 bf16 (1,835,008 B) from a pool of 13 sites x 16
+    pages, as the engine's ``k_pool`` / ``v_pool`` viewed (G·P, E).  Gather
+    and scatter against ``page_pack/ref.py`` bit for bit on the slot's
+    rows, then with a -1 index and an index past the pool (clamped, as the
+    reference clamps); then device times against ``index_select`` /
+    ``index_copy_``, an empty kernel with the copy's grid and the bytes
+    bound.  The pool (382 MB) and the two blocks (95 MB each) exceed the
+    L2, so no copy of them is cycled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
+    from repro_torch.kernels.page_pack.ref import (page_gather_ref,
+                                                   page_scatter_ref)
+    from repro_torch.models.hybrid import group_layout
+    zcfg = get_config(sz.zamba_arch)
+    G = group_layout(zcfg)[0]
+    P, per = sz.max_batch * sz.pages_per_seq, sz.pages_per_seq
+    E = zcfg.kv_page_tokens * zcfg.n_kv_heads * zcfg.head_dim
+    pool = _rand(gen, (G * P, E), torch.bfloat16, dev)
+    idx = _slot_rows(G, P, per, min(1, sz.max_batch - 1), dev)
+    n = idx.numel()
+    blocks = [_rand(gen, (n, E), torch.bfloat16, dev) for _ in range(2)]
+    require(torch.equal(gather_pages(pool, idx), page_gather_ref(pool, idx)),
+            "page_gather Zamba2 rows")
+    require(torch.equal(scatter_pages(pool.clone(), idx, blocks[0]),
+                        page_scatter_ref(pool.clone(), idx, blocks[0])),
+            "page_scatter Zamba2 rows")
+    bad = idx.clone()
+    bad[0], bad[n // 2] = -1, G * P + 7         # onto rows no other names
+    bad[1:n // 2] = torch.arange(1, n // 2, dtype=bad.dtype, device=dev)
+    clamped = bad.clamp(max=G * P - 1)
+    require(torch.equal(gather_pages(pool, bad),
+                        page_gather_ref(pool, clamped)),
+            "page_gather Zamba2 rows, clamped indices")
+    require(torch.equal(scatter_pages(pool.clone(), bad, blocks[1]),
+                        page_scatter_ref(pool.clone(), clamped, blocks[1])),
+            "page_scatter Zamba2 rows, clamped indices")
+    sync(dev)
+    il = idx.long()
+    g_ms = time_ms(dev, [lambda b=b: gather_pages(pool, idx, out=b)
+                         for b in blocks], iters)
+    s_ms = time_ms(dev, [lambda b=b: scatter_pages(pool, idx, b)
+                         for b in blocks], iters)
+    g_plain = time_ms(dev, [lambda b=b: page_gather_ref(pool, idx, out=b)
+                            for b in blocks], iters)
+    s_plain = time_ms(dev, [lambda b=b: page_scatter_ref(pool, idx, b)
+                            for b in blocks], iters)
+    g_lib = time_ms(dev, [lambda b=b: torch.index_select(pool, 0, il, out=b)
+                          for b in blocks], iters)
+    s_lib = time_ms(dev, [lambda b=b: pool.index_copy_(0, il, b)
+                          for b in blocks], iters)
+    floor = _copy_floor_ms(dev, n, E * 2, iters)
+    del pool, blocks
+    nbytes = 2 * n * E * 2 + n * 4
+    return {"arch": zcfg.name, "row_bytes": E * 2, "rows": n,
+            "pool_rows": G * P, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "gather_ms": g_ms, "scatter_ms": s_ms,
+            "gather_plain_ms": g_plain, "scatter_plain_ms": s_plain,
+            "gather_library_ms": g_lib, "scatter_library_ms": s_lib,
+            "empty_kernel_ms": floor, "plan": _copy_plan_of(dev, n, E * 2),
+            "indices_checked": "the slot's rows; -1 and pool_rows + 7",
+            "gather_exact": True, "scatter_exact": True}
 
 
 def phase_kernels(dev, sz: Sizes, cfg):
@@ -1324,6 +1464,10 @@ def phase_kernels(dev, sz: Sizes, cfg):
     latent = _latent_copies(gen, dev, sz, copy_it)
     n_cases += 2 * len(latent)
 
+    # ---- kernels 2 and 3 at Zamba2-7B's KV rows ---------------------------
+    zamba_rows = _hybrid_copies(gen, dev, sz, copy_it)
+    n_cases += 4
+
     # ---- kernels 2 and 3, bulk copies that clamp and end in short pieces --
     bulk_cases = _bulk_copy_cases(gen, dev, sz, cfg)
     n_cases += 2 * len(bulk_cases)
@@ -1360,6 +1504,8 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"},
          "latent_pools": {k: {f: v[f] for f in v if "scatter" not in f}
                           for k, v in latent.items()},
+         "zamba2_rows": {f: v for f, v in zamba_rows.items()
+                         if "scatter" not in f},
          "bulk_cases": bulk_cases},
         {"name": "page_scatter", "route": "cuda",
          "source": src + "page_pack.cu",
@@ -1372,6 +1518,8 @@ def phase_kernels(dev, sz: Sizes, cfg):
          "shape": {"pool": [L * P, E], "n": n, "dtype": "bfloat16"},
          "latent_pools": {k: {f: v[f] for f in v if "gather" not in f}
                           for k, v in latent.items()},
+         "zamba2_rows": {f: v for f, v in zamba_rows.items()
+                         if "gather" not in f},
          "bulk_cases": bulk_cases},
     ]
     # the time_ms calls above, in the order they ran
@@ -1380,14 +1528,14 @@ def phase_kernels(dev, sz: Sizes, cfg):
              "paged_attention_long_context",
              "paged_attention_long_context_plain"] + [
                  f"paged_attention_{k}{p}" for k in wide
-                 for p in ("", "_plain")] + [
+                 for p in ("", "_plain", "_sdpa")] + [
                  f"paged_attention_page_size_{ps}{p}"
                  for ps in small_pages["bf16_ms_by_page_size"]
                  for p in ("", "_plain")] + [
                  "page_gather", "page_gather_plain", "index_select",
                  "page_scatter", "page_scatter_plain", "index_copy_",
                  "page_copy_empty_kernel"] + [
-                 f"{what}_{pool}" for pool in latent
+                 f"{what}_{pool}" for pool in list(latent) + ["zamba2"]
                  for what in ("page_gather", "page_scatter",
                               "page_gather_plain", "page_scatter_plain",
                               "index_select", "index_copy_",
@@ -1679,6 +1827,231 @@ def phase_serve_danube(dev, sz: Sizes, table):
          engine_stats=stats, max_memory_allocated=peak,
          launches=counts, first_tokens=[r.generated[:4] for r in reqs])
     del params, ring_eng
+    _free(dev)
+
+
+# ------------------------------------------------------- phase: serve_hybrid
+def _first_layers(params, cfg, n_layers: int):
+    """The first ``n_layers`` Mamba layers of a hybrid model and the shared
+    block, as a config and params of that depth (views, no copy): whole
+    groups, then the next layers of the following group as the tail."""
+    from repro_torch.models.hybrid import group_layout
+    from repro_torch.tree import tree_map
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    G, k, tail = group_layout(cut)
+    out = dict(params, groups=tree_map(lambda t: t[:G], params["groups"]))
+    out.pop("tail", None)
+    if tail:
+        out["tail"] = tree_map(lambda t: t[G, :tail], params["groups"])
+    return cut, out
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _hybrid_step_bytes(dev, sz: Sizes, cfg, eng, params, iters: int) -> dict:
+    """What one decode step of the engine moves for one sequence, paged
+    against pinned: its KV pages of every site (``k_pool`` / ``v_pool``,
+    ``page_scatter`` in and ``page_gather`` out), its Mamba state of every
+    layer (``ssm`` / ``conv``, batch on axis 1, strided copies in and out),
+    and the weights a batch step reads once; bytes from the shapes, device
+    ms of each copy as the engine makes it (``time_ms``), the weights'
+    bytes over the HBM rate."""
+    from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
+    from repro_torch.tree import tree_leaves, tree_names
+    seq = eng.model.init_decode_cache(cfg, 1, eng.max_len, device=dev)
+    full = dict(zip(tree_names(eng.cache), tree_leaves(eng.cache)))
+    part = dict(zip(tree_names(seq), tree_leaves(seq)))
+    pools = [n for n in full if "pool" in n]
+    states = [n for n in full if n.startswith("ssm/")]
+    slot = min(1, sz.max_batch - 1)
+
+    def kv(direction):
+        for n in pools:
+            L, P = full[n].shape[:2]
+            per = part[n].shape[1]
+            big = full[n].view((L * P,) + full[n].shape[2:])
+            small = part[n].view((L * per,) + part[n].shape[2:])
+            rows = eng._rows(L, P, per, slot)
+            if direction == "in":
+                scatter_pages(big, rows, small)
+            else:
+                gather_pages(big, rows, out=small)
+
+    def state(direction):
+        for n in states:
+            if direction == "in":
+                full[n][:, slot] = part[n][:, 0]
+            else:
+                part[n][:, 0] = full[n][:, slot]
+
+    kv_bytes = sum(part[n].numel() * part[n].element_size() for n in pools)
+    st_bytes = sum(part[n].numel() * part[n].element_size() for n in states)
+    w_bytes = _nbytes(params) - _nbytes(params["embed"])
+    return {
+        "per_sequence_each_way": {
+            "kv_pages_bytes": kv_bytes, "ssm_state_bytes": st_bytes,
+            "kv_copy_in_ms": time_ms(dev, [lambda: kv("in")], iters),
+            "kv_copy_out_ms": time_ms(dev, [lambda: kv("out")], iters),
+            "ssm_copy_in_ms": time_ms(dev, [lambda: state("in")], iters),
+            "ssm_copy_out_ms": time_ms(dev, [lambda: state("out")], iters)},
+        "batch_cache": {"kv_pools_bytes": sum(
+            full[n].numel() * full[n].element_size() for n in pools),
+            "ssm_state_bytes": sum(full[n].numel() * full[n].element_size()
+                                   for n in states),
+            "max_batch": sz.max_batch},
+        "weights_read_per_step_bytes": w_bytes,
+        "weights_floor_ms": w_bytes / HBM_BYTES_PER_S * 1e3,
+        "kv_pages_bytes_per_step_in_and_out_at_max_batch":
+            2 * sz.max_batch * kv_bytes,
+        "ssm_state_bytes_per_step_in_and_out_at_max_batch":
+            2 * sz.max_batch * st_bytes}
+
+
+def _checked_paged_attention(record: dict):
+    """``paged_attention`` that also runs ``paged_attention_ref`` on the
+    same inputs and records the largest error and the calls beyond the
+    bf16 tolerance (atol = rtol = 2e-2); it returns the kernel's output."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    def attend(q, kp, vp, pt, ln, window=0):
+        out = paged_attention(q, kp, vp, pt, ln, window=window)
+        ref = paged_attention_ref(q, kp, vp, pt, ln, window=window)
+        tol = TOL[str(q.dtype).split(".")[-1]]
+        diff = (out.float() - ref.float()).abs()
+        record["calls"] += 1
+        record["beyond_tolerance"] += int(not bool(
+            (diff <= tol + tol * ref.float().abs()).all()))
+        record["max_abs_err"] = max(record["max_abs_err"],
+                                    float(diff.max()))
+        return out
+
+    return attend
+
+
+def phase_serve_hybrid(dev, sz: Sizes, table):
+    """``ServingEngine`` on Zamba2-7B at published width and depth (81
+    Mamba2 layers in 13 groups of 6 and a 3-layer tail, one shared
+    attention block applied after each group: head_dim 112 on paged
+    attention's 128 instance), random weights from a seed, greedy, the
+    ``serve`` phase's settings, requests and undersized pool, counters
+    zeroed just before and read just after (``paged_attention`` launches
+    = 13 sites x decode_step calls; page copies of the 13 sites' KV rows;
+    spills and fault page-ins).
+
+    The comparison with the plain path (``paged_attention_ref``, on the
+    card) runs at the model's first ``hybrid_plain_layers`` layers: the
+    engine is host-bound (81 Mamba layers of small ops a step) and a path
+    at full depth takes minutes.  There, in bf16, every ``paged_attention``
+    call of the kernel path is held against the plain version on its own
+    inputs (the bf16 tolerance); and in float32 the kernel path and the
+    plain path must give identical greedy tokens.  bf16 tokens are not
+    compared: the model's bf16 logits tie (a top-2 gap of 0) at some
+    steps, where any rounding picks either token.  Then what a step moves
+    per sequence (KV pages against the pinned Mamba state against the
+    weights) and a batch-1 decode step profiled."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import hybrid
+    from repro_torch.models.mamba import mamba_dims
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _arch_config(sz, sz.zamba_arch)
+    require(cfg.family == "hybrid", cfg.family)
+    G, k, tail = hybrid.group_layout(cfg)
+    _free(dev)
+    t0 = time.perf_counter()
+    params = hybrid.init_params(cfg, 0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    kernels.reset_launch_counts()
+    eng, reqs, wall = _serve(dev, sz, cfg, params, sz.pool_frames)
+    counts = kernels.launch_counts()
+    st = eng.stats
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    step_calls = prompt_tokens + st.decode_steps
+    require(all(r.done and len(r.generated) == sz.max_new for r in reqs),
+            "a request did not finish")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+            "token id out of range")
+    require(st.spill_events > 0 and st.fault_page_ins > 0,
+            f"no spill / fault-back-in: {st}")
+    if dev.type == "cuda":
+        require(counts["paged_attention"] == G * step_calls,
+                f"paged_attention launches {counts['paged_attention']} != "
+                f"{G} sites x {step_calls} decode_step calls")
+        require(counts["page_gather"] > 0
+                and counts["page_gather"] == counts["page_scatter"],
+                f"page gather/scatter launches: {counts}")
+        require(counts["flash_attention"] == 0, f"flash on decode: {counts}")
+    _add_launches(table, "serve_hybrid", counts,
+                  ("paged_attention", "page_gather", "page_scatter"))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    stats = dataclasses.asdict(st)
+    moved = _hybrid_step_bytes(dev, sz, cfg, eng, params, 10)
+    del eng
+
+    # the comparison with the plain path, at the first layers
+    ccfg, cparams = _first_layers(params, cfg, sz.hybrid_plain_layers)
+    checked = {"calls": 0, "beyond_tolerance": 0, "max_abs_err": 0.0}
+    kernel_fn = attn_mod.paged_attention
+    attn_mod.paged_attention = _checked_paged_attention(checked)
+    try:
+        _, reqs_c, wall_c = _serve(dev, sz, ccfg, cparams, sz.pool_frames)
+    finally:
+        attn_mod.paged_attention = kernel_fn
+    require(checked["beyond_tolerance"] == 0 and checked["calls"] > 0,
+            f"paged_attention against its plain version on the bf16 "
+            f"serving inputs: {checked}")
+    fcfg = dataclasses.replace(ccfg, dtype="float32")
+    fparams = tree_map(lambda t: t.float(), cparams)
+    _, reqs_f, wall_f = _serve(dev, sz, fcfg, fparams, sz.pool_frames)
+    attn_mod.paged_attention = paged_attention_ref      # plain path, on card
+    try:
+        _, reqs_p, wall_p = _serve(dev, sz, fcfg, fparams, sz.pool_frames)
+    finally:
+        attn_mod.paged_attention = kernel_fn
+    same = [a.generated == b.generated for a, b in zip(reqs_f, reqs_p)]
+    require(all(same), f"float32 greedy tokens differ between the kernel "
+            f"and the plain path at {fcfg.n_layers} layers: {same}")
+    bf16_same = [a.generated == b.generated for a, b in zip(reqs_c, reqs_f)]
+    del cparams, fparams
+    profile = _decode_profile(dev, sz, cfg, params, 3)
+    emit("serve_hybrid", arch=cfg.name, layers=cfg.n_layers, groups=G,
+         group_size=k, tail=tail, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         ssm_state=cfg.ssm_state, ssm_heads=mamba_dims(cfg)[1],
+         vocab=cfg.vocab_size, params=n_params,
+         param_bytes=_nbytes(params), dtype=cfg.dtype, init_seconds=init_s,
+         max_batch=sz.max_batch, max_len=sz.pages_per_seq * cfg.kv_page_tokens,
+         page_tokens=cfg.kv_page_tokens, pool_frames=sz.pool_frames,
+         prompt_lengths=[len(r.prompt) for r in reqs],
+         requests_done=sum(r.done for r in reqs),
+         tokens_generated=st.tokens_generated, decode_steps=st.decode_steps,
+         decode_step_calls=step_calls, wall_seconds=wall,
+         generated_tokens_per_s=st.tokens_generated / wall,
+         processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
+         spill_events=st.spill_events, fault_page_ins=st.fault_page_ins,
+         engine_stats=stats, max_memory_allocated=peak, launches=counts,
+         plain_comparison={
+             "layers": ccfg.n_layers, "why": "a full-depth path takes "
+             f"{wall:.1f} s on the host-bound engine",
+             "bfloat16_kernel_calls_against_plain": checked,
+             "bfloat16_checked_wall_seconds": wall_c,
+             "float32_tokens_identical_kernel_vs_plain": True,
+             "float32_kernel_wall_seconds": wall_f,
+             "float32_plain_wall_seconds": wall_p,
+             "bfloat16_tokens_equal_float32_tokens": bf16_same},
+         bytes_moved_per_step=moved, batch1_decode_step=profile,
+         first_tokens=[r.generated[:4] for r in reqs])
+    del params
     _free(dev)
 
 
@@ -2220,6 +2593,161 @@ def phase_train_mla(dev, sz: Sizes, table):
     _free(dev)
 
 
+# -------------------------------------------------------- phase: train_hybrid
+# float32, as train_mla holds its parity: A_log's gradient, a sum over
+# every position, head and channel, moves by ~1e-5 x max|ref| with the
+# attention's summation order alone (on the H100, kernel against plain
+# 1.07e-5, plain at 256-row chunks against plain at 512 1.34e-5: the
+# ``plain_noise_grad_err_of_max`` beside the errors)
+HYBRID_PARITY_TOL = MLA_PARITY_TOL
+
+
+def _hybrid_train_parity(dev, sz: Sizes, cfg) -> dict:
+    """One group of Zamba2-7B at published width (6 Mamba2 layers and the
+    shared block, no tail) in float32, one sequence of
+    ``hybrid_parity_seq``, remat: loss and every leaf's gradient by the
+    kernel path (flash at head_dim 112, the CUDA-core route) against the
+    plain path (the chunked ``flash_attention_xla``), both on the card;
+    the Mamba layers run the same ops on both.  Loss within 1e-5
+    relative, each gradient leaf finite and within 1e-4 x max|ref|.  The
+    plain path at 256-row chunks against itself at 512 is reported beside
+    it: the f32 noise of the same function summed in another order."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import hybrid
+    from repro_torch.models.attention_ops import flash_attention_xla
+    from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_names
+
+    pcfg = dataclasses.replace(cfg, n_layers=cfg.attn_every, dtype="float32")
+    require(hybrid.group_layout(pcfg)[::2] == (1, 0), "one group, no tail")
+    params = hybrid.init_params(pcfg, 7, device=dev)
+    tokens, labels = SyntheticLM(pcfg.vocab_size, sz.hybrid_parity_seq, 1,
+                                 seed=7).batch_at(0)
+    tok = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    loss_fn = make_loss_fn(pcfg, TrainConfig(remat=True))
+    before = kernels.launch_counts()
+    loss_k, g_k = value_and_grad(loss_fn, params, tok, lab)
+    sync(dev)
+    after = kernels.launch_counts()
+    kernel_fn = attn_mod.flash_attention
+    attn_mod.flash_attention = flash_attention_xla         # plain, on card
+    try:
+        loss_p, g_p = value_and_grad(loss_fn, params, tok, lab)
+        _, g_n = value_and_grad(
+            lambda p, t, l: hybrid.loss_fn(p, pcfg, t, l, remat=True,
+                                           q_chunk=256, kv_chunk=256),
+            params, tok, lab)
+        sync(dev)
+    finally:
+        attn_mod.flash_attention = kernel_fn
+    noise = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+             for n, a, b in zip(tree_names(g_n), tree_leaves(g_n),
+                                tree_leaves(g_p))}
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    require(dev.type != "cuda" or (fwd == 2 and bwd == 1),
+            f"train_hybrid parity: flash launches fwd {fwd} bwd {bwd}")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(math.isfinite(float(loss_k))
+            and loss_rel <= HYBRID_PARITY_TOL["loss_rel"],
+            f"train_hybrid parity: loss {float(loss_k)} vs {float(loss_p)}")
+    grad_of_max = {}
+    for n, a, b in zip(tree_names(g_k), tree_leaves(g_k), tree_leaves(g_p)):
+        require(bool(torch.isfinite(a).all()), f"grad {n} not finite")
+        grad_of_max[n] = float((a - b).abs().max()
+                               / b.abs().max().clamp_min(1e-30))
+    worst = max(grad_of_max, key=grad_of_max.get)
+    require(grad_of_max[worst] <= HYBRID_PARITY_TOL["grad_of_max"],
+            f"train_hybrid parity: grad {worst} max abs err "
+            f"{grad_of_max[worst]} x max|ref|")
+    del params, g_k, g_p, g_n
+    return {"layers": pcfg.n_layers, "groups": 1, "dtype": "float32",
+            "seq": sz.hybrid_parity_seq, "loss_kernel": float(loss_k),
+            "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+            "grad_err_of_max": grad_of_max, "tolerance": HYBRID_PARITY_TOL,
+            "plain_noise_grad_err_of_max": noise,
+            "flash_launches": {"fwd": fwd, "bwd": bwd}}
+
+
+def phase_train_hybrid(dev, sz: Sizes, table):
+    """``Trainer`` on Zamba2-7B at published width cut to
+    ``hybrid_train_layers`` (2 groups of 6 and a 3-layer tail, so the tail
+    runs), random weights from a seed: first the one-group kernel-path /
+    plain-path parity, then ``hybrid_train_steps`` steps at the train
+    shape (seq 4096, batch 2 in 2 microbatches, remat, bf16 params, f32
+    moments), counters zeroed just before the steps and read just after:
+    flash at head_dim 112, finite losses and finite gradients (the global
+    gradient norm is finite only if every gradient is: the reference's
+    Mamba2 scan gives NaN gradients at this chunk of 128, the port's
+    masked exponent does not)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import hybrid
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.zamba_arch, n_layers=sz.hybrid_train_layers)
+    G, k, tail = hybrid.group_layout(cfg)
+    require(cfg.family == "hybrid" and tail > 0, f"{cfg.name}: no tail")
+    _free(dev)
+    parity = _hybrid_train_parity(dev, sz, cfg)
+    _free(dev)
+
+    tcfg = TrainConfig(microbatches=sz.train_microbatches, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4,
+                                             moment_dtype="float32"))
+    ds = SyntheticLM(cfg.vocab_size, sz.train_seq, sz.train_batch, seed=0)
+    t0 = time.perf_counter()
+    params = hybrid.init_params(cfg, 0, device=dev)
+    tr = Trainer(cfg, tcfg, params, ds, device=dev)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    tokens_per_step = sz.train_batch * sz.train_seq
+    steps = []
+    kernels.reset_launch_counts()
+    for _ in range(sz.hybrid_train_steps):
+        t0 = time.perf_counter()
+        tr.run(1, log_every=0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        steps.append(dict(tr.history[-1], wall_s=wall,
+                          tokens_per_s=tokens_per_step / wall))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in steps), f"train_hybrid: non-finite loss or "
+            f"gradient: {steps}")
+    per_step = sz.train_microbatches * G
+    require(dev.type != "cuda" or (
+        counts["flash_attention"] == 2 * per_step * sz.hybrid_train_steps
+        and counts["flash_attention_bwd"] == per_step
+        * sz.hybrid_train_steps),
+        f"flash launches on the train_hybrid path: {counts}")
+    _add_launches(table, "train_hybrid", counts,
+                  ("flash_attention", "flash_attention_bwd"))
+    emit("train_hybrid", arch=cfg.name, layers=cfg.n_layers, groups=G,
+         group_size=k, tail=tail, d_model=cfg.d_model, heads=cfg.n_heads,
+         head_dim=cfg.head_dim, vocab=cfg.vocab_size, params=n_params,
+         dtype=cfg.dtype, moment_dtype="float32", seq=sz.train_seq,
+         ssm_chunk=128, global_batch=sz.train_batch,
+         microbatches=sz.train_microbatches, remat=True, init_seconds=init_s,
+         steps=steps, mean_tokens_per_s_after_first=(
+             sum(r["tokens_per_s"] for r in steps[1:]) / (len(steps) - 1)
+             if len(steps) > 1 else None),
+         max_memory_allocated=peak, launches=counts, parity=parity)
+    del tr
+    _free(dev)
+
+
 # ----------------------------------------------------------- phase: train_moe
 MOE_PARITY_TOL = {"float32": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
                                "top2_flip_share": 2e-2},
@@ -2570,17 +3098,18 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int) -> dict:
     """One batch-1 decode step at a third of ``max_len`` (two steps
     first, unmeasured): :func:`_profiled`, and the context it ran at."""
     import torch
-    from repro_torch.models import decoder
+    from repro_torch.models.registry import model_for
 
+    model = model_for(cfg)
     max_len = sz.pages_per_seq * cfg.kv_page_tokens
-    cache = decoder.init_decode_cache(cfg, 1, max_len, device=dev)
+    cache = model.init_decode_cache(cfg, 1, max_len, device=dev)
     cache["lengths"] += max_len // 3
     tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
     context = int(cache["lengths"][0]) + 2
 
     def step():
         nonlocal cache
-        _, cache = decoder.decode_step(params, cfg, cache, tok)
+        _, cache = model.decode_step(params, cfg, cache, tok)
 
     for _ in range(2):
         step()
@@ -2615,6 +3144,9 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     phase_serve_danube(dev, sz, table)
     if stop_after == "serve_danube":
         return None
+    phase_serve_hybrid(dev, sz, table)
+    if stop_after == "serve_hybrid":
+        return None
     phase_serve_mla_moe(dev, sz, table)
     if stop_after == "serve_mla_moe":
         return None
@@ -2624,6 +3156,9 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
         return None
     phase_train_mla(dev, sz, table)
     if stop_after == "train_mla":
+        return None
+    phase_train_hybrid(dev, sz, table)
+    if stop_after == "train_hybrid":
         return None
     phase_train_moe(dev, sz, table, with_profile)
     return table
@@ -2645,8 +3180,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", default="",
                     choices=["", "profile", "kernels", "spill_parity",
-                             "serve", "serve_danube", "serve_mla_moe",
-                             "train", "train_mla"],
+                             "serve", "serve_danube", "serve_hybrid",
+                             "serve_mla_moe", "train", "train_mla",
+                             "train_hybrid"],
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="after serve, profile a batch-1 decode step; after "

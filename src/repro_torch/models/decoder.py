@@ -101,20 +101,28 @@ def _stack_layers(make_layer, n: int):
     return stacked
 
 
+def init_generator(key: Union[int, torch.Generator],
+                   device: DeviceLike) -> tuple:
+    """(generator, device) of an ``init_params``: a seed makes a generator
+    on ``device`` (``None`` = the GPU); a generator is used as given, on
+    its own device unless ``device`` names one of the same type."""
+    if isinstance(key, torch.Generator):
+        dev = resolve_device(key.device if device is None else device)
+        if dev.type != key.device.type:
+            raise ValueError(f"generator on {key.device}, device {dev}")
+        return key, dev
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(key))
+    return gen, dev
+
+
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
                 device: DeviceLike = None) -> dict:
     """Random parameters from a seed (or a ``torch.Generator``) on
     ``device`` (``None`` = the GPU).  The stream differs from the
     reference's; tests carry weights across with ``from_jax_params``."""
-    if isinstance(key, torch.Generator):
-        gen = key
-        dev = resolve_device(gen.device if device is None else device)
-        if dev.type != gen.device.type:
-            raise ValueError(f"generator on {gen.device}, device {dev}")
-    else:
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(key))
+    gen, dev = init_generator(key, device)
     dtype = dtype_of(cfg.dtype)
     n_dense, n_moe = _layer_split(cfg)
     params: dict[str, Any] = {

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.models import decoder
+from repro_torch.models import decoder, hybrid
 from repro_torch.models.config import ModelConfig
 
 _DECODER = SimpleNamespace(
@@ -22,9 +22,20 @@ _DECODER = SimpleNamespace(
     decode_step=decoder.decode_step,
 )
 
-_FAMILIES = {"dense": _DECODER, "moe": _DECODER, "mla_moe": _DECODER}
+_FAMILIES = {
+    "dense": _DECODER,
+    "moe": _DECODER,
+    "mla_moe": _DECODER,
+    "hybrid": SimpleNamespace(
+        init_params=hybrid.init_params,
+        forward=hybrid.forward,
+        loss_fn=hybrid.loss_fn,
+        init_decode_cache=hybrid.init_decode_cache,
+        decode_step=hybrid.decode_step,
+    ),
+}
 
-NOT_PORTED = ("hybrid", "xlstm", "encdec")
+NOT_PORTED = ("xlstm", "encdec")
 
 
 def model_for(cfg: ModelConfig):

@@ -41,6 +41,7 @@ from repro_torch.memory.kv_cache import PagedKVManager
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import model_for
 from repro_torch.serving.sampler import SamplerConfig, sample_token
+from repro_torch.tree import tree_leaves, tree_names
 from repro_torch.vmem import coerce_policy
 
 
@@ -173,18 +174,20 @@ class ServingEngine:
         """Merge per-sequence caches into the fixed-batch decode cache, on
         the device.  Returns the batch ``lengths`` (inactive slots 0).
 
-        Convention (the reference's): leaves whose name contains "pool"
-        are frame pools (slot i owns pages [i·per_seq, (i+1)·per_seq));
-        "table" leaves are per-slot page tables (identity, untouched);
-        every other leaf carries the batch on axis 1 ((L, B, ...) stacked
-        states).
+        Convention (the reference's), on every leaf of the nested cache by
+        its "/"-joined path: paths that contain "pool" are frame pools (slot
+        i owns pages [i·per_seq, (i+1)·per_seq)); "table" leaves are
+        per-slot page tables (identity, untouched); every other leaf but
+        ``lengths`` carries the batch on axis 1 ((L, B, ...) stacked states,
+        such as the hybrid's ``ssm/ssm`` and ``ssm/conv``).
         """
         lengths = torch.zeros((self.max_batch,), dtype=torch.int32,
                               device=self.device)
         for i, r in enumerate(batch):
             seq = self._seq_caches[r.req_id]
-            for name, full in self.cache.items():
-                part = seq[name]
+            for name, full, part in zip(tree_names(self.cache),
+                                        tree_leaves(self.cache),
+                                        tree_leaves(seq)):
                 if name == "lengths":
                     lengths[i:i + 1] = part
                 elif "pool" in name:
@@ -199,10 +202,11 @@ class ServingEngine:
 
     def _copy_out(self, i: int, r: Request, cache: dict) -> None:
         """Carry slot ``i`` of the stepped batch cache back into the
-        sequence's own cache (in place), on the device."""
+        sequence's own cache (in place, but for its new ``lengths``), on
+        the device; leaves as in :meth:`_copy_in`."""
         seq = self._seq_caches[r.req_id]
-        for name, part in seq.items():
-            big = cache[name]
+        for name, part, big in zip(tree_names(seq), tree_leaves(seq),
+                                   tree_leaves(cache)):
             if name == "lengths":
                 seq[name] = part + 1
             elif "pool" in name:

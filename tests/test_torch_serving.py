@@ -80,7 +80,7 @@ def _run_both(arch, pool_frames):
 
 @pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b",
                                   "mixtral_8x7b", "deepseek_v3_671b",
-                                  "h2o_danube_1_8b/head_dim80"])
+                                  "h2o_danube_1_8b/head_dim80", "zamba2_7b"])
 class TestGreedyServingParity:
     @pytest.mark.parametrize("pool_frames", [None, 3],
                              ids=["exact_fit", "undersized"])
@@ -229,5 +229,5 @@ class TestLauncher:
             t_serve.main(["--requests", "1"])
 
     def test_unported_family_is_named(self):
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            t_serve.main(["--device", "cpu", "--arch", "zamba2_7b"])
+        with pytest.raises(NotImplementedError, match="xlstm"):
+            t_serve.main(["--device", "cpu", "--arch", "xlstm_125m"])

@@ -110,22 +110,24 @@ class TestForward:
                                       logits.detach().numpy())
 
     @pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b",
-                                      "mixtral_8x7b", "deepseek_v3_671b"])
+                                      "mixtral_8x7b", "deepseek_v3_671b",
+                                      "zamba2_7b"])
     def test_decode_matches_forward(self, arch):
         """Twin of ``tests/test_models.py::TestDecodeConsistency`` for the
         port: token-by-token ``decode_step`` == teacher-forced ``forward``
-        (same tolerance as the reference's test)."""
+        (same tolerance as the reference's test), through the family's
+        module as the registry names it."""
         cfg = reduced(get_config(arch))
-        params = t_decoder.init_params(cfg, 3, device="cpu")
+        m = model_for(cfg)
+        params = m.init_params(cfg, 3, device="cpu")
         B, S = 2, 12
         tokens = torch.from_numpy(np.random.default_rng(7).integers(
             0, cfg.vocab_size, (B, S)))
-        logits_tf, _ = t_decoder.forward(params, cfg, tokens)
-        cache = t_decoder.init_decode_cache(cfg, B, 32, device="cpu")
+        logits_tf, _ = m.forward(params, cfg, tokens)
+        cache = m.init_decode_cache(cfg, B, 32, device="cpu")
         outs = []
         for t in range(S):
-            lg, cache = t_decoder.decode_step(params, cfg, cache,
-                                              tokens[:, t:t + 1])
+            lg, cache = m.decode_step(params, cfg, cache, tokens[:, t:t + 1])
             outs.append(lg.reshape(B, -1))
         np.testing.assert_allclose(torch.stack(outs, 1).numpy(),
                                    logits_tf.detach().numpy(), atol=2e-3,
