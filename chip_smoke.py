@@ -72,6 +72,21 @@ Phases, one JSON line each:
                      engine's latent-pool copies against ``ref.py`` bit for
                      bit; a batch-1 decode step profiled; counters zeroed
                      just before the undersized run and read just after;
+7b. ``remote_paging`` the reference's remote-paging scenario
+                     (``benchmarks/vmem_remote.py::_store_remote``):
+                     ``PagedTensorStore`` over ``RemoteFramePool`` over a
+                     ``DeviceFramePool`` on the card, rows of a Qwen3-14B
+                     KV page (524,288 B; bf16 where ``ml_dtypes`` is
+                     installed, else as f32), a backing region of two
+                     preempted 1,024-token sequences (640 pages) on a
+                     remote node and a pool of one (320 frames); for
+                     Touch-A-Page, Touch-Ahead and STREAM, A, B, A again,
+                     every gathered row bit for bit against the seed's,
+                     the cold pass must take destination faults and RAPF
+                     retransmits; then a crash of the primary backing node
+                     halfway through A's return trip fails over to the
+                     replica (read-your-writes, rows exact); counters
+                     zeroed just before and read just after;
 8. ``train_parity``  full width, 2 layers, f32, one batch of 2×512: loss and
                      every gradient, kernel path on the card against the
                      plain path on the CPU; one AdamW update on each; and
@@ -2218,6 +2233,264 @@ def phase_serve_mla_moe(dev, sz: Sizes, table):
     _free(dev)
 
 
+# --------------------------------------------------- phase: remote_paging
+REMOTE_STAT_KEYS = ("remote_reads", "remote_bytes_in", "remote_dst_faults",
+                    "rapf_retransmits", "failovers", "pages_in",
+                    "evictions", "simulated_us")
+COPY_KERNELS = r"page_copy_kernel|page_bulk_kernel"
+
+
+def _same_bits(a, b) -> bool:
+    """Bit-for-bit equality of two tensors (or numpy arrays) of one dtype."""
+    import numpy as np
+    import torch
+    if isinstance(a, torch.Tensor):
+        ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+    ints = np.dtype(f"u{a.dtype.itemsize}")
+    return a.dtype == b.dtype and np.array_equal(a.view(ints), b.view(ints))
+
+
+def _remote_store(dev, strategy, rows, page_bytes: int, pool_frames: int,
+                  lookahead: int, **build):
+    """``benchmarks/vmem_remote.py::_store_remote`` at ``rows``' size: a
+    ``PagedTensorStore`` over ``RemoteFramePool.build`` (FAULTING landing
+    buffer, pre-touched remote region) over a ``DeviceFramePool`` on
+    ``dev``, the backing image written from ``rows``."""
+    from repro_torch.api import FaultPolicy
+    from repro_torch.memory.paged_store import PagedTensorStore
+    from repro_torch.vmem import RemoteFramePool
+    n, elems = rows.shape
+    pool = RemoteFramePool.build(n_frames=pool_frames, page_elems=elems,
+                                 n_pages=n, page_bytes=page_bytes,
+                                 dtype=rows.dtype, device=dev, **build)
+    store = PagedTensorStore(elems, pool_frames, n, dtype=rows.dtype,
+                             policy=FaultPolicy(strategy,
+                                                lookahead=lookahead),
+                             pool=pool)
+    for v in range(n):
+        store.write_host(v, rows[v])
+    return store
+
+
+def _remote_pass(store, rows, pages, what: str, crash=None) -> dict:
+    """Stream ``pages`` through ``store.access`` one page at a time, as the
+    reference's scenario does: every gathered row against the seed's row
+    bit for bit (copied to the host), the pass's last also against
+    ``page_gather_ref`` of the pool's frame it came from.  ``crash = (i,
+    fn)`` calls ``fn`` just before the ``i``-th access.  Returns the
+    pass's stats deltas."""
+    import torch
+    from repro_torch.compat import torch_to_numpy
+    from repro_torch.kernels.page_pack.ref import page_gather_ref
+    dev = store.frames.device
+    before = dataclasses.asdict(store.stats)
+    sync(dev)
+    t0 = time.perf_counter()
+    bad = []
+    for i, v in enumerate(pages):
+        if crash is not None and i == crash[0]:
+            crash[1]()
+        out = store.access([v])
+        if not _same_bits(torch_to_numpy(out[0]), rows[v]):
+            bad.append(v)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    require(not bad, f"{what}: {len(bad)} rows differ from the backing "
+            f"rows, first {bad[:8]}")
+    idx = torch.as_tensor(store.frame_ids([pages[-1]]), dtype=torch.int32,
+                          device=dev)
+    require(_same_bits(out, page_gather_ref(store.frames, idx)),
+            f"{what}: page_gather differs from page_gather_ref")
+    after = dataclasses.asdict(store.stats)
+    return dict(pass_=what, pages=len(pages), wall_s=wall, rows_exact=True,
+                **{k: after[k] - before[k] for k in REMOTE_STAT_KEYS})
+
+
+def _copies_profiled(dev, fn) -> dict:
+    """Run ``fn`` under ``torch.profiler``: device ms of the page copies
+    and of every kernel, and the host wall time (profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        out = fn()
+        return dict(out, copy_device_ms="not measured")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync(dev)
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and (e.self_device_time_total or 0) > 0]
+    copies = [r for r in rows if re.search(COPY_KERNELS, r[2])]
+    return dict(out, copy_device_ms=sum(r[0] for r in copies) / 1e3
+                if copies else "not measured",
+                copy_kernel_calls=sum(r[1] for r in copies),
+                all_device_ms=sum(r[0] for r in rows) / 1e3)
+
+
+def remote_paging_run(dev, page_bytes: int, seq_pages: int,
+                      pool_frames: int) -> dict:
+    """The reference's remote-paging scenario at ``page_bytes`` a page:
+    a backing region of two sequences A and B of ``seq_pages`` pages each
+    on a remote node, a device pool of ``pool_frames`` frames.  For each
+    strategy, sequence A, then B (which evicts A), then A again (it
+    re-reads over the fabric), every row bit for bit; then B once more
+    under the profiler.  Then failover: a 4-node ring, primary on node 1
+    and replica on node 2; A's pages written back (mirrored), B streamed,
+    and node 1 crashed halfway through A's return trip.  Rows from seed 0;
+    Touch-Ahead's and STREAM's lookahead 4."""
+    import importlib.util
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.api import FabricConfig, Strategy
+    from repro_torch.compat import canonicalize_dtype
+    # bf16 host rows need ml_dtypes (compat.canonicalize_dtype)
+    dtype = canonicalize_dtype(
+        "bfloat16" if importlib.util.find_spec("ml_dtypes") else "float32")
+    require(page_bytes % dtype.itemsize == 0, "page_bytes vs dtype")
+    elems = page_bytes // dtype.itemsize
+    n = 2 * seq_pages
+    seed, lookahead = 0, 4
+    rows = np.random.default_rng(seed).standard_normal(
+        (n, elems), dtype=np.float32).astype(dtype)
+    seq_a = list(range(seq_pages))
+    seq_b = list(range(seq_pages, n))
+    out = dict(dtype=dtype.name, page_bytes=page_bytes, page_elems=elems,
+               backing_pages=n, backing_bytes=n * page_bytes,
+               pool_frames=pool_frames, pool_bytes=pool_frames * page_bytes,
+               lookahead=lookahead, seed=seed, strategies={})
+    for strategy in (Strategy.TOUCH_A_PAGE, Strategy.TOUCH_AHEAD,
+                     Strategy.STREAM):
+        name = strategy.value
+        c0 = kernels.launch_counts()
+        store = _remote_store(dev, strategy, rows, page_bytes, pool_frames,
+                              lookahead)
+        t0 = time.perf_counter()
+        passes = [_remote_pass(store, rows, seq_a, f"{name} A cold"),
+                  _remote_pass(store, rows, seq_b, f"{name} B"),
+                  _remote_pass(store, rows, seq_a, f"{name} A return")]
+        wall = time.perf_counter() - t0
+        cold = passes[0]
+        require(cold["remote_dst_faults"] > 0 and cold["rapf_retransmits"]
+                > 0, f"{name}: the cold pass took no destination fault or "
+                f"RAPF retransmit: {cold}")
+        require(passes[2]["remote_reads"] > 0,
+                f"{name}: A's return trip read nothing over the fabric")
+        prof = _copies_profiled(dev, lambda: _remote_pass(
+            store, rows, seq_b, f"{name} B again (profiled)"))
+        c1 = kernels.launch_counts()
+        out["strategies"][name] = dict(
+            wall_s=wall, passes=passes, profiled_pass=prof,
+            totals={k: getattr(store.stats, k) for k in REMOTE_STAT_KEYS},
+            launches={k: c1[k] - c0[k] for k in ("page_gather",
+                                                  "page_scatter")})
+        del store
+    # failover: the primary backing node dies halfway through A's return
+    store = _remote_store(dev, Strategy.TOUCH_AHEAD, rows, page_bytes,
+                          pool_frames, lookahead,
+                          config=FabricConfig(n_nodes=4, topology="ring"),
+                          remote_node=1, replica_node=2)
+    pool = store.pool
+    t0 = time.perf_counter()
+    p_a = _remote_pass(store, rows, seq_a, "failover A cold")
+    for v in seq_a:
+        store.write_back(v)
+    page_out_us = pool.page_out(None, 0, seq_pages)
+    p_b = _remote_pass(store, rows, seq_b, "failover B")
+    p_r = _remote_pass(store, rows, seq_a, "failover A return",
+                       crash=(len(seq_a) // 2,
+                              lambda: pool.fabric.crash_node(1)))
+    wall = time.perf_counter() - t0
+    require(pool.failed_over and pool.failovers > 0
+            and p_r["failovers"] > 0, f"no failover: {p_r}")
+    require(pool.ryw_violations == 0 and pool.ryw_verified > 0,
+            f"read-your-writes: verified {pool.ryw_verified}, violations "
+            f"{pool.ryw_violations}")
+    out["failover"] = dict(
+        config="4-node ring, primary node 1, replica node 2",
+        crash="node 1 before access %d of A's return trip" % (
+            len(seq_a) // 2), wall_s=wall,
+        page_out_simulated_us=page_out_us, passes=[p_a, p_b, p_r],
+        failovers=pool.failovers, ryw_verified=pool.ryw_verified,
+        ryw_violations=pool.ryw_violations, rows_exact=True)
+    return out
+
+
+def phase_remote_paging(dev, sz: Sizes, table):
+    """Remote paging at a Qwen3-14B KV page (256 tokens x 8 KV heads x 128
+    x bf16 = 524,288 B): :func:`remote_paging_run` over a backing region
+    of two preempted 1,024-token sequences (40 layers x 4 pages x K, V =
+    320 pages each, 320 MB) and a device pool that holds one (160 MB).
+    Counters zeroed just before, read just after; then one row's gather /
+    scatter at this shape against the plain version and the library."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.compat import torch_dtype
+    from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
+    from repro_torch.kernels.page_pack.ref import (page_gather_ref,
+                                                   page_scatter_ref)
+    cfg = _arch_config(sz, sz.arch)
+    page_bytes = cfg.kv_page_tokens * cfg.n_kv_heads * cfg.head_dim \
+        * torch.empty(0, dtype=torch_dtype(cfg.dtype)).element_size()
+    seq_pages = cfg.n_layers * sz.pages_per_seq * 2
+    _free(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = remote_paging_run(dev, page_bytes, seq_pages,
+                            pool_frames=seq_pages)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if dev.type == "cuda":
+        require(counts["page_gather"] > 0 and counts["page_scatter"] > 0,
+                f"page gather/scatter launches: {counts}")
+        require(counts["paged_attention"] == 0
+                and counts["flash_attention"] == 0,
+                f"attention kernels on the remote-paging path: {counts}")
+    _add_launches(table, "remote_paging", counts,
+                  ("page_gather", "page_scatter"))
+
+    # one row at this shape (the path's copies), after the counters; four
+    # pools of a sequence's frames cycled, so a call finds the L2 cold
+    one = {}
+    if dev.type == "cuda":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9)
+        dt = torch_dtype(res["dtype"])
+        pools = [_rand(gen, (seq_pages, res["page_elems"]), dt, dev)
+                 for _ in range(4)]
+        idx = [torch.tensor([(37 * i) % seq_pages], dtype=torch.int32,
+                            device=dev) for i in range(4)]
+        blk = _rand(gen, (1, res["page_elems"]), dt, dev)
+
+        def timed(fn):
+            return time_ms(dev, [lambda p=p, i=i: fn(p, i)
+                                 for p, i in zip(pools, idx)],
+                           sz.timing_iters)
+
+        one = dict(
+            gather_ms=timed(gather_pages),
+            gather_plain_ms=timed(page_gather_ref),
+            index_select_ms=timed(lambda p, i: torch.index_select(p, 0, i)),
+            scatter_ms=timed(lambda p, i: scatter_pages(p, i, blk)),
+            scatter_plain_ms=timed(lambda p, i: page_scatter_ref(p, i, blk)),
+            index_copy_ms=timed(lambda p, i: p.index_copy_(0, i.long(),
+                                                           blk)),
+            empty_kernel_ms=_copy_floor_ms(dev, 1, page_bytes,
+                                           sz.timing_iters),
+            bound_ms=2 * page_bytes / HBM_BYTES_PER_S * 1e3,
+            plan=_copy_plan_of(dev, 1, page_bytes))
+        del pools
+        _free(dev)
+    emit("remote_paging", arch=cfg.name,
+         scenario="benchmarks/vmem_remote.py::_store_remote: "
+         "PagedTensorStore(pool=RemoteFramePool.build(...))",
+         sequence_pages=seq_pages, wall_seconds=wall, launches=counts,
+         copy_one_row=one, **res)
+
+
 # ----------------------------------------------------- phase: train parity
 def _to(tree, dev):
     from repro_torch.tree import tree_map
@@ -3150,6 +3423,9 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     phase_serve_mla_moe(dev, sz, table)
     if stop_after == "serve_mla_moe":
         return None
+    phase_remote_paging(dev, sz, table)
+    if stop_after == "remote_paging":
+        return None
     phase_train_parity(dev, sz, cfg)
     phase_train(dev, sz, cfg, table, with_profile)
     if stop_after == "train":
@@ -3181,7 +3457,8 @@ def main() -> int:
     ap.add_argument("--stop-after", default="",
                     choices=["", "profile", "kernels", "spill_parity",
                              "serve", "serve_danube", "serve_hybrid",
-                             "serve_mla_moe", "train", "train_mla",
+                             "serve_mla_moe", "remote_paging", "train",
+                             "train_mla",
                              "train_hybrid"],
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",

@@ -8,8 +8,11 @@ its own copy of every control-plane module it needs.
 Ported so far: the paged-KV serving path — ``launch.serve`` →
 ``serving.engine.ServingEngine`` → ``memory.kv_cache.PagedKVManager`` /
 ``vmem.Pager`` → ``models.decoder.decode_step`` →
-``models.attention.apply_attention_decode_paged`` — with three hand-written
-CUDA kernels under ``kernels/`` (paged decode attention, page gather, page
-scatter).  Entry points run on the GPU unless ``device="cpu"`` is passed
-(``compat.resolve_device``).
+``models.attention.apply_attention_decode_paged`` — and the training path
+(``launch.train`` → ``training.trainer``), with hand-written CUDA kernels
+under ``kernels/`` (paged decode attention, page gather, page scatter,
+flash attention); the verbs fabric and its simulator (``api``, ``core``,
+``net``, ``npr``, ``tenancy``, ``testing``) and remote paging
+(``vmem.RemoteFramePool``).  Entry points run on the GPU unless
+``device="cpu"`` is passed (``compat.resolve_device``).
 """

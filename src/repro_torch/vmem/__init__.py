@@ -9,14 +9,17 @@ pinning ceremony.  This package is that mechanism as an API:
 * :class:`FramePool` backends — :class:`DeviceFramePool` (a torch tensor
   on the chosen device, moved by the page gather / scatter kernels),
   :class:`HostFramePool` (numpy) and :class:`FrameIdPool` (control-plane
-  only); the reference's fabric-backed ``RemoteFramePool`` is not ported
-  yet;
+  only) and :class:`RemoteFramePool` (page-ins over the verbs fabric:
+  ``post_read`` + CQ completions, RAPF stats surfaced; the payload lands
+  in a local pool, on the GPU a ``DeviceFramePool``);
 * pluggable eviction (:class:`LRUEviction`, :class:`ClockEviction`,
   :class:`PinAwareLRU`) and prefetch predictors (:class:`NoPrefetch`,
   :class:`TouchAheadPrefetch`, :class:`StreamPrefetch`);
 * one :class:`PagingStats` telemetry record for everything.
 
-``repro_torch.memory.kv_cache.PagedKVManager`` and
+``repro_torch.memory.paged_store.PagedTensorStore``,
+``repro_torch.memory.kv_cache.PagedKVManager``,
+``repro_torch.memory.offload.PagedAdamW`` and
 ``repro_torch.serving.engine.ServingEngine`` are thin wrappers over this
 one pager.
 
@@ -42,12 +45,13 @@ from repro_torch.vmem.pager import NON_RESIDENT, AddressSpace, Pager
 from repro_torch.vmem.prefetch import (NoPrefetch, PrefetchPredictor,
                                        StreamPrefetch, TouchAheadPrefetch,
                                        predictor_for)
+from repro_torch.vmem.remote import RemoteFramePool
 from repro_torch.vmem.stats import PagingStats
 
 __all__ = [
     "AddressSpace", "ClockEviction", "DeviceFramePool", "EvictionPolicy",
     "FrameIdPool", "FramePool", "HostFramePool", "LRUEviction",
     "NON_RESIDENT", "NoPrefetch", "PageInReceipt", "Pager", "PagingStats",
-    "PinAwareLRU", "PrefetchPredictor", "StreamPrefetch",
+    "PinAwareLRU", "PrefetchPredictor", "RemoteFramePool", "StreamPrefetch",
     "TouchAheadPrefetch", "coerce_policy", "predictor_for",
 ]

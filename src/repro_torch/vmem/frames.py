@@ -11,8 +11,8 @@ the frame payload lives and how a page-in arrives:
   (a second-tier pool, e.g. host swap in front of remote memory);
 * :class:`FrameIdPool` — control-plane only: frames are just ids (the KV
   manager's case, where payload lives in the compiled step's cache pools);
-
-The reference's fabric-backed ``RemoteFramePool`` is not ported yet.
+* :class:`~repro_torch.vmem.remote.RemoteFramePool` — decorates any of the
+  above so page-ins travel over the verbs fabric (``post_read`` + CQ).
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ engine's KV spill path are all thin wrappers over this one fault loop:
   (``repro_torch.vmem.eviction``) when exhausted — never a pinned page;
 * the pool backend moves the payload: device/host copies locally, or a
   verbs ``post_read`` over the fabric for
-  a fabric-backed pool (the reference's ``RemoteFramePool``; not ported
-  yet).
+  :class:`~repro_torch.vmem.remote.RemoteFramePool`, whose completions land on
+  a real :class:`~repro_torch.api.completion.CompletionQueue`.
 
 Timing is accounted with the calibrated :class:`CostModel` in
 ``PagingStats.simulated_us`` while the data movement itself is real,

@@ -4,10 +4,12 @@ have not drifted, and ``chip_smoke.py`` imports only the port.
 """
 
 import ast
+import io
 import pathlib
 import re
 import subprocess
 import sys
+import tokenize
 
 import pytest
 
@@ -25,6 +27,20 @@ VERBATIM = [
     "tenancy/slo.py", "api/policy.py", "models/config.py",
     "configs/__init__.py", "vmem/stats.py", "vmem/eviction.py",
     "vmem/prefetch.py", "vmem/compat.py", "data/pipeline.py",
+    # the verbs fabric, its simulator and the control plane under it
+    "core/simulator.py", "core/shards.py", "core/fault.py",
+    "core/fault_fifo.py", "core/engine.py", "core/node.py",
+    "core/experiments.py", "core/firehose.py",
+    "net/__init__.py", "net/topology.py", "net/link.py", "net/router.py",
+    "net/interconnect.py",
+    "npr/__init__.py", "npr/stats.py", "npr/mtt.py", "npr/pool.py",
+    "npr/engine.py",
+    "tenancy/banks.py", "tenancy/qp.py", "tenancy/manager.py",
+    "lint/__init__.py", "lint/common.py", "lint/race.py", "lint/specs.py",
+    "api/__init__.py", "api/memory.py", "api/completion.py",
+    "api/config.py", "api/fabric.py",
+    "testing/__init__.py", "testing/traffic.py", "testing/invariants.py",
+    "testing/soak.py",
 ] + sorted("configs/" + p.name for p in (REF / "configs").glob("*.py")
            if p.name != "__init__.py")
 
@@ -35,6 +51,14 @@ def _normalize(text: str, prefix: str) -> list[str]:
     lines = [ln for ln in text.splitlines()
              if not re.match(r"\s*# lint: allow\(", ln)]
     return [ln.replace(prefix + ".", "repro.") for ln in lines]
+
+
+def _suppression_comments(text: str) -> list[str]:
+    """The ``# lint: allow(...)`` comments of a source (comment tokens
+    only: ``lint/common.py`` documents the syntax in its docstring)."""
+    return [tok.string for tok in
+            tokenize.generate_tokens(io.StringIO(text).readline)
+            if tok.type == tokenize.COMMENT and "lint: allow" in tok.string]
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -61,7 +85,7 @@ def test_verbatim_copy_has_not_drifted(rel):
     ref = _normalize((REF / rel).read_text(), "repro")
     port = _normalize((PORT / rel).read_text(), "repro_torch")
     assert port == ref, f"{rel} differs from src/repro/{rel}"
-    assert "lint: allow" not in (PORT / rel).read_text()
+    assert not _suppression_comments((PORT / rel).read_text())
 
 
 def test_all_ten_arch_configs_are_carried():
@@ -98,6 +122,9 @@ def test_importing_the_launcher_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.page_pack.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.memory.offload\n"
+        "import repro_torch.api, repro_torch.testing, repro_torch.lint\n"
+        "import repro_torch.npr, repro_torch.vmem.remote\n"
+        "import repro_torch.core.experiments, repro_torch.core.firehose\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -115,9 +142,13 @@ def test_thin_package_inits_do_not_recreate_the_import_cycle():
     """``import repro_torch.tenancy`` first must work (in the reference
     the tenancy <-> core cycle makes that order fail)."""
     for first in ("repro_torch.tenancy", "repro_torch.tenancy.slo",
-                  "repro_torch.api", "repro_torch.core"):
+                  "repro_torch.tenancy.banks", "repro_torch.api",
+                  "repro_torch.core", "repro_torch.core.node",
+                  "repro_torch.vmem.remote"):
         r = subprocess.run(
-            [sys.executable, "-c", f"import {first}; import repro_torch.api"],
+            [sys.executable, "-c", f"import {first}; import repro_torch.api; "
+             "from repro_torch.tenancy import TenancyManager; "
+             "from repro_torch.core import RDMAEngine"],
             capture_output=True, text=True, timeout=120,
             env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
         assert r.returncode == 0, (first, r.stderr[-1500:])
