@@ -31,8 +31,14 @@ Phases, one JSON line each:
                      SDPA on pre-gathered K/V, and at page sizes 1, 3 and
                      17 (row copies) with the cost of small pages; flash at
                      DeepSeek-V3's H=128, D=192 and Zamba2-7B's H=32,
-                     D=112 (bf16 at S=4096, f32 shorter); the copies at the
-                     Qwen3, the latent and the Zamba2 KV rows against
+                     D=112 (bf16 at S=4096, f32 shorter); flash at
+                     Sq != Sk (cross-attention, non-causal: Sq 1-448 over
+                     Sk 1-1,500, Sq > Sk, G 1 and 4, D 64 and 128, views;
+                     a causal or windowed call at Sq != Sk must raise
+                     ValueError) and at Whisper-medium's decode (Sq = 1
+                     over 1,500 frames), cross (448 over 1,500) and
+                     encoder (S = 1,500) shapes beside SDPA; the copies at
+                     the Qwen3, the latent and the Zamba2 KV rows against
                      index_select / index_copy_ and an empty kernel (the
                      launch floor), Zamba2's with -1 and past-the-pool
                      indices;
@@ -53,18 +59,34 @@ Phases, one JSON line each:
                      after (paged attention = 24 x decode_step calls); the
                      plain path on the card gives the same greedy tokens;
                      then the published config on its ring path;
-6c. ``serve_hybrid`` ``ServingEngine`` on Zamba2-7B at published width and
-                     depth (81 Mamba2 layers, 13 groups of 6 and a tail of
-                     3, one shared attention block at 13 sites, head_dim
-                     112), the serve settings and undersized pool; counters
-                     zeroed just before the kernel path and read just
-                     after (paged attention = 13 x decode_step calls); at
+6c. ``serve_hybrid`` ``ServingEngine`` on Zamba2-7B at published width (81
+                     Mamba2 layers, 13 groups of 6 and a tail of 3, one
+                     shared attention block at 13 sites, head_dim 112),
+                     the engine run cut to 27 layers (4 groups and the
+                     tail; the whole run's time), the serve settings and
+                     undersized pool; counters zeroed just before the
+                     kernel path and read just after (paged attention =
+                     4 x decode_step calls); at
                      the model's first 15 layers, every bf16 kernel call
                      of the path against its plain version, and in f32
                      the plain path on the card gives the same greedy
                      tokens (bf16 logits tie); the bytes a step moves per
                      sequence, paged KV against pinned Mamba state against
-                     the weights; a batch-1 decode step profiled;
+                     the weights, and a batch-1 decode step profiled, both
+                     at full depth;
+6d. ``serve_encdec`` ``ServingEngine`` on Whisper-medium at published width
+                     and depth (24 encoder and 24 decoder layers, d 1,024,
+                     16 heads of 64), max_len 448, 5 frames against 8, six
+                     greedy requests of 4-224 tokens, 16 new each; the
+                     engine decodes over the zero cross K/V, as the
+                     reference's; counters zeroed just before and read just
+                     after (paged attention and flash = 24 x decode_step
+                     calls); paged self-KV against pinned cross K/V bytes a
+                     step; a batch-1 step profiled; then a decode over
+                     ``cross_kv(encode(frames))`` of random frames: f32
+                     greedy tokens kernel = plain path on the card, every
+                     bf16 flash call (encoder, cross) against its plain
+                     version;
 7. ``serve_mla_moe`` ``ServingEngine`` on DeepSeek-V3 at published width cut
                      to 4 layers (3 dense, 1 MoE of 256 experts), paged
                      latent pools: the same greedy requests on an exact-fit
@@ -110,6 +132,15 @@ Phases, one JSON line each:
                      one-group f32 kernel-path against plain-path parity
                      of the loss and every gradient; counters zeroed just
                      before the steps and read just after;
+9d. ``train_encdec`` ``Trainer`` on Whisper-medium at published width and
+                     depth, tokens (8, 448) in 2 microbatches, remat, bf16
+                     params, f32 moments, 3 steps on zero frames: flash on
+                     the encoder, the decoder and the cross-attention
+                     (Sq 448 over Sk 1,500), finite losses and gradient
+                     norms; first a 2 + 2-layer f32 kernel-path against
+                     plain-path parity of the loss and every gradient over
+                     random frames; counters zeroed just before the steps
+                     and read just after;
 10. ``train_moe``    ``Trainer`` on Mixtral-8x7B at published width cut to 2
                      layers, the same shape and steps, loss and aux loss
                      each step; a one-layer kernel-path against
@@ -119,12 +150,13 @@ Phases, one JSON line each:
                      step 3's loss; one MoE layer's forward in its parts;
 11. ``profile``      only with ``--profile``: one batch-1 decode step under
                      ``torch.profiler``, host time against device time
-                     (and, inside ``train`` and ``train_moe``, one training
-                     step).
+                     (and, inside ``train``, ``train_encdec`` and
+                     ``train_moe``, one training step).
 
-Then one ``{"kernels": [...]}`` line (per kernel: launches summed over the
-paths that launch it, and by path; error, time, plain / library time,
-roofline bound), the ``nvidia-smi`` line, and last
+Then each phase's wall seconds (``phase_seconds``), one
+``{"kernels": [...]}`` line (per kernel: launches summed over the paths
+that launch it, and by path; error, time, plain / library time, roofline
+bound), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 Any failing phase raises: the run exits non-zero and prints no result.
 """
@@ -219,6 +251,27 @@ class Sizes:
     hybrid_train_layers: int = 15
     hybrid_train_steps: int = 3
     hybrid_parity_seq: int = 1024
+    # serve_hybrid's engine run at hybrid_serve_layers (4 groups of 6 and
+    # the 3-layer tail) to keep the whole run inside its time: at 81
+    # layers it took 121.8 s of an 842 s run (H100 80GB HBM3, 700 W)
+    hybrid_serve_layers: int = 27
+    # serve_encdec: Whisper-medium at published width and depth, its
+    # target context of 448 tokens (2 pages of 256) per sequence, an
+    # undersized pool of 5 frames against 8; the encoded decode after it:
+    # whisper_decode_prompt tokens teacher-forced, then whisper_max_new
+    # greedy steps, batch max_batch
+    whisper_arch: str = "whisper_medium"
+    whisper_max_len: int = 448
+    whisper_pool_frames: int = 5
+    whisper_prompts: tuple = (4, 48, 112, 224, 16, 160)
+    whisper_max_new: int = 16
+    whisper_decode_prompt: int = 4
+    # train_encdec: tokens (8, 448) in 2 microbatches, 3 steps; its f32
+    # parity at whisper_parity_layers encoder and decoder layers, one
+    # sequence of 448 over random frames
+    whisper_train_batch: int = 8
+    whisper_train_steps: int = 3
+    whisper_parity_layers: int = 2
 
 
 # ------------------------------------------------------------------- helpers
@@ -487,10 +540,12 @@ def _flash_close(a, b, grad: bool, what: str) -> tuple:
 
 
 def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
-                fused=False):
+                fused=False, Sk=None):
     """Forward and gradients of the kernels against the plain version on
     the card.  ``fused``: q, k and v are strided views of one
-    (B, S, H + 2 KVH, D) tensor, as a fused QKV projection gives them.
+    (B, S, H + 2 KVH, D) tensor, as a fused QKV projection gives them (with
+    ``Sk`` != S, cross-attention: q a view of a (B, S, H + KVH, D) tensor,
+    k and v views of one (B, Sk, 2 KVH, D), a fused KV projection's).
     f32: the gradients against autograd of the plain forward.
     bf16: row by row against the plain backward given the kernel's own
     rounded output (the backward's rowsum(dO * O) takes O in bf16, which
@@ -501,13 +556,19 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
-    if fused:
+    Sk = Sk or S
+    if fused and Sk == S:
         qkv = _rand(gen, (B, S, H + 2 * KVH, D), dtype, dev)
         q, k, v = qkv.requires_grad_(True).split([H, KVH, KVH], dim=2)
+    elif fused:
+        qx = _rand(gen, (B, S, H + KVH, D), dtype, dev).requires_grad_(True)
+        kv = _rand(gen, (B, Sk, 2 * KVH, D), dtype, dev).requires_grad_(True)
+        q = qx[:, :, :H]
+        k, v = kv.split([KVH, KVH], dim=2)
     else:
         q = _rand(gen, (B, S, H, D), dtype, dev).requires_grad_(True)
-        k = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
-        v = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+        k = _rand(gen, (B, Sk, KVH, D), dtype, dev).requires_grad_(True)
+        v = _rand(gen, (B, Sk, KVH, D), dtype, dev).requires_grad_(True)
     dout = _rand(gen, (B, S, H, D), dtype, dev)
     out = flash_attention(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(out, (q, k, v), dout)
@@ -518,7 +579,7 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
                               window=window).transpose(1, 2)
     want = torch.autograd.grad(ref, (q, k, v), dout)
     name = str(dtype).split(".")[-1]
-    what = (f"flash_attention B{B} S{S} H{H} KVH{KVH} D{D} {name} "
+    what = (f"flash_attention B{B} Sq{S} Sk{Sk} H{H} KVH{KVH} D{D} {name} "
             f"causal={causal} window={window} fused={fused}")
     e_fwd = _flash_close(out, ref, False, what)
     if dtype == torch.float32:
@@ -535,9 +596,12 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
 
 
 def _close_max(a, b, what: str) -> float:
-    """bf16 gradients against autograd: max |a - b| within 2e-2 x max|b|."""
+    """bf16 gradients against autograd: max |a - b| within 2e-2 x max|b|,
+    max|b| floored at ``ROW_FLOOR`` as the row check floors a row's norm: a
+    gradient that is 0 in exact arithmetic (dq when every row sees one key,
+    Sk = 1) holds f32 rounding noise on both sides."""
     err = max_err(a, b)
-    scale = float(b.float().abs().max())
+    scale = max(float(b.float().abs().max()), ROW_FLOOR)
     require(err <= TOL["bfloat16"] * scale, f"{what}: max abs err {err} "
             f"beyond {TOL['bfloat16']} x max|ref| = {TOL['bfloat16'] * scale}")
     return err
@@ -591,12 +655,54 @@ FLASH_CASES = [
     (1, 190, 4, 4, 112, True, 0),       # Zamba2-7B's head_dim, G = 1
 ]
 
+CROSS_CASES = [
+    # B, Sq, Sk, H, KVH, D, fused: cross-attention (Sq != Sk, non-causal,
+    # no window), Whisper-medium's heads (16 of 64) and another served
+    # head dim; Sq ragged against every tile (64, 128 rows), Sq > Sk too
+    (2, 1, 1500, 16, 16, 64, False),    # decode: one row over the frames
+    (2, 7, 33, 16, 4, 64, True),        # G = 4, q / k / v as views
+    (1, 65, 130, 8, 2, 128, False),     # G = 4, D = 128
+    (2, 448, 1500, 16, 16, 64, True),   # the training cross shape, views
+    (1, 65, 1, 4, 4, 64, False),        # Sq > Sk = 1
+    (1, 448, 33, 8, 2, 128, False),     # Sq > Sk, G = 4, D = 128
+    (3, 1, 130, 8, 8, 128, False),      # decode at D = 128
+    (1, 7, 1500, 16, 4, 64, False),     # G = 4 over the frames
+]
 
-def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int) -> dict:
-    """One causal bf16 shape: the kernels' forward and backward against the
-    plain version (rows) and autograd of it (2e-2 x max|ref|); kernel /
-    plain / SDPA device ms; FLOPs, bytes and the bound.  Seven time_ms
-    calls, in the order of ``FLASH_TIMED``."""
+
+def _cross_refused(gen, dev) -> int:
+    """A CUDA call with Sq != Sk and a causal mask or a window raises
+    ``ValueError`` before any launch (forward and, through autograd's
+    forward, the training path).  Returns the cases checked."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        q = _rand(gen, (1, 7, 4, 64), dt, dev)
+        k = _rand(gen, (1, 33, 4, 64), dt, dev)
+        for causal, window in ((True, 0), (False, 16), (True, 16)):
+            before = kernels.launch_counts()["flash_attention"]
+            try:
+                flash_attention(q, k, k, causal=causal, window=window)
+                raised = False
+            except ValueError:
+                raised = True
+            require(raised and kernels.launch_counts()["flash_attention"]
+                    == before, f"flash_attention Sq 7 != Sk 33 {dt} "
+                    f"causal={causal} window={window} did not raise")
+            n += 1
+    return n
+
+
+def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int, Sk=None,
+                      causal: bool = True, backward: bool = True) -> dict:
+    """One bf16 shape (causal, or S query rows over ``Sk`` keys without a
+    mask): the kernels' forward and backward against the plain version
+    (rows) and autograd of it (2e-2 x max|ref|); kernel / plain / SDPA
+    device ms; FLOPs, bytes and the bound.  Seven time_ms calls, in the
+    order of ``FLASH_TIMED``; with ``backward=False`` (a decode shape) the
+    forward's three, in the order of ``FLASH_TIMED_FWD``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -604,60 +710,18 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int) -> dict:
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
     bf16 = torch.bfloat16
-    what = f"flash_attention B{B} S{S} H{H} KVH{KVH} D{D} bf16"
+    Sk = Sk or S
+    what = (f"flash_attention B{B} Sq{S} Sk{Sk} H{H} KVH{KVH} D{D} bf16 "
+            f"causal={causal}")
     q = _rand(gen, (B, S, H, D), bf16, dev).requires_grad_(True)
-    k = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
-    v = _rand(gen, (B, S, KVH, D), bf16, dev).requires_grad_(True)
+    k = _rand(gen, (B, Sk, KVH, D), bf16, dev).requires_grad_(True)
+    v = _rand(gen, (B, Sk, KVH, D), bf16, dev).requires_grad_(True)
     dout = _rand(gen, (B, S, H, D), bf16, dev)
-    with torch.no_grad():
-        o, lse = flash_attention_fwd(q, k, v)
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout)
-    sync(dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ref = flash_attention_ref(qt, kt, vt).transpose(1, 2)
-    err_fwd, rel_fwd = _flash_close(o, ref.detach(), False, what)
-    want = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
-    err_bwd = max(_close_max(a, b, f"{what} d{n}")
-                  for a, b, n in zip((dq, dk, dv), want, "qkv"))
-    del want
-    with torch.no_grad():
-        plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
-            qt, kt, vt, o.transpose(1, 2), dout.transpose(1, 2))]
-    rel_bwd = max(_flash_close(a, b, True, f"{what} d{n}, plain backward")[1]
-                  for a, b, n in zip((dq, dk, dv), plain, "qkv"))
-    del plain, dq, dk, dv
-    with torch.no_grad():
-        fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(q, k, v)], it)
-        bwd_ms = time_ms(dev, [lambda: flash_attention_bwd(
-            q, k, v, o, lse, dout)], it)
-        plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
-            qt, kt, vt)], max(2, it // 3))
-    plain_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
-        ref, (q, k, v), dout, retain_graph=True)], max(2, it // 3))
-    del ref
-    sync(dev)
-    torch.cuda.empty_cache()
-    with torch.no_grad():
-        sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)], it)
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    sdpa_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
-        lib, (q, k, v), dout.transpose(1, 2), retain_graph=True)], it)
-    del lib
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2))
-
-    sdpa_fwd_bwd_ms = time_ms(dev, [sdpa_fwd_bwd], it)
-    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
     el = 2                                        # bf16 bytes
+    pairs = S * (S + 1) // 2 if causal else S * Sk    # (q, k) pairs
     fwd_flops = 4 * B * H * D * pairs             # QK^T and PV
-    bwd_flops = 10 * B * H * D * pairs            # S, dP, dV, dK, dQ
-    fwd_bytes = el * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
-    bwd_bytes = el * (6 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * H * S
+    fwd_bytes = el * (2 * B * S * H * D + 2 * B * Sk * KVH * D) \
+        + 4 * B * H * S
 
     def bound(flops, nbytes):
         t_ops = flops / PEAK_FLOPS["bfloat16"]
@@ -665,13 +729,87 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int) -> dict:
         return max(t_ops, t_mem) * 1e3, \
             "operations" if t_ops >= t_mem else "bytes"
 
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not backward:
+        with torch.no_grad():
+            o, _ = flash_attention_fwd(q, k, v, causal=causal)
+            sync(dev)
+            ref = flash_attention_ref(qt, kt, vt, causal=causal)
+            err_fwd, rel_fwd = _flash_close(o, ref.transpose(1, 2), False,
+                                            what)
+            fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(
+                q, k, v, causal=causal)], it)
+            plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
+                qt, kt, vt, causal=causal)], it)
+            sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)], it)
+        fb, fby = bound(fwd_flops, fwd_bytes)
+        del q, k, v, o, ref, dout
+        return {"shape": {"B": B, "Sq": S, "Sk": Sk, "H": H, "KVH": KVH,
+                          "D": D, "dtype": "bfloat16", "causal": causal},
+                "errs": (err_fwd, rel_fwd),
+                "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                        "bound_ms": fb, "bound_by": fby,
+                        "library_ms": sdpa_fwd_ms, "flops": fwd_flops,
+                        "bytes": fwd_bytes, "bound_share": fb / fwd_ms,
+                        "max_abs_err": err_fwd}}
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout,
+                                         causal=causal)
+    sync(dev)
+    ref = flash_attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
+    err_fwd, rel_fwd = _flash_close(o, ref.detach(), False, what)
+    want = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
+    err_bwd = max(_close_max(a, b, f"{what} d{n}")
+                  for a, b, n in zip((dq, dk, dv), want, "qkv"))
+    del want
+    with torch.no_grad():
+        plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+            qt, kt, vt, o.transpose(1, 2), dout.transpose(1, 2),
+            causal=causal)]
+    rel_bwd = max(_flash_close(a, b, True, f"{what} d{n}, plain backward")[1]
+                  for a, b, n in zip((dq, dk, dv), plain, "qkv"))
+    del plain, dq, dk, dv
+    with torch.no_grad():
+        fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(
+            q, k, v, causal=causal)], it)
+        bwd_ms = time_ms(dev, [lambda: flash_attention_bwd(
+            q, k, v, o, lse, dout, causal=causal)], it)
+        plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
+            qt, kt, vt, causal=causal)], max(2, it // 3))
+    plain_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        ref, (q, k, v), dout, retain_graph=True)], max(2, it // 3))
+    del ref
+    sync(dev)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)], it)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    sdpa_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        lib, (q, k, v), dout.transpose(1, 2), retain_graph=True)], it)
+    del lib
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2))
+
+    sdpa_fwd_bwd_ms = time_ms(dev, [sdpa_fwd_bwd], it)
+    bwd_flops = 10 * B * H * D * pairs            # S, dP, dV, dK, dQ
+    bwd_bytes = el * (6 * B * S * H * D + 4 * B * Sk * KVH * D) \
+        + 4 * B * H * S
+
     fb, fby = bound(fwd_flops, fwd_bytes)
     bb, bby = bound(bwd_flops, bwd_bytes)
     del q, k, v, o, lse, dout
     sync(dev)
     torch.cuda.empty_cache()
-    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
-                      "dtype": "bfloat16", "causal": True},
+    seq = {"S": S} if Sk == S else {"Sq": S, "Sk": Sk}
+    return {"shape": {"B": B, **seq, "H": H, "KVH": KVH, "D": D,
+                      "dtype": "bfloat16", "causal": causal},
             "errs": (err_fwd, rel_fwd, err_bwd, rel_bwd),
             "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fb,
                     "bound_by": fby, "library_ms": sdpa_fwd_ms,
@@ -689,6 +827,7 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int) -> dict:
 FLASH_TIMED = ("flash_attention", "flash_attention_bwd",
                "flash_attention_plain", "flash_attention_plain_bwd", "sdpa",
                "sdpa_bwd", "sdpa_fwd_bwd")
+FLASH_TIMED_FWD = ("flash_attention", "flash_attention_plain", "sdpa")
 
 
 def phase_flash(dev, sz: Sizes, cfg, names: list):
@@ -696,8 +835,12 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     shape (B=1, S=4096, H=40, KVH=8, D=128, causal) in f32 and in bf16,
     then DeepSeek-V3's (H=KVH=128, D=192: nope 128 + rope 64) and
     Zamba2-7B's (H=KVH=32, D=112) in bf16 at the training shape's S and in
-    f32 at a shorter one: errors against the plain version, kernel / plain
-    / SDPA times, FLOP bounds."""
+    f32 at a shorter one; then cross-attention (Sq != Sk, non-causal: the
+    cases of ``CROSS_CASES`` in both dtypes, the refused masks) and
+    Whisper-medium's three shapes in bf16: the decode call (Sq = 1 over
+    the 1,500 frames; forward only), the training cross shape and the
+    encoder's (S = 1,500, non-causal): errors against the plain version,
+    kernel / plain / SDPA times, FLOP bounds."""
     import torch
     from repro_torch.configs import get_config
 
@@ -747,6 +890,42 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     errs[f"bfloat16_head_dim_{D3}"] = dict(zip(keys, z["errs"]))
     names += [f"{n}_d{D3}" for n in FLASH_TIMED]
 
+    # cross-attention, Sq != Sk (Whisper-medium's decoder over its frames)
+    cross_errs = {"float32": dict.fromkeys(keys, 0.0),
+                  "bfloat16": dict.fromkeys(keys, 0.0)}
+    for (B4, Sq, Sk, H4, KVH4, D4, fused) in CROSS_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            e = _flash_case(gen, dev, B4, Sq, H4, KVH4, D4, dt, False, 0,
+                            fused=fused, Sk=Sk)
+            n = str(dt).split(".")[-1]
+            cross_errs[n] = {k: max(cross_errs[n][k], x)
+                             for k, x in zip(keys, e[0] + e[1])}
+    errs["cross_attention"] = cross_errs
+    refused = _cross_refused(gen, dev)
+    wcfg = get_config(sz.whisper_arch)
+    Hw, Dw, T = wcfg.n_heads, wcfg.head_dim, wcfg.max_source_positions
+    sync(dev)
+    torch.cuda.empty_cache()
+    w_dec = _flash_bf16_shape(gen, dev, sz.max_batch, 1, Hw, Hw, Dw, it,
+                              Sk=T, causal=False, backward=False)
+    names += [f"{n}_whisper_decode" for n in FLASH_TIMED_FWD]
+    w_cross = _flash_bf16_shape(gen, dev, sz.whisper_train_batch,
+                                wcfg.max_target_positions, Hw, Hw, Dw, it,
+                                Sk=T, causal=False)
+    names += [f"{n}_whisper_cross" for n in FLASH_TIMED]
+    w_enc = _flash_bf16_shape(gen, dev, sz.whisper_train_batch, T, Hw, Hw,
+                              Dw, it, causal=False)
+    names += [f"{n}_whisper_encoder" for n in FLASH_TIMED]
+    errs["bfloat16_whisper_shapes"] = {
+        "decode": dict(zip(keys[:2], w_dec["errs"])),
+        "cross": dict(zip(keys, w_cross["errs"])),
+        "encoder": dict(zip(keys, w_enc["errs"]))}
+    whisper = {"arch": wcfg.name, "decode_shape": w_dec["shape"],
+               "cross_shape": w_cross["shape"],
+               "encoder_shape": w_enc["shape"],
+               "cross_cases_checked": 2 * len(CROSS_CASES),
+               "masked_sq_ne_sk_refused": refused}
+
     src = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
     design = {"instruction": "mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, "
               "operands by ldmatrix", "loads": "cp.async, 2 stages"}
@@ -765,7 +944,9 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          **design, "flops": f["flops"], "bytes": f["bytes"],
          "tflops_per_s": f["tflops_per_s"], "shape": main["shape"],
          "head_dim_192": {**d192, **wide["fwd"]},
-         f"head_dim_{D3}": {**d112, **z["fwd"]}},
+         f"head_dim_{D3}": {**d112, **z["fwd"]},
+         "whisper": {**whisper, "decode": w_dec["fwd"],
+                     "cross": w_cross["fwd"], "encoder": w_enc["fwd"]}},
         {"name": "flash_attention_bwd", "route": "cuda", "source": src,
          "replaces": tpu, "note": "the TPU kernel has no backward: the "
          "reference differentiates src/repro/models/attention_ops.py:77 "
@@ -778,9 +959,11 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "flops": b["flops"], "bytes": b["bytes"],
          "tflops_per_s": b["tflops_per_s"], "shape": main["shape"],
          "head_dim_192": {**d192, **wide["bwd"]},
-         f"head_dim_{D3}": {**d112, **z["bwd"]}},
+         f"head_dim_{D3}": {**d112, **z["bwd"]},
+         "whisper": {**whisper, "cross": w_cross["bwd"],
+                     "encoder": w_enc["bwd"]}},
     ]
-    cases = 2 * len(FLASH_CASES) + 6
+    cases = 2 * len(FLASH_CASES) + 6 + 2 * len(CROSS_CASES) + refused + 3
     return rows, errs, cases
 
 
@@ -1656,16 +1839,17 @@ def _add_launches(table, path: str, counts: dict, names) -> None:
             row["launches"] = sum(by.values())
 
 
-def _serve(dev, sz: Sizes, cfg, params, pool_frames, prompts=None):
+def _serve(dev, sz: Sizes, cfg, params, pool_frames, prompts=None,
+           max_len=None, max_new=None):
     from repro_torch.api import FaultPolicy, Strategy
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(
         cfg, params, max_batch=sz.max_batch,
-        max_len=sz.pages_per_seq * cfg.kv_page_tokens,
+        max_len=max_len or sz.pages_per_seq * cfg.kv_page_tokens,
         pool_frames=pool_frames,
         policy=FaultPolicy(strategy=Strategy.TOUCH_AHEAD, lookahead=4),
         device=dev)
-    reqs = [eng.submit(p, max_new_tokens=sz.max_new)
+    reqs = [eng.submit(p, max_new_tokens=max_new or sz.max_new)
             for p in _prompts(prompts or sz.prompts, cfg.vocab_size)]
     sync(dev)
     t0 = time.perf_counter()
@@ -1866,21 +2050,25 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def _hybrid_step_bytes(dev, sz: Sizes, cfg, eng, params, iters: int) -> dict:
+def _step_bytes(dev, sz: Sizes, cfg, eng, params, iters: int,
+                pinned: str = "ssm", w_bytes=None) -> dict:
     """What one decode step of the engine moves for one sequence, paged
-    against pinned: its KV pages of every site (``k_pool`` / ``v_pool``,
-    ``page_scatter`` in and ``page_gather`` out), its Mamba state of every
-    layer (``ssm`` / ``conv``, batch on axis 1, strided copies in and out),
-    and the weights a batch step reads once; bytes from the shapes, device
-    ms of each copy as the engine makes it (``time_ms``), the weights'
-    bytes over the HBM rate."""
+    against pinned: its KV pages (``k_pool`` / ``v_pool``, ``page_scatter``
+    in and ``page_gather`` out), its pinned state (every other leaf but
+    ``lengths`` and the page table, batch on axis 1, strided copies in
+    and out: the hybrid's Mamba state ``ssm`` / ``conv``, the
+    encoder-decoder's cross K/V), and the weights a batch step reads once
+    (``w_bytes``; by default all but the embedding); bytes from the
+    shapes, device ms of each copy as the engine makes it (``time_ms``),
+    the weights' bytes over the HBM rate."""
     from repro_torch.kernels.page_pack.ops import gather_pages, scatter_pages
     from repro_torch.tree import tree_leaves, tree_names
     seq = eng.model.init_decode_cache(cfg, 1, eng.max_len, device=dev)
     full = dict(zip(tree_names(eng.cache), tree_leaves(eng.cache)))
     part = dict(zip(tree_names(seq), tree_leaves(seq)))
     pools = [n for n in full if "pool" in n]
-    states = [n for n in full if n.startswith("ssm/")]
+    states = [n for n in full if "pool" not in n and "table" not in n
+              and n != "lengths"]
     slot = min(1, sz.max_batch - 1)
 
     def kv(direction):
@@ -1904,24 +2092,27 @@ def _hybrid_step_bytes(dev, sz: Sizes, cfg, eng, params, iters: int) -> dict:
 
     kv_bytes = sum(part[n].numel() * part[n].element_size() for n in pools)
     st_bytes = sum(part[n].numel() * part[n].element_size() for n in states)
-    w_bytes = _nbytes(params) - _nbytes(params["embed"])
+    if w_bytes is None:
+        w_bytes = _nbytes(params) - _nbytes(params["embed"])
     return {
         "per_sequence_each_way": {
-            "kv_pages_bytes": kv_bytes, "ssm_state_bytes": st_bytes,
+            "kv_pages_bytes": kv_bytes, f"{pinned}_state_bytes": st_bytes,
             "kv_copy_in_ms": time_ms(dev, [lambda: kv("in")], iters),
             "kv_copy_out_ms": time_ms(dev, [lambda: kv("out")], iters),
-            "ssm_copy_in_ms": time_ms(dev, [lambda: state("in")], iters),
-            "ssm_copy_out_ms": time_ms(dev, [lambda: state("out")], iters)},
+            f"{pinned}_copy_in_ms": time_ms(dev, [lambda: state("in")],
+                                            iters),
+            f"{pinned}_copy_out_ms": time_ms(dev, [lambda: state("out")],
+                                             iters)},
         "batch_cache": {"kv_pools_bytes": sum(
             full[n].numel() * full[n].element_size() for n in pools),
-            "ssm_state_bytes": sum(full[n].numel() * full[n].element_size()
-                                   for n in states),
+            f"{pinned}_state_bytes": sum(
+                full[n].numel() * full[n].element_size() for n in states),
             "max_batch": sz.max_batch},
         "weights_read_per_step_bytes": w_bytes,
         "weights_floor_ms": w_bytes / HBM_BYTES_PER_S * 1e3,
         "kv_pages_bytes_per_step_in_and_out_at_max_batch":
             2 * sz.max_batch * kv_bytes,
-        "ssm_state_bytes_per_step_in_and_out_at_max_batch":
+        f"{pinned}_state_bytes_per_step_in_and_out_at_max_batch":
             2 * sz.max_batch * st_bytes}
 
 
@@ -1952,10 +2143,12 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
     Mamba2 layers in 13 groups of 6 and a 3-layer tail, one shared
     attention block applied after each group: head_dim 112 on paged
     attention's 128 instance), random weights from a seed, greedy, the
-    ``serve`` phase's settings, requests and undersized pool, counters
-    zeroed just before and read just after (``paged_attention`` launches
-    = 13 sites x decode_step calls; page copies of the 13 sites' KV rows;
-    spills and fault page-ins).
+    ``serve`` phase's settings, requests and undersized pool; the engine
+    run at ``hybrid_serve_layers`` (4 groups and the tail: at 81 layers
+    it took 121.8 s of a run near its time limit), counters zeroed just
+    before and read just after (``paged_attention`` launches = sites x
+    decode_step calls; page copies of the sites' KV rows; spills and fault
+    page-ins); the step's bytes and a batch-1 step at full depth.
 
     The comparison with the plain path (``paged_attention_ref``, on the
     card) runs at the model's first ``hybrid_plain_layers`` layers: the
@@ -1974,6 +2167,7 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import hybrid
     from repro_torch.models.mamba import mamba_dims
+    from repro_torch.serving.engine import ServingEngine
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = _arch_config(sz, sz.zamba_arch)
@@ -1986,8 +2180,10 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
 
+    scfg, sparams = _first_layers(params, cfg, sz.hybrid_serve_layers)
+    G_run = hybrid.group_layout(scfg)[0]
     kernels.reset_launch_counts()
-    eng, reqs, wall = _serve(dev, sz, cfg, params, sz.pool_frames)
+    eng, reqs, wall = _serve(dev, sz, scfg, sparams, sz.pool_frames)
     counts = kernels.launch_counts()
     st = eng.stats
     prompt_tokens = sum(len(r.prompt) for r in reqs)
@@ -1999,9 +2195,9 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
     require(st.spill_events > 0 and st.fault_page_ins > 0,
             f"no spill / fault-back-in: {st}")
     if dev.type == "cuda":
-        require(counts["paged_attention"] == G * step_calls,
+        require(counts["paged_attention"] == G_run * step_calls,
                 f"paged_attention launches {counts['paged_attention']} != "
-                f"{G} sites x {step_calls} decode_step calls")
+                f"{G_run} sites x {step_calls} decode_step calls")
         require(counts["page_gather"] > 0
                 and counts["page_gather"] == counts["page_scatter"],
                 f"page gather/scatter launches: {counts}")
@@ -2010,7 +2206,12 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
                   ("paged_attention", "page_gather", "page_scatter"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     stats = dataclasses.asdict(st)
-    moved = _hybrid_step_bytes(dev, sz, cfg, eng, params, 10)
+    # what a step moves, at full depth: an engine over the published
+    # model's cache, not run
+    moved = _step_bytes(dev, sz, cfg, ServingEngine(
+        cfg, params, max_batch=sz.max_batch,
+        max_len=sz.pages_per_seq * cfg.kv_page_tokens,
+        pool_frames=sz.pool_frames, device=dev), params, 10)
     del eng
 
     # the comparison with the plain path, at the first layers
@@ -2039,7 +2240,8 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
     bf16_same = [a.generated == b.generated for a, b in zip(reqs_c, reqs_f)]
     del cparams, fparams
     profile = _decode_profile(dev, sz, cfg, params, 3)
-    emit("serve_hybrid", arch=cfg.name, layers=cfg.n_layers, groups=G,
+    emit("serve_hybrid", arch=cfg.name, layers=cfg.n_layers,
+         engine_run_layers=scfg.n_layers, engine_run_sites=G_run, groups=G,
          group_size=k, tail=tail, d_model=cfg.d_model, heads=cfg.n_heads,
          kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
          ssm_state=cfg.ssm_state, ssm_heads=mamba_dims(cfg)[1],
@@ -2056,8 +2258,8 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
          spill_events=st.spill_events, fault_page_ins=st.fault_page_ins,
          engine_stats=stats, max_memory_allocated=peak, launches=counts,
          plain_comparison={
-             "layers": ccfg.n_layers, "why": "a full-depth path takes "
-             f"{wall:.1f} s on the host-bound engine",
+             "layers": ccfg.n_layers, "why": f"a {scfg.n_layers}-layer path "
+             f"takes {wall:.1f} s on the host-bound engine",
              "bfloat16_kernel_calls_against_plain": checked,
              "bfloat16_checked_wall_seconds": wall_c,
              "float32_tokens_identical_kernel_vs_plain": True,
@@ -2068,6 +2270,232 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
          first_tokens=[r.generated[:4] for r in reqs])
     del params
     _free(dev)
+
+
+# ------------------------------------------------------- phase: serve_encdec
+def _checked_flash(record: dict, kernel_fn):
+    """``flash_attention`` through ``kernel_fn`` that also runs
+    ``flash_attention_ref`` on the same inputs and records, per call, the
+    largest absolute error and the largest relative L2 error of a row
+    (one position of one head, ``_row_rel_err``), counting the calls whose
+    row error is beyond the tolerance of the inputs' dtype (the
+    ``kernels`` phase's bf16 criterion); it returns the kernel's output."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    def attend(q, k, v, *, causal=True, window=0, **kw):
+        out = kernel_fn(q, k, v, causal=causal, window=window, **kw)
+        ref = flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+        rel = _row_rel_err(out, ref)
+        record["calls"] += 1
+        record["beyond_tolerance"] += int(
+            rel > TOL[str(q.dtype).split(".")[-1]])
+        record["max_abs_err"] = max(record["max_abs_err"], max_err(out, ref))
+        record["max_row_rel_err"] = max(record["max_row_rel_err"], rel)
+        record["shapes"].add((tuple(q.shape), tuple(k.shape)))
+        return out
+
+    return attend
+
+
+def _encoded_decode(dev, sz: Sizes, cfg, params, frames, prompt) -> tuple:
+    """Greedy decode over a batch cache whose pinned cross K/V are
+    ``cross_kv(params, cfg, encode(params, cfg, frames))``: ``prompt``
+    (B, P) teacher-forced, then ``whisper_max_new`` greedy tokens.
+    Returns (tokens per sequence, wall s)."""
+    import torch
+    from repro_torch.models import encdec
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ck, cv = encdec.cross_kv(params, cfg, encdec.encode(params, cfg,
+                                                            frames))
+    B = frames.shape[0]
+    cache = encdec.init_decode_cache(cfg, B, sz.whisper_max_len, device=dev)
+    cache["cross_k"].copy_(ck)
+    cache["cross_v"].copy_(cv)
+    del ck, cv
+    for t in range(prompt.shape[1]):
+        logits, cache = encdec.decode_step(params, cfg, cache,
+                                           prompt[:, t:t + 1])
+    out = []
+    for _ in range(sz.whisper_max_new):
+        nxt = logits[:, 0].argmax(-1, keepdim=True)
+        out.append(nxt)
+        logits, cache = encdec.decode_step(params, cfg, cache, nxt)
+    tokens = torch.cat(out, 1).tolist()
+    sync(dev)
+    return tokens, time.perf_counter() - t0
+
+
+def phase_serve_encdec(dev, sz: Sizes, table):
+    """``ServingEngine`` on Whisper-medium at published width and depth
+    (24 encoder and 24 decoder layers, d 1,024, 16 heads of 64, bf16),
+    random weights from a seed, greedy, ``max_batch`` 4, ``max_len`` 448
+    (2 pages of 256 a sequence), an undersized pool of 5 frames against
+    8, the requests of ``whisper_prompts`` with ``whisper_max_new`` new
+    tokens each; counters zeroed just before and read just after: as in
+    the reference the engine never encodes, so it decodes over the zero
+    cross K/V of ``init_decode_cache`` — ``paged_attention`` (decoder
+    self-attention) and ``flash_attention`` (cross-attention, Sq = 1 over
+    1,500 frames) each 24 x decode_step calls.  Then what a step moves
+    per sequence, paged self-attention KV against the pinned cross K/V,
+    and a batch-1 decode step profiled.
+
+    Then the encoded decode: a batch of ``max_batch`` random frame
+    sequences, ``encode`` and ``cross_kv`` into the cache, 4 prompt tokens
+    and 16 greedy steps (:func:`_encoded_decode`).  In float32 the kernel
+    path and the plain path on the card (``flash_attention_xla`` for the
+    encoder and the cross-attention, ``paged_attention_ref`` for the
+    decoder's) give the same greedy tokens.  In bf16 every flash call of
+    the path (the encoder's and every cross-attention call) is held
+    against ``flash_attention_ref`` on its own inputs; bf16 tokens are not
+    compared (random weights' bf16 logits tie)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import encdec
+    from repro_torch.models.attention_ops import flash_attention_xla
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _arch_config(sz, sz.whisper_arch)
+    require(cfg.family == "encdec", cfg.family)
+    L = cfg.n_layers
+    _free(dev)
+    t0 = time.perf_counter()
+    params = encdec.init_params(cfg, 0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = _nbytes(params)
+
+    kernels.reset_launch_counts()
+    eng, reqs, wall = _serve(dev, sz, cfg, params, sz.whisper_pool_frames,
+                             prompts=sz.whisper_prompts,
+                             max_len=sz.whisper_max_len,
+                             max_new=sz.whisper_max_new)
+    counts = kernels.launch_counts()
+    st = eng.stats
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    step_calls = prompt_tokens + st.decode_steps
+    require(all(r.done and len(r.generated) == sz.whisper_max_new
+                for r in reqs), "a request did not finish")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+            "token id out of range")
+    if dev.type == "cuda":
+        require(counts["paged_attention"] == L * step_calls
+                and counts["flash_attention"] == L * step_calls
+                and counts["flash_attention_bwd"] == 0,
+                f"launches {counts} != {L} layers x {step_calls} "
+                f"decode_step calls (paged_attention, flash_attention)")
+        require(counts["page_gather"] > 0
+                and counts["page_gather"] == counts["page_scatter"],
+                f"page gather/scatter launches: {counts}")
+    _add_launches(table, "serve_encdec", counts,
+                  ("paged_attention", "page_gather", "page_scatter",
+                   "flash_attention"))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    stats = dataclasses.asdict(st)
+    # a decode step reads the decoder's weights and the tied embedding
+    # (the head), not the encoder's
+    w_bytes = _nbytes(params) - _nbytes(params["enc_layers"])
+    moved = _step_bytes(dev, sz, cfg, eng, params, 10, pinned="cross_kv",
+                        w_bytes=w_bytes)
+    del eng
+    profile = _decode_profile(dev, sz, cfg, params, 3,
+                              max_len=sz.whisper_max_len)
+
+    # the encoded decode
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    B = sz.max_batch
+    frames = torch.randn((B, cfg.max_source_positions, cfg.d_model),
+                         generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, sz.whisper_decode_prompt),
+                           generator=gen, device=dev)
+    kernel_fns = (attn_mod.flash_attention, encdec.flash_attention,
+                  attn_mod.paged_attention)
+
+    def restore():
+        (attn_mod.flash_attention, encdec.flash_attention,
+         attn_mod.paged_attention) = kernel_fns
+
+    checked = {n: {"calls": 0, "beyond_tolerance": 0, "max_abs_err": 0.0,
+                   "max_row_rel_err": 0.0, "shapes": set()}
+               for n in ("encoder", "cross")}
+    attn_mod.flash_attention = _checked_flash(checked["encoder"],
+                                              kernel_fns[0])
+    encdec.flash_attention = _checked_flash(checked["cross"], kernel_fns[1])
+    try:
+        tok_bf16, wall_bf16 = _encoded_decode(
+            dev, sz, cfg, params, frames.to(params["embed"].dtype), prompt)
+    finally:
+        restore()
+    for n, rec in checked.items():
+        require(rec["calls"] > 0 and rec["beyond_tolerance"] == 0,
+                f"{n} flash calls against the plain version on the bf16 "
+                f"encoded decode: {rec}")
+        rec["shapes"] = sorted(rec["shapes"])
+    require(checked["cross"]["calls"] == L * (sz.whisper_decode_prompt
+                                              + sz.whisper_max_new),
+            f"cross-attention calls {checked['cross']['calls']}")
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    fparams = tree_map(lambda t: t.float(), params)
+    del params
+    _free(dev)
+    kernels.reset_launch_counts()
+    tok_f, wall_f = _encoded_decode(dev, sz, fcfg, fparams, frames, prompt)
+    f32_counts = kernels.launch_counts()
+    attn_mod.flash_attention = flash_attention_xla
+    encdec.flash_attention = flash_attention_xla
+    attn_mod.paged_attention = paged_attention_ref
+    try:
+        tok_p, wall_p = _encoded_decode(dev, sz, fcfg, fparams, frames,
+                                        prompt)
+    finally:
+        restore()
+    require(tok_f == tok_p, f"float32 greedy tokens differ between the "
+            f"kernel and the plain path: {tok_f} vs {tok_p}")
+    del fparams
+    _free(dev)
+    cross_b = moved["per_sequence_each_way"]["cross_kv_state_bytes"]
+    kv_b = moved["per_sequence_each_way"]["kv_pages_bytes"]
+    emit("serve_encdec", arch=cfg.name, layers=L,
+         encoder_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, head_dim=cfg.head_dim,
+         source_frames=cfg.max_source_positions, vocab=cfg.vocab_size,
+         params=n_params, param_bytes=param_bytes, dtype=cfg.dtype,
+         init_seconds=init_s, max_batch=sz.max_batch,
+         max_len=sz.whisper_max_len, page_tokens=cfg.kv_page_tokens,
+         pool_frames=sz.whisper_pool_frames,
+         prompt_lengths=[len(r.prompt) for r in reqs],
+         requests_done=sum(r.done for r in reqs),
+         tokens_generated=st.tokens_generated, decode_steps=st.decode_steps,
+         decode_step_calls=step_calls, wall_seconds=wall,
+         generated_tokens_per_s=st.tokens_generated / wall,
+         processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
+         spill_events=st.spill_events, fault_page_ins=st.fault_page_ins,
+         engine_stats=stats, max_memory_allocated=peak, launches=counts,
+         bytes_moved_per_step=moved,
+         paged_self_kv_bytes_per_sequence=kv_b,
+         pinned_cross_kv_bytes_per_sequence=cross_b,
+         pinned_over_paged=cross_b / kv_b,
+         batch1_decode_step=profile,
+         encoded_decode={
+             "batch": B, "prompt_tokens": sz.whisper_decode_prompt,
+             "greedy_steps": sz.whisper_max_new,
+             "bfloat16_flash_calls_against_plain": checked,
+             "bfloat16_wall_seconds": wall_bf16,
+             "float32_tokens_identical_kernel_vs_plain": True,
+             "float32_kernel_launches": f32_counts,
+             "float32_kernel_wall_seconds": wall_f,
+             "float32_plain_wall_seconds": wall_p,
+             "bfloat16_tokens_equal_float32_tokens": [
+                 a == b for a, b in zip(tok_bf16, tok_f)],
+             "first_tokens_float32": [t[:4] for t in tok_f]},
+         first_tokens=[r.generated[:4] for r in reqs])
 
 
 # ------------------------------------------------------- phase: serve_mla_moe
@@ -3021,6 +3449,163 @@ def phase_train_hybrid(dev, sz: Sizes, table):
     _free(dev)
 
 
+# -------------------------------------------------------- phase: train_encdec
+ENCDEC_PARITY_TOL = MLA_PARITY_TOL
+
+
+def _encdec_train_parity(dev, sz: Sizes, cfg) -> dict:
+    """Whisper-medium at published width cut to ``whisper_parity_layers``
+    encoder and decoder layers, float32, one sequence of
+    ``max_target_positions`` tokens over random frame embeddings (so that
+    cross-attention's backward sees real values), remat: loss and every
+    leaf's gradient by the kernel path (flash on the encoder, the
+    decoder's self-attention and the cross-attention at Sq 448 over Sk
+    1,500: the CUDA-core route) against the plain path on the card
+    (``flash_attention_xla`` for all three).  Loss within 1e-5 relative,
+    each gradient leaf finite and within 1e-4 x max|ref|."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import encdec
+    from repro_torch.models.attention_ops import flash_attention_xla
+    from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_names
+
+    n = sz.whisper_parity_layers
+    pcfg = dataclasses.replace(cfg, n_layers=n, n_enc_layers=n,
+                               dtype="float32")
+    params = encdec.init_params(pcfg, 7, device=dev)
+    S = pcfg.max_target_positions
+    tokens, labels = SyntheticLM(pcfg.vocab_size, S, 1, seed=7).batch_at(0)
+    tok = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    frames = torch.randn((1, pcfg.max_source_positions, pcfg.d_model),
+                         generator=gen, device=dev)
+    loss_fn = make_loss_fn(pcfg, TrainConfig(remat=True))
+    before = kernels.launch_counts()
+    loss_k, g_k = value_and_grad(loss_fn, params, tok, lab, frames)
+    sync(dev)
+    after = kernels.launch_counts()
+    kernel_fns = (attn_mod.flash_attention, encdec.flash_attention)
+    attn_mod.flash_attention = flash_attention_xla        # plain, on card
+    encdec.flash_attention = flash_attention_xla
+    try:
+        loss_p, g_p = value_and_grad(loss_fn, params, tok, lab, frames)
+        sync(dev)
+    finally:
+        attn_mod.flash_attention, encdec.flash_attention = kernel_fns
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+    per_pass = 2 * n + n                 # encoder, decoder self, cross
+    require(dev.type != "cuda" or (fwd == 2 * per_pass and bwd == per_pass),
+            f"train_encdec parity: flash launches fwd {fwd} bwd {bwd}")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(math.isfinite(float(loss_k))
+            and loss_rel <= ENCDEC_PARITY_TOL["loss_rel"],
+            f"train_encdec parity: loss {float(loss_k)} vs {float(loss_p)}")
+    grad_of_max = {}
+    for name, a, b in zip(tree_names(g_k), tree_leaves(g_k),
+                          tree_leaves(g_p)):
+        require(bool(torch.isfinite(a).all()), f"grad {name} not finite")
+        grad_of_max[name] = float((a - b).abs().max()
+                                  / b.abs().max().clamp_min(1e-30))
+    worst = max(grad_of_max, key=grad_of_max.get)
+    require(grad_of_max[worst] <= ENCDEC_PARITY_TOL["grad_of_max"],
+            f"train_encdec parity: grad {worst} max abs err "
+            f"{grad_of_max[worst]} x max|ref|")
+    del params, g_k, g_p
+    return {"encoder_layers": n, "decoder_layers": n, "dtype": "float32",
+            "seq": S, "frames": pcfg.max_source_positions,
+            "frame_embeddings": "random", "loss_kernel": float(loss_k),
+            "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+            "grad_err_of_max": grad_of_max, "worst_leaf": worst,
+            "tolerance": ENCDEC_PARITY_TOL,
+            "flash_launches": {"fwd": fwd, "bwd": bwd}}
+
+
+def phase_train_encdec(dev, sz: Sizes, table, with_profile: bool = False):
+    """``Trainer`` on Whisper-medium at published width and depth (24 + 24
+    layers), random weights from a seed: first the two-layer f32
+    kernel-path / plain-path parity over random frames, then
+    ``whisper_train_steps`` steps of tokens (8, 448) in 2 microbatches,
+    remat, bf16 params, f32 moments, on ``SyntheticLM`` (zero frames, as
+    in the reference's trainer), counters zeroed just before the steps and
+    read just after: flash on the encoder (S 1,500, non-causal), the
+    decoder (448, causal) and the cross-attention (448 over 1,500), finite
+    losses and gradient norms.  With ``with_profile``, one more step (two,
+    the first unprofiled) under ``torch.profiler``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import encdec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.whisper_arch)
+    require(cfg.family == "encdec", cfg.family)
+    _free(dev)
+    parity = _encdec_train_parity(dev, sz, cfg)
+    _free(dev)
+
+    seq = cfg.max_target_positions
+    tcfg = TrainConfig(microbatches=sz.train_microbatches, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4,
+                                             moment_dtype="float32"))
+    ds = SyntheticLM(cfg.vocab_size, seq, sz.whisper_train_batch, seed=0)
+    t0 = time.perf_counter()
+    params = encdec.init_params(cfg, 0, device=dev)
+    tr = Trainer(cfg, tcfg, params, ds, device=dev)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    tokens_per_step = sz.whisper_train_batch * seq
+    steps = []
+    kernels.reset_launch_counts()
+    for _ in range(sz.whisper_train_steps):
+        t0 = time.perf_counter()
+        tr.run(1, log_every=0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        steps.append(dict(tr.history[-1], wall_s=wall,
+                          tokens_per_s=tokens_per_step / wall))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in steps), f"train_encdec: non-finite loss or "
+            f"gradient: {steps}")
+    per_step = sz.train_microbatches * (cfg.n_enc_layers + 2 * cfg.n_layers)
+    require(dev.type != "cuda" or (
+        counts["flash_attention"] == 2 * per_step * sz.whisper_train_steps
+        and counts["flash_attention_bwd"] == per_step
+        * sz.whisper_train_steps),
+        f"flash launches on the train_encdec path: {counts}")
+    _add_launches(table, "train_encdec", counts,
+                  ("flash_attention", "flash_attention_bwd"))
+    profile = _profiled(dev, lambda: tr.run(1, log_every=0), 1) \
+        if with_profile else None
+    emit("train_encdec", arch=cfg.name, layers=cfg.n_layers,
+         encoder_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+         source_frames=cfg.max_source_positions, params=n_params,
+         dtype=cfg.dtype, moment_dtype="float32", seq=seq,
+         global_batch=sz.whisper_train_batch,
+         microbatches=sz.train_microbatches, remat=True,
+         frame_embeddings="zeros (SyntheticLM)", init_seconds=init_s,
+         steps=steps, mean_tokens_per_s_after_first=(
+             sum(r["tokens_per_s"] for r in steps[1:]) / (len(steps) - 1)
+             if len(steps) > 1 else None),
+         max_memory_allocated=peak, launches=counts, parity=parity,
+         profile=profile)
+    del tr
+    _free(dev)
+
+
 # ----------------------------------------------------------- phase: train_moe
 MOE_PARITY_TOL = {"float32": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
                                "top2_flip_share": 2e-2},
@@ -3367,14 +3952,16 @@ def phase_profile(dev, sz: Sizes, cfg, params, steps: int = 4):
          **_decode_profile(dev, sz, cfg, params, steps))
 
 
-def _decode_profile(dev, sz: Sizes, cfg, params, steps: int) -> dict:
-    """One batch-1 decode step at a third of ``max_len`` (two steps
-    first, unmeasured): :func:`_profiled`, and the context it ran at."""
+def _decode_profile(dev, sz: Sizes, cfg, params, steps: int,
+                    max_len: int = 0) -> dict:
+    """One batch-1 decode step at a third of ``max_len`` (by default the
+    serve phases'; two steps first, unmeasured): :func:`_profiled`, and
+    the context it ran at."""
     import torch
     from repro_torch.models.registry import model_for
 
     model = model_for(cfg)
-    max_len = sz.pages_per_seq * cfg.kv_page_tokens
+    max_len = max_len or sz.pages_per_seq * cfg.kv_page_tokens
     cache = model.init_decode_cache(cfg, 1, max_len, device=dev)
     cache["lengths"] += max_len // 3
     tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
@@ -3392,52 +3979,64 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int) -> dict:
 # ----------------------------------------------------------------------- main
 def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     """All phases after ``device``; returns the kernel table, or None when
-    ``stop_after`` names an earlier phase (a partial run while debugging)."""
+    ``stop_after`` names an earlier phase (a partial run while debugging).
+    Emits each phase's wall seconds (``phase_seconds``) at the end."""
     cfg = _arch_config(sz, sz.arch)
-    phase_build()
+    secs: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def done(result=None):
+        emit("phase_seconds", seconds=secs, total=sum(secs.values()))
+        return result
+
+    timed("build", phase_build)
     if stop_after == "profile":            # the profile alone, full depth
         from repro_torch.models import decoder
         phase_profile(dev, sz, cfg, decoder.init_params(cfg, 0, device=dev),
                       steps=8)
         return None
-    table = phase_kernels(dev, sz, cfg)
+    table = timed("kernels", phase_kernels, dev, sz, cfg)
     if stop_after == "kernels":
-        return None
-    params, pcfg = phase_decode_parity(dev, sz, cfg)
-    phase_spill_parity(dev, sz, pcfg, params)
+        return done()
+    params, pcfg = timed("decode_parity", phase_decode_parity, dev, sz, cfg)
+    timed("spill_parity", phase_spill_parity, dev, sz, pcfg, params)
     del params
     if stop_after == "spill_parity":
-        return None
-    params, scfg = phase_serve(dev, sz, cfg, table)
+        return done()
+    params, scfg = timed("serve", phase_serve, dev, sz, cfg, table)
     if with_profile:
         phase_profile(dev, sz, scfg, params, steps=8)
     del params
     if stop_after == "serve":
-        return None
-    phase_serve_danube(dev, sz, table)
-    if stop_after == "serve_danube":
-        return None
-    phase_serve_hybrid(dev, sz, table)
-    if stop_after == "serve_hybrid":
-        return None
-    phase_serve_mla_moe(dev, sz, table)
-    if stop_after == "serve_mla_moe":
-        return None
-    phase_remote_paging(dev, sz, table)
-    if stop_after == "remote_paging":
-        return None
-    phase_train_parity(dev, sz, cfg)
-    phase_train(dev, sz, cfg, table, with_profile)
+        return done()
+    for name, fn in (("serve_danube", phase_serve_danube),
+                     ("serve_hybrid", phase_serve_hybrid),
+                     ("serve_encdec", phase_serve_encdec),
+                     ("serve_mla_moe", phase_serve_mla_moe),
+                     ("remote_paging", phase_remote_paging)):
+        timed(name, fn, dev, sz, table)
+        if stop_after == name:
+            return done()
+    timed("train_parity", phase_train_parity, dev, sz, cfg)
+    timed("train", phase_train, dev, sz, cfg, table, with_profile)
     if stop_after == "train":
-        return None
-    phase_train_mla(dev, sz, table)
+        return done()
+    timed("train_mla", phase_train_mla, dev, sz, table)
     if stop_after == "train_mla":
-        return None
-    phase_train_hybrid(dev, sz, table)
+        return done()
+    timed("train_hybrid", phase_train_hybrid, dev, sz, table)
     if stop_after == "train_hybrid":
-        return None
-    phase_train_moe(dev, sz, table, with_profile)
-    return table
+        return done()
+    timed("train_encdec", phase_train_encdec, dev, sz, table, with_profile)
+    if stop_after == "train_encdec":
+        return done()
+    timed("train_moe", phase_train_moe, dev, sz, table, with_profile)
+    return done(table)
 
 
 def main() -> int:
@@ -3457,13 +4056,14 @@ def main() -> int:
     ap.add_argument("--stop-after", default="",
                     choices=["", "profile", "kernels", "spill_parity",
                              "serve", "serve_danube", "serve_hybrid",
-                             "serve_mla_moe", "remote_paging", "train",
-                             "train_mla",
-                             "train_hybrid"],
+                             "serve_encdec", "serve_mla_moe",
+                             "remote_paging", "train", "train_mla",
+                             "train_hybrid", "train_encdec"],
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="after serve, profile a batch-1 decode step; after "
-                         "train and train_moe, one training step")
+                         "train, train_encdec and train_moe, one training "
+                         "step")
     args = ap.parse_args()
     table = run(dev, Sizes(), args.stop_after, args.profile)
     if table is None:

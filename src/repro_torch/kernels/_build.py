@@ -46,18 +46,19 @@ SIGNATURES = {
     "repro_page_scatter": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P],
     # blocks, stream
     "repro_empty_launch": [_I, _P],
-    # q, k, v, o, lse, B, S, H, KVH, D, sq_b, sq_s, sq_h, sk_b, sk_s, sk_h,
-    # causal, window, stream: f32 on the CUDA cores, bf16 on the tensor cores
+    # q, k, v, o, lse, B, Sq, Sk, H, KVH, D, sq_b, sq_s, sq_h, sk_b, sk_s,
+    # sk_h, causal, window, stream: f32 on the CUDA cores, bf16 on the
+    # tensor cores
     **dict.fromkeys(
         ("repro_flash_attention_fwd", "repro_flash_attention_tc_fwd"),
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
-         _LL, _I, _I, _P]),
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KVH, D, causal,
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
+         _LL, _LL, _I, _I, _P]),
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, D, causal,
     # window, stream
     **dict.fromkeys(
         ("repro_flash_attention_bwd", "repro_flash_attention_tc_bwd"),
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _P]),
+         _I, _P]),
 }
 
 

@@ -5,10 +5,12 @@
 // keep about three decimal digits, too few for the f32 checks).
 //
 // Replaces the TPU kernel `flash_attention_kernel` / `_kernel` of
-// src/repro/kernels/flash_attention/flash_attention.py: q (B, S, H, D)
-// attends to k, v (B, S, KVH, D), query head h reading KV head h / G, blocks
+// src/repro/kernels/flash_attention/flash_attention.py: q (B, Sq, H, D)
+// attends to k, v (B, Sk, KVH, D), query head h reading KV head h / G, blocks
 // wholly above the causal diagonal or outside the window skipped, the tail
-// masked by k_pos < S.  Same arithmetic: f32 running max / sum /
+// masked by k_pos < Sk.  Sq may differ from Sk (cross-attention) only
+// without a causal mask or a window (shapes_ok refuses the rest); the TPU
+// kernel takes one S.  Same arithmetic: f32 running max / sum /
 // accumulator, masked scores are -1e30 (finite), the result is divided by
 // max(l, 1e-30).  The reference has no backward kernel (XLA differentiates
 // its chunked scan); here the forward also writes the per-row logsumexp
@@ -79,9 +81,9 @@ __device__ __forceinline__ bool block_needed(int q0, int k0, int causal,
   return needed;
 }
 
-__device__ __forceinline__ bool pair_valid(int qp, int kp, int S, int causal,
+__device__ __forceinline__ bool pair_valid(int qp, int kp, int Sk, int causal,
                                            int window) {
-  bool ok = kp < S;
+  bool ok = kp < Sk;
   if (causal) ok = ok && qp >= kp;
   if (window > 0) ok = ok && (qp - kp) < window;
   return ok;
@@ -121,15 +123,15 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld,
 template <int D> struct Tile { static constexpr int kLD = D + 1; };
 
 // ------------------------------------------------------------------ forward
-// grid (ceil(S / kBQ), H, B).  q: (B, S, H, D) with element strides
-// (sq_b, sq_s, sq_h); k, v: (B, S, KVH, D) with (sk_b, sk_s, sk_h); o
-// contiguous (B, S, H, D); lse contiguous (B, H, S), f32.
+// grid (ceil(Sq / kBQ), H, B).  q: (B, Sq, H, D) with element strides
+// (sq_b, sq_s, sq_h); k, v: (B, Sk, KVH, D) with (sk_b, sk_s, sk_h); o
+// contiguous (B, Sq, H, D); lse contiguous (B, H, Sq), f32.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse,
-    int S, int G, long long sq_b, long long sq_s, long long sq_h,
+    int Sq, int Sk, int G, long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h, int causal, int window,
     float scale) {
   constexpr int LD = Tile<D>::kLD;
@@ -150,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const float* kbase = k + b * sk_b + kvh * sk_h;
   const float* vbase = v + b * sk_b + kvh * sk_h;
 
-  stage_rows<D, kBQ>(Qs, LD, q + b * sq_b + h * sq_h, sq_s, q0, S, scale);
+  stage_rows<D, kBQ>(Qs, LD, q + b * sq_b + h * sq_h, sq_s, q0, Sq, scale);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -161,13 +163,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  const int nk = (S + kBK - 1) / kBK;
+  const int nk = (Sk + kBK - 1) / kBK;
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBK;
     if (!block_needed(q0, k0, causal, window)) continue;
     __syncthreads();                 // the previous tile is consumed
-    stage_rows<D, kBK>(Ks, LD, kbase, sk_s, k0, S, 1.f);
-    stage_rows<D, kBK>(Vs, D, vbase, sk_s, k0, S, 1.f);
+    stage_rows<D, kBK>(Ks, LD, kbase, sk_s, k0, Sk, 1.f);
+    stage_rows<D, kBK>(Vs, D, vbase, sk_s, k0, Sk, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -194,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float mx = kNegInf;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        if (!pair_valid(qp, k0 + tc + 16 * jj, S, causal, window))
+        if (!pair_valid(qp, k0 + tc + 16 * jj, Sk, causal, window))
           s[i][jj] = kNegInf;
         mx = fmaxf(mx, s[i][jj]);
       }
@@ -232,19 +234,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * tr + i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((long long)b * S + qp) * H + h) * D;
+    float* orow = o + (((long long)b * Sq + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       orow[tc + 16 * c] = acc[i][c] / denom;
-    if (tc == 0) lse[((long long)b * H + h) * S + qp] = m[i] + logf(l[i]);
+    if (tc == 0) lse[((long long)b * H + h) * Sq + qp] = m[i] + logf(l[i]);
   }
 }
 
 // ------------------------------------------------------------ backward: D
-// One warp per (b, s, h) row of the contiguous (B, S, H, D) o and dout;
-// delta (B, H, S) = rowsum(dout * o) in f32.
+// One warp per (b, s, h) row of the contiguous (B, Sq, H, D) o and dout;
+// delta (B, H, Sq) = rowsum(dout * o) in f32.
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
     const float* __restrict__ o, const float* __restrict__ dout,
     float* __restrict__ delta, long long n_rows, int S, int H, int D) {
@@ -271,7 +273,7 @@ template <int D>
 __device__ __forceinline__ void bwd_scores(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* dl_s, float* Ps, float* dSs, int q0,
-    int k0, int S, int causal, int window) {
+    int k0, int Sq, int Sk, int causal, int window) {
   constexpr int LD = Tile<D>::kLD;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
@@ -308,7 +310,7 @@ __device__ __forceinline__ void bwd_scores(
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int kp = k0 + tc + 16 * jj;
-      const bool ok = qp < S && pair_valid(qp, kp, S, causal, window);
+      const bool ok = qp < Sq && pair_valid(qp, kp, Sk, causal, window);
       const float p = ok ? expf(s[i][jj] - lse_s[r]) : 0.f;
       if (Ps != nullptr) Ps[r * kLDP + tc + 16 * jj] = p;
       dSs[r * kLDP + tc + 16 * jj] = p * (dp[i][jj] - dl_s[r]);
@@ -328,14 +330,15 @@ __device__ __forceinline__ void stage_row_stats(
 }
 
 // ------------------------------------------------------- backward: dK, dV
-// grid (ceil(S / kBK), KVH, B).  All tensors contiguous: q, dout
-// (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse, delta (B, H, S).
+// grid (ceil(Sk / kBK), KVH, B).  All tensors contiguous: q, dout
+// (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse, delta (B, H, Sq).
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int G,
+    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+    int G,
     int causal, int window, float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
@@ -355,9 +358,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const int KVH = gridDim.y;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
-  const long long kv_off = (long long)b * S * KVH * D + (long long)kvh * D;
-  stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, S, 1.f);
-  stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, S, 1.f);
+  const long long kv_off = (long long)b * Sk * KVH * D + (long long)kvh * D;
+  stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, Sk, 1.f);
+  stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, Sk, 1.f);
 
   float dk_acc[4][kCols], dv_acc[4][kCols];     // keys 4tr+i, columns tc+16c
 #pragma unroll
@@ -365,21 +368,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 #pragma unroll
     for (int c = 0; c < kCols; ++c) { dk_acc[i][c] = 0.f; dv_acc[i][c] = 0.f; }
 
-  const int nq = (S + kBQ - 1) / kBQ;
+  const int nq = (Sq + kBQ - 1) / kBQ;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const long long q_off = (long long)b * S * H * D + (long long)h * D;
-    const long long head_off = ((long long)b * H + h) * S;
+    const long long q_off = (long long)b * Sq * H * D + (long long)h * D;
+    const long long head_off = ((long long)b * H + h) * Sq;
     for (int qi = 0; qi < nq; ++qi) {
       const int q0 = qi * kBQ;
       if (!block_needed(q0, k0, causal, window)) continue;
       __syncthreads();               // the previous q tile is consumed
-      stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, S, scale);
-      stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, S, 1.f);
-      stage_row_stats(lse_s, dl_s, lse, delta, head_off, q0, S);
+      stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, Sq, scale);
+      stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, Sq, 1.f);
+      stage_row_stats(lse_s, dl_s, lse, delta, head_off, q0, Sq);
       __syncthreads();
-      bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, q0, k0, S, causal,
-                    window);
+      bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, q0, k0, Sq, Sk,
+                    causal, window);
       __syncthreads();               // P, dS are read by key instead of by row
 #pragma unroll 2
       for (int r = 0; r < kBQ; ++r) {
@@ -406,7 +409,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + 4 * tr + i;
-    if (kp >= S) continue;
+    if (kp >= Sk) continue;
     const long long row = kv_off + (long long)kp * KVH * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -417,13 +420,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 }
 
 // ------------------------------------------------------------ backward: dQ
-// grid (ceil(S / kBQ), H, B); layouts as flash_bwd_dkdv_kernel.
+// grid (ceil(Sq / kBQ), H, B); layouts as flash_bwd_dkdv_kernel.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int S, int KVH, int G, int causal, int window,
+    float* __restrict__ dq, int Sq, int Sk, int KVH, int G, int causal,
+    int window,
     float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
@@ -443,11 +447,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int kvh = h / G;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
-  const long long q_off = (long long)b * S * H * D + (long long)h * D;
-  const long long kv_off = (long long)b * S * KVH * D + (long long)kvh * D;
-  stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, S, scale);
-  stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, S, 1.f);
-  stage_row_stats(lse_s, dl_s, lse, delta, ((long long)b * H + h) * S, q0, S);
+  const long long q_off = (long long)b * Sq * H * D + (long long)h * D;
+  const long long kv_off = (long long)b * Sk * KVH * D + (long long)kvh * D;
+  stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, Sq, scale);
+  stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, Sq, 1.f);
+  stage_row_stats(lse_s, dl_s, lse, delta, ((long long)b * H + h) * Sq, q0,
+                  Sq);
 
   float dq_acc[4][kCols];                     // rows 4tr+i, columns tc+16c
 #pragma unroll
@@ -455,15 +460,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dq_acc[i][c] = 0.f;
 
-  const int nk = (S + kBK - 1) / kBK;
+  const int nk = (Sk + kBK - 1) / kBK;
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBK;
     if (!block_needed(q0, k0, causal, window)) continue;
     __syncthreads();                 // the previous k tile is consumed
-    stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, S, 1.f);
-    stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, S, 1.f);
+    stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, Sk, 1.f);
+    stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, Sk, 1.f);
     __syncthreads();
-    bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, q0, k0, S,
+    bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, q0, k0, Sq, Sk,
                   causal, window);
     __syncwarp();                    // a row's dS is written and read by its 16 lanes
 #pragma unroll 4
@@ -484,7 +489,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * tr + i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     float* row = dq + q_off + (long long)qp * H * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -513,15 +518,15 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 template <int D>
 cudaError_t fwd_for(const float* q, const float* k, const float* v, float* o,
-                    float* lse, int B, int S, int H, int KVH,
+                    float* lse, int B, int Sq, int Sk, int H, int KVH,
                     const long long* sq, const long long* sk, int causal,
                     int window, cudaStream_t stream) {
   const int smem = fwd_smem<D>();
   cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, S, H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2],
+      q, k, v, o, lse, Sq, Sk, H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2],
       causal, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -530,32 +535,34 @@ template <int D>
 cudaError_t bwd_for(const float* q, const float* k, const float* v,
                     const float* o, const float* dout, const float* lse,
                     float* delta, float* dq, float* dk, float* dv, int B,
-                    int S, int H, int KVH, int causal, int window,
+                    int Sq, int Sk, int H, int KVH, int causal, int window,
                     cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
-  const long long n_rows = (long long)B * S * H;
+  const long long n_rows = (long long)B * Sq * H;
   const int rows_per_block = kThreads / 32;
   flash_bwd_delta_kernel<<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
-                           kThreads, 0, stream>>>(o, dout, delta, n_rows, S, H,
-                                                  D);
+                           kThreads, 0, stream>>>(o, dout, delta, n_rows, Sq,
+                                                  H, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const int smem_kv = dkdv_smem<D>();
   e = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<D><<<dim3((S + kBK - 1) / kBK, KVH, B), kThreads,
+  flash_bwd_dkdv_kernel<D><<<dim3((Sk + kBK - 1) / kBK, KVH, B), kThreads,
                              smem_kv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, H, H / KVH, causal, window, scale);
+      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, H / KVH, causal, window,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const int smem_q = dq_smem<D>();
   e = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads,
+  flash_bwd_dq_kernel<D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads,
                            smem_q, stream>>>(
-      q, k, v, dout, lse, delta, dq, S, KVH, H / KVH, causal, window, scale);
+      q, k, v, dout, lse, delta, dq, Sq, Sk, KVH, H / KVH, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
@@ -564,24 +571,27 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
 #define REPRO_FOR_EACH_HEAD_DIM(X) \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(192)
 
-bool shapes_ok(int B, int S, int H, int KVH) {
-  return B > 0 && B <= 65535 && S > 0 && H > 0 && H <= 65535 && KVH > 0
-         && H % KVH == 0;
+// Sq != Sk only without a causal mask or a window (see the header)
+bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window) {
+  return B > 0 && B <= 65535 && Sq > 0 && Sk > 0 && H > 0 && H <= 65535
+         && KVH > 0 && H % KVH == 0
+         && (Sq == Sk || (!causal && window <= 0));
 }
 
 }  // namespace
 
-// float32 only.  q (B, S, H, D) and k, v (B, S, KVH, D) are read through
+// float32 only.  q (B, Sq, H, D) and k, v (B, Sk, KVH, D) are read through
 // their element strides (batch, seq, head; unit stride over D, 16-byte
-// aligned rows); o (B, S, H, D) and lse (B, H, S) are contiguous.  Returns
+// aligned rows); o (B, Sq, H, D) and lse (B, H, Sq) are contiguous.  Returns
 // the cudaError_t of the launch (0 on success); nothing is synchronised.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int B, int S, int H, int KVH, int D,
+    int B, int Sq, int Sk, int H, int KVH, int D,
     long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h,
     int causal, int window, void* stream) {
-  if (!shapes_ok(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    return (int)cudaErrorInvalidValue;
   const long long sq[3] = {sq_b, sq_s, sq_h};
   const long long sk[3] = {sk_b, sk_s, sk_h};
   cudaStream_t s = (cudaStream_t)stream;
@@ -589,7 +599,8 @@ extern "C" int repro_flash_attention_fwd(
 #define REPRO_CASE(DD) \
     case DD: return (int)fwd_for<DD>((const float*)q, (const float*)k, \
                                      (const float*)v, (float*)o, (float*)lse, \
-                                     B, S, H, KVH, sq, sk, causal, window, s);
+                                     B, Sq, Sk, H, KVH, sq, sk, causal, window, \
+                                     s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -597,22 +608,23 @@ extern "C" int repro_flash_attention_fwd(
 }
 
 // Gradients of repro_flash_attention_fwd, float32.  Every tensor
-// contiguous: q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse
-// (the forward's) and delta (scratch) (B, H, S).  Three launches on
+// contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D);
+// lse (the forward's) and delta (scratch) (B, H, Sq).  Three launches on
 // `stream`.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int S, int H, int KVH, int D, int causal, int window,
-    void* stream) {
-  if (!shapes_ok(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
+    void* dv, int B, int Sq, int Sk, int H, int KVH, int D, int causal,
+    int window, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
 #define REPRO_CASE(DD) \
     case DD: return (int)bwd_for<DD>( \
         (const float*)q, (const float*)k, (const float*)v, (const float*)o, \
         (const float*)dout, (const float*)lse, (float*)delta, (float*)dq, \
-        (float*)dk, (float*)dv, B, S, H, KVH, causal, window, s);
+        (float*)dk, (float*)dv, B, Sq, Sk, H, KVH, causal, window, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;

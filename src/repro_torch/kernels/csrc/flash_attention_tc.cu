@@ -4,13 +4,18 @@
 // cores).
 //
 // Replaces the TPU kernel `flash_attention_kernel` / `_kernel` of
-// src/repro/kernels/flash_attention/flash_attention.py: q (B, S, H, D)
-// attends to k, v (B, S, KVH, D), query head h reading KV head h / G, tiles
+// src/repro/kernels/flash_attention/flash_attention.py: q (B, Sq, H, D)
+// attends to k, v (B, Sk, KVH, D), query head h reading KV head h / G, tiles
 // wholly above the causal diagonal or outside the window skipped by the TPU
 // kernel's block predicate (here for the forward's 128 x 128, dQ's 128 x 64
-// and dK/dV's 64 x 128 (q x k) tiles), the tail masked by k_pos < S.  Same arithmetic: f32 running max / sum /
+// and dK/dV's 64 x 128 (q x k) tiles), the tails masked by q_pos < Sq and
+// k_pos < Sk.  Same arithmetic: f32 running max / sum /
 // accumulator, masked scores are -1e30 (finite), the result is divided by
-// max(l, 1e-30); the forward also writes the per-row logsumexp (B, H, S).
+// max(l, 1e-30); the forward also writes the per-row logsumexp (B, H, Sq).
+// The TPU kernel takes one S; here Sq may differ from Sk (cross-attention:
+// 448 or 1 decoder rows over 1,500 encoder frames), and only without a
+// causal mask or a window (shapes_ok refuses the rest), so every query row
+// sees all Sk keys.  Sq = Sk runs exactly as before.
 // The reference has no backward kernel (XLA differentiates its chunked
 // scan); here two kernels compute the gradients from the logsumexp:
 //   flash_tc_bwd_dq    one block per (b, h, 128-row q tile): first
@@ -302,9 +307,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
   }
 }
 
-__device__ __forceinline__ bool pair_valid(int qp, int kp, int S, int causal,
-                                           int window) {
-  bool ok = qp < S && kp < S;
+__device__ __forceinline__ bool pair_valid(int qp, int kp, int Sq, int Sk,
+                                           int causal, int window) {
+  bool ok = qp < Sq && kp < Sk;
   if (causal) ok = ok && qp >= kp;
   if (window > 0) ok = ok && (qp - kp) < window;
   return ok;
@@ -312,20 +317,21 @@ __device__ __forceinline__ bool pair_valid(int qp, int kp, int S, int causal,
 
 // every (q, k) pair of the tiles [q0, q0 + bq) x [k0, k0 + bk) is valid
 __device__ __forceinline__ bool tile_full(int q0, int bq, int k0, int bk,
-                                          int S, int causal, int window) {
-  bool full = q0 + bq <= S && k0 + bk <= S;
+                                          int Sq, int Sk, int causal,
+                                          int window) {
+  bool full = q0 + bq <= Sq && k0 + bk <= Sk;
   if (causal) full = full && k0 + bk - 1 <= q0;
   if (window > 0) full = full && (q0 + bq - 1) - k0 < window;
   return full;
 }
 
 // The k tiles [lo, hi) of size bk that the TPU kernel's block predicate
-// keeps for the q tile [q0, q0 + bq).
-__device__ __forceinline__ void k_range(int q0, int bq, int bk, int S,
+// keeps for the q tile [q0, q0 + bq), over Sk keys.
+__device__ __forceinline__ void k_range(int q0, int bq, int bk, int Sk,
                                         int causal, int window, int& lo,
                                         int& hi) {
   lo = 0;
-  hi = (S + bk - 1) / bk;
+  hi = (Sk + bk - 1) / bk;
   if (causal) hi = min(hi, (q0 + bq - 1) / bk + 1);      // k0 <= q0 + bq - 1
   if (window > 0) {                          // q0 - (k0 + bk - 1) < window
     const int kmin = q0 - window - bk + 2;
@@ -334,15 +340,15 @@ __device__ __forceinline__ void k_range(int q0, int bq, int bk, int S,
 }
 
 // ------------------------------------------------------------------ forward
-// grid (H, B, ceil(S / kFwdBQ)), q tile reversed.  q (B, S, H, D) with
-// element strides (sq_b, sq_s, sq_h); k, v (B, S, KVH, D) with (sk_b, sk_s,
-// sk_h); o contiguous (B, S, H, D); lse contiguous (B, H, S), f32.  Warp w
+// grid (H, B, ceil(Sq / kFwdBQ)), q tile reversed.  q (B, Sq, H, D) with
+// element strides (sq_b, sq_s, sq_h); k, v (B, Sk, KVH, D) with (sk_b, sk_s,
+// sk_h); o contiguous (B, Sq, H, D); lse contiguous (B, H, Sq), f32.  Warp w
 // owns rows [16 kFwdM w, 16 kFwdM (w + 1)) of the q tile.
 template <int D>
 __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
-    float* __restrict__ lse, int S, int G, long long sq_b, long long sq_s,
+    float* __restrict__ lse, int Sq, int Sk, int G, long long sq_b, long long sq_s,
     long long sq_h, long long sk_b, long long sk_s, long long sk_h,
     int causal, int window, float scale_log2) {
   constexpr int LD = Smem<D>::kLD;
@@ -364,11 +370,11 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
   const bf16* vb = v + b * sk_b + kvh * sk_h;
 
   int j_lo, j_hi;
-  k_range(q0, kBQ, kBK, S, causal, window, j_lo, j_hi);
-  load_tile<D, kBQ, kNT>(Qs, q + b * sq_b + h * sq_h, sq_s, q0, S);
+  k_range(q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
+  load_tile<D, kBQ, kNT>(Qs, q + b * sq_b + h * sq_h, sq_s, q0, Sq);
   if (j_lo < j_hi) {
-    load_tile<D, kBK, kNT>(Ks, kb, sk_s, j_lo * kBK, S);
-    load_tile<D, kBK, kNT>(Vs, vb, sk_s, j_lo * kBK, S);
+    load_tile<D, kBK, kNT>(Ks, kb, sk_s, j_lo * kBK, Sk);
+    load_tile<D, kBK, kNT>(Vs, vb, sk_s, j_lo * kBK, Sk);
   }
   cp_async_commit();
 
@@ -387,9 +393,9 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
     __syncthreads();           // tile j is in; tile j - 1's stage is free
     if (j + 1 < j_hi) {
       load_tile<D, kBK, kNT>(Ks + (st ^ 1) * kBK * LD, kb, sk_s,
-                             (j + 1) * kBK, S);
+                             (j + 1) * kBK, Sk);
       load_tile<D, kBK, kNT>(Vs + (st ^ 1) * kBK * LD, vb, sk_s,
-                             (j + 1) * kBK, S);
+                             (j + 1) * kBK, Sk);
     }
     cp_async_commit();
     const bf16* Kt = Ks + st * kBK * LD;
@@ -400,7 +406,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
     zero(s);
     mma_abt<D, kM, kBK>(s, Qs, r0, Kt, lane);
 
-    const bool full = tile_full(q0, kBQ, k0, kBK, S, causal, window);
+    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window);
 #pragma unroll
     for (int mi = 0; mi < kM; ++mi) {
 #pragma unroll
@@ -409,8 +415,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
         for (int e = 0; e < 4; ++e) {
           float x = s[mi][i][e] * scale_log2;
           if (!full && !pair_valid(q0 + r0 + 16 * mi + gq + 8 * (e >> 1),
-                                   k0 + 8 * i + 2 * tq + (e & 1), S, causal,
-                                   window))
+                                   k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
+                                   causal, window))
             x = kNegInf;
           s[mi][i][e] = x;
         }
@@ -453,28 +459,28 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       const int qp = q0 + r0 + 16 * mi + gq + 8 * hf;
-      if (qp >= S) continue;
+      if (qp >= Sq) continue;
       const float denom = fmaxf(lr, 1e-30f);
-      bf16* orow = o + (((long long)b * S + qp) * H + h) * D + 2 * tq;
+      bf16* orow = o + (((long long)b * Sq + qp) * H + h) * D + 2 * tq;
 #pragma unroll
       for (int i = 0; i < kND; ++i)
         *reinterpret_cast<uint32_t*>(orow + 8 * i) = pack_bf16(
             acc[mi][i][2 * hf] / denom, acc[mi][i][2 * hf + 1] / denom);
       if (tq == 0)
-        lse[((long long)b * H + h) * S + qp] = (m[mi][hf] + log2f(lr)) * kLn2;
+        lse[((long long)b * H + h) * Sq + qp] = (m[mi][hf] + log2f(lr)) * kLn2;
     }
 }
 
 // ------------------------------------------------------------ backward: dQ
-// grid (H, B, ceil(S / 128)), q tile reversed.  Every tensor contiguous:
-// q, o, dout, dq (B, S, H, D); k, v (B, S, KVH, D); lse, delta (B, H, S).
+// grid (H, B, ceil(Sq / 128)), q tile reversed.  Every tensor contiguous:
+// q, o, dout, dq (B, Sq, H, D); k, v (B, Sk, KVH, D); lse, delta (B, H, Sq).
 // Writes delta = rowsum(dout * o) of its rows for flash_tc_bwd_dkdv.
 template <int D>
 __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ o,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, bf16* __restrict__ dq, int S, int KVH,
+    float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int KVH,
     int G, int causal, int window, float scale_log2, float scale) {
   constexpr int LD = Smem<D>::kLD;
   constexpr int kBQ = kDqBQ, kBK = KeyTile<D>::kDq;
@@ -491,17 +497,17 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int r0 = warp * kRowsPerWarp;
-  const long long q_off = (long long)b * S * H * D + (long long)h * D;
-  const long long kv_off = (long long)b * S * KVH * D + (long long)kvh * D;
+  const long long q_off = (long long)b * Sq * H * D + (long long)h * D;
+  const long long kv_off = (long long)b * Sk * KVH * D + (long long)kvh * D;
   const long long sq = (long long)H * D, sk = (long long)KVH * D;
 
   int j_lo, j_hi;
-  k_range(q0, kBQ, kBK, S, causal, window, j_lo, j_hi);
-  load_tile<D, kBQ>(Qs, q + q_off, sq, q0, S);
-  load_tile<D, kBQ>(dOs, dout + q_off, sq, q0, S);
+  k_range(q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
+  load_tile<D, kBQ>(Qs, q + q_off, sq, q0, Sq);
+  load_tile<D, kBQ>(dOs, dout + q_off, sq, q0, Sq);
   if (j_lo < j_hi) {
-    load_tile<D, kBK>(Ks, k + kv_off, sk, j_lo * kBK, S);
-    load_tile<D, kBK>(Vs, v + kv_off, sk, j_lo * kBK, S);
+    load_tile<D, kBK>(Ks, k + kv_off, sk, j_lo * kBK, Sk);
+    load_tile<D, kBK>(Vs, v + kv_off, sk, j_lo * kBK, Sk);
   }
   cp_async_commit();
 
@@ -511,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     const int r = lane >> 1, half = lane & 1;
     const int qp = q0 + r0 + r;
     float sum = 0.f;
-    if (qp < S) {
+    if (qp < Sq) {
       const bf16* orow = o + q_off + (long long)qp * sq;
       const bf16* drow = dout + q_off + (long long)qp * sq;
       for (int ch = half; ch < D / 8; ch += 2) {
@@ -528,12 +534,12 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0 && qp < S) delta[((long long)b * H + h) * S + qp] = sum;
+    if (half == 0 && qp < Sq) delta[((long long)b * H + h) * Sq + qp] = sum;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       dl[hf] = __shfl_sync(0xffffffffu, sum, 2 * (gq + 8 * hf));
       const int qr = q0 + r0 + gq + 8 * hf;
-      ls[hf] = qr < S ? lse[((long long)b * H + h) * S + qr] * kLog2e : 0.f;
+      ls[hf] = qr < Sq ? lse[((long long)b * H + h) * Sq + qr] * kLog2e : 0.f;
     }
   }
 
@@ -545,8 +551,8 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     cp_async_wait_all();
     __syncthreads();
     if (j + 1 < j_hi) {
-      load_tile<D, kBK>(Ks + (st ^ 1) * kBK * LD, k + kv_off, sk, (j + 1) * kBK, S);
-      load_tile<D, kBK>(Vs + (st ^ 1) * kBK * LD, v + kv_off, sk, (j + 1) * kBK, S);
+      load_tile<D, kBK>(Ks + (st ^ 1) * kBK * LD, k + kv_off, sk, (j + 1) * kBK, Sk);
+      load_tile<D, kBK>(Vs + (st ^ 1) * kBK * LD, v + kv_off, sk, (j + 1) * kBK, Sk);
     }
     cp_async_commit();
     const bf16* Kt = Ks + st * kBK * LD;
@@ -559,7 +565,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     mma_abt<D, 1, kBK>(s, Qs, r0, Kt, lane);
     mma_abt<D, 1, kBK>(dp, dOs, r0, Vt, lane);
 
-    const bool full = tile_full(q0, kBQ, k0, kBK, S, causal, window);
+    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window);
 #pragma unroll
     for (int i = 0; i < kNK; ++i)
 #pragma unroll
@@ -567,8 +573,8 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
         const int hf = e >> 1;
         float p = exp2_approx(s[0][i][e] * scale_log2 - ls[hf]);
         if (!full && !pair_valid(q0 + r0 + gq + 8 * hf,
-                                 k0 + 8 * i + 2 * tq + (e & 1), S, causal,
-                                 window))
+                                 k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
+                                 causal, window))
           p = 0.f;
         dp[0][i][e] = p * (dp[0][i][e] - dl[hf]);    // dS / scale
       }
@@ -578,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qp = q0 + r0 + gq + 8 * hf;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     bf16* row = dq + q_off + (long long)qp * sq + 2 * tq;
 #pragma unroll
     for (int i = 0; i < kND; ++i)
@@ -588,7 +594,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
 }
 
 // ------------------------------------------------------- backward: dK, dV
-// grid (KVH, B, ceil(S / 128)), k tile in order (the earliest keys are seen
+// grid (KVH, B, ceil(Sk / 128)), k tile in order (the earliest keys are seen
 // by the most q tiles).  Layouts as flash_tc_bwd_dq; delta is its output.
 // Each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so P^T
 // and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q.
@@ -599,7 +605,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int G,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H, int G,
     int causal, int window, float scale_log2, float scale) {
   constexpr int LD = Smem<D>::kLD;
   constexpr int kBK = kKvBK, kBQ = kKvBQ;
@@ -618,25 +624,25 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
   const int gq = lane >> 2, tq = lane & 3;
   const int r0 = warp * kRowsPerWarp;
   const long long sq = (long long)H * D, sk = (long long)KVH * D;
-  const long long kv_off = (long long)b * S * sk + (long long)kvh * D;
+  const long long kv_off = (long long)b * Sk * sk + (long long)kvh * D;
 
   // the q tiles [i_lo, i_hi) that see this k tile, for each of the G heads
-  const int nq = (S + kBQ - 1) / kBQ;
+  const int nq = (Sq + kBQ - 1) / kBQ;
   const int i_lo = causal ? k0 / kBQ : 0;
   const int i_hi = window > 0 ? min(nq, (window + k0 + kBK - 2) / kBQ + 1) : nq;
   const int n_i = max(0, i_hi - i_lo);
   const int n_it = G * n_i;
 
   constexpr bool kDv = kPass != kDkPass, kDk = kPass != kDvPass;
-  load_tile<D, kBK>(Ks, k + kv_off, sk, k0, S);
-  if (kDk) load_tile<D, kBK>(Vs, v + kv_off, sk, k0, S);
+  load_tile<D, kBK>(Ks, k + kv_off, sk, k0, Sk);
+  if (kDk) load_tile<D, kBK>(Vs, v + kv_off, sk, k0, Sk);
   // iteration `it`: head kvh * G + it / n_i, q tile i_lo + it % n_i
   auto load_q_tile = [&](int it, int stage) {
     const int gg = it / n_i;
     const int qs = (i_lo + it - gg * n_i) * kBQ;
-    const long long q_off = (long long)b * S * sq + (long long)(kvh * G + gg) * D;
-    load_tile<D, kBQ>(Qs + stage * kBQ * LD, q + q_off, sq, qs, S);
-    load_tile<D, kBQ>(dOs + stage * kBQ * LD, dout + q_off, sq, qs, S);
+    const long long q_off = (long long)b * Sq * sq + (long long)(kvh * G + gg) * D;
+    load_tile<D, kBQ>(Qs + stage * kBQ * LD, q + q_off, sq, qs, Sq);
+    load_tile<D, kBQ>(dOs + stage * kBQ * LD, dout + q_off, sq, qs, Sq);
   };
   // threads [0, kBQ) fetch lse * log2(e), [kBQ, 2 kBQ) delta of a q tile
   auto fetch_stat = [&](int it) -> float {
@@ -644,8 +650,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     if (t >= 2 * kBQ) return 0.f;
     const int gg = it / n_i;
     const int qp = (i_lo + it - gg * n_i) * kBQ + (t % kBQ);
-    if (qp >= S) return 0.f;
-    const long long idx = ((long long)b * H + kvh * G + gg) * S + qp;
+    if (qp >= Sq) return 0.f;
+    const long long idx = ((long long)b * H + kvh * G + gg) * Sq + qp;
     return t < kBQ ? lse[idx] * kLog2e : delta[idx];
   };
   auto store_stat = [&](int stage, float x) {
@@ -688,7 +694,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     float s[1][kNQ][4];
     zero(s);
     mma_abt<D, 1, kBQ>(s, Ks, r0, Qt, lane);
-    const bool full = tile_full(q0, kBQ, k0, kBK, S, causal, window);
+    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window);
 #pragma unroll
     for (int i = 0; i < kNQ; ++i) {
       const float2 lq = *reinterpret_cast<const float2*>(Lt + 8 * i + 2 * tq);
@@ -697,8 +703,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
         const int c = e & 1;
         float p = exp2_approx(s[0][i][e] * scale_log2 - (c ? lq.y : lq.x));
         if (!full && !pair_valid(q0 + 8 * i + 2 * tq + c,
-                                 k0 + r0 + gq + 8 * (e >> 1), S, causal,
-                                 window))
+                                 k0 + r0 + gq + 8 * (e >> 1), Sq, Sk,
+                                 causal, window))
           p = 0.f;
         s[0][i][e] = p;
       }
@@ -729,7 +735,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int kp = k0 + r0 + gq + 8 * hf;
-    if (kp >= S) continue;
+    if (kp >= Sk) continue;
     const long long off = kv_off + (long long)kp * sk + 2 * tq;
 #pragma unroll
     for (int i = 0; i < kND; ++i) {
@@ -765,15 +771,15 @@ float scale_log2_of(int D) { return kLog2e / sqrtf((float)D); }
 
 template <int D>
 cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int S, int H, int KVH,
+                    float* lse, int B, int Sq, int Sk, int H, int KVH,
                     const long long* sq, const long long* sk, int causal,
                     int window, cudaStream_t stream) {
   const int smem = fwd_smem<D>();
   cudaError_t e = allow_smem(flash_tc_fwd<D>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(H, B, (S + kFwdBQ - 1) / kFwdBQ);
+  const dim3 grid(H, B, (Sq + kFwdBQ - 1) / kFwdBQ);
   flash_tc_fwd<D><<<grid, kFwdWarps * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, S,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, Sq, Sk,
       H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], causal, window,
       scale_log2_of(D));
   return cudaGetLastError();
@@ -782,15 +788,15 @@ cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
 template <int D, int kPass>
 cudaError_t dkdv_for(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
-                     void* dk, void* dv, int B, int S, int H, int KVH,
-                     int causal, int window, cudaStream_t stream) {
+                     void* dk, void* dv, int B, int Sq, int Sk, int H,
+                     int KVH, int causal, int window, cudaStream_t stream) {
   const int smem_kv = dkdv_smem<D>();
   cudaError_t e = allow_smem(flash_tc_bwd_dkdv<D, kPass>, smem_kv);
   if (e != cudaSuccess) return e;
-  flash_tc_bwd_dkdv<D, kPass><<<dim3(KVH, B, (S + kKvBK - 1) / kKvBK),
+  flash_tc_bwd_dkdv<D, kPass><<<dim3(KVH, B, (Sk + kKvBK - 1) / kKvBK),
                                 kThreads, smem_kv, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, S, H, H / KVH, causal, window,
+      delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H, H / KVH, causal, window,
       scale_log2_of(D), 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -798,35 +804,39 @@ cudaError_t dkdv_for(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t bwd_for(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
-                    float* delta, void* dq, void* dk, void* dv, int B, int S,
-                    int H, int KVH, int causal, int window,
+                    float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                    int Sk, int H, int KVH, int causal, int window,
                     cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   const int smem_q = dq_smem<D>();
   cudaError_t e = allow_smem(flash_tc_bwd_dq<D>, smem_q);
   if (e != cudaSuccess) return e;
-  flash_tc_bwd_dq<D><<<dim3(H, B, (S + kDqBQ - 1) / kDqBQ), kThreads,
+  flash_tc_bwd_dq<D><<<dim3(H, B, (Sq + kDqBQ - 1) / kDqBQ), kThreads,
                        smem_q, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-      (const bf16*)dout, lse, delta, (bf16*)dq, S, KVH, H / KVH, causal,
+      (const bf16*)dout, lse, delta, (bf16*)dq, Sq, Sk, KVH, H / KVH, causal,
       window, scale_log2_of(D), scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   if constexpr (D > kWideD) {     // two passes (see the header)
-    e = dkdv_for<D, kDvPass>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KVH,
-                             causal, window, stream);
+    e = dkdv_for<D, kDvPass>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
+                             H, KVH, causal, window, stream);
     if (e != cudaSuccess) return e;
-    return dkdv_for<D, kDkPass>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                                KVH, causal, window, stream);
+    return dkdv_for<D, kDkPass>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
+                                H, KVH, causal, window, stream);
   } else {
-    return dkdv_for<D, kBothPass>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                  H, KVH, causal, window, stream);
+    return dkdv_for<D, kBothPass>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                  Sk, H, KVH, causal, window, stream);
   }
 }
 
-bool shapes_ok(int B, int S, int H, int KVH) {
-  return B > 0 && B <= 65535 && S > 0 && (S + kFwdBQ - 1) / kFwdBQ <= 65535
+// Sq != Sk only without a causal mask or a window (see the header)
+bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window) {
+  return B > 0 && B <= 65535 && Sq > 0 && Sk > 0
+         && (Sq + kFwdBQ - 1) / kFwdBQ <= 65535
+         && (Sk + kKvBK - 1) / kKvBK <= 65535
+         && (Sq == Sk || (!causal && window <= 0))
          && H > 0 && KVH > 0 && H % KVH == 0;
 }
 
@@ -835,24 +845,26 @@ bool shapes_ok(int B, int S, int H, int KVH) {
 
 }  // namespace
 
-// bf16 only.  q (B, S, H, D) and k, v (B, S, KVH, D) are read through their
-// element strides (batch, seq, head; unit stride over D, 16-byte aligned
-// rows); o (B, S, H, D) and lse (B, H, S, f32) are contiguous.  Returns the
-// cudaError_t of the launch (0 on success); nothing is synchronised.
+// bf16 only.  q (B, Sq, H, D) and k, v (B, Sk, KVH, D) are read through
+// their element strides (batch, seq, head; unit stride over D, 16-byte
+// aligned rows); o (B, Sq, H, D) and lse (B, H, Sq, f32) are contiguous.
+// Returns the cudaError_t of the launch (0 on success); nothing is
+// synchronised.
 extern "C" int repro_flash_attention_tc_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int B, int S, int H, int KVH, int D,
+    int B, int Sq, int Sk, int H, int KVH, int D,
     long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h,
     int causal, int window, void* stream) {
-  if (!shapes_ok(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    return (int)cudaErrorInvalidValue;
   const long long sq[3] = {sq_b, sq_s, sq_h};
   const long long sk[3] = {sk_b, sk_s, sk_h};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
 #define REPRO_CASE(DD) \
-    case DD: return (int)fwd_for<DD>(q, k, v, o, (float*)lse, B, S, H, KVH, \
-                                     sq, sk, causal, window, s);
+    case DD: return (int)fwd_for<DD>(q, k, v, o, (float*)lse, B, Sq, Sk, H, \
+                                     KVH, sq, sk, causal, window, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -860,21 +872,22 @@ extern "C" int repro_flash_attention_tc_fwd(
 }
 
 // Gradients of repro_flash_attention_tc_fwd, bf16.  Every tensor
-// contiguous: q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse
-// (the forward's) and delta (scratch) (B, H, S) f32.  Two launches on
+// contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D);
+// lse (the forward's) and delta (scratch) (B, H, Sq) f32.  Two launches on
 // `stream`: dQ (which also writes delta), then dK/dV.
 extern "C" int repro_flash_attention_tc_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int S, int H, int KVH, int D, int causal, int window,
-    void* stream) {
-  if (!shapes_ok(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
+    void* dv, int B, int Sq, int Sk, int H, int KVH, int D, int causal,
+    int window, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
 #define REPRO_CASE(DD) \
     case DD: return (int)bwd_for<DD>(q, k, v, o, dout, (const float*)lse, \
-                                     (float*)delta, dq, dk, dv, B, S, H, KVH, \
-                                     causal, window, s);
+                                     (float*)delta, dq, dk, dv, B, Sq, Sk, H, \
+                                     KVH, causal, window, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;

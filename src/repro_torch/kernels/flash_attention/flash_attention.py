@@ -1,12 +1,15 @@
 """Binding of the CUDA flash-attention kernels.
 
-Counterpart of the reference's Pallas ``flash_attention_kernel``, with two
-differences.  Layout: the kernels take the **model layout** ``(B, S, H, D)``
-/ ``(B, S, KVH, D)`` directly, so the reference wrapper's three transposes
+Counterpart of the reference's Pallas ``flash_attention_kernel``, with three
+differences.  Layout: the kernels take the **model layout** ``(B, Sq, H, D)``
+/ ``(B, Sk, KVH, D)`` directly, so the reference wrapper's three transposes
 are gone.  Gradient: the forward also returns the per-row logsumexp
-``lse (B, H, S)`` (f32), from which :func:`flash_attention_bwd` computes
+``lse (B, H, Sq)`` (f32), from which :func:`flash_attention_bwd` computes
 dq, dk, dv with hand-written kernels; the reference differentiates its
-chunked scan with XLA instead.
+chunked scan with XLA instead.  Shape: the Pallas kernel takes one S; these
+take Sq query rows over Sk keys, Sq != Sk without a causal mask or a window
+only (:func:`check_shapes`) — the cross-attention of the encoder-decoder
+family, whose plain version (``flash_attention_xla``) takes the same.
 
 Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
 training path's dtype) runs on the tensor cores (``csrc/
@@ -60,22 +63,36 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention_kernel: {msg}")
 
 
-def _check(q, k, v):
+def check_shapes(q_shape, k_shape, v_shape, causal: bool, window: int):
+    """(B, Sq, Sk, H, KVH, D) of q (B, Sq, H, D) over k, v (B, Sk, KVH, D),
+    from shapes alone.  Raises ``ValueError`` for a mismatch, and for
+    Sq != Sk with ``causal`` or a window: the kernels serve Sq != Sk
+    non-causal and unwindowed only (the reference's one use of it)."""
+    _require(len(q_shape) == 4 and len(k_shape) == 4
+             and tuple(v_shape) == tuple(k_shape),
+             "expected q (B,Sq,H,D), k and v (B,Sk,KVH,D)")
+    B, Sq, H, D = q_shape
+    Sk, KVH = k_shape[1], k_shape[2]
+    _require(k_shape[0] == B and k_shape[3] == D,
+             f"k {tuple(k_shape)} does not match q {tuple(q_shape)}")
+    _require(Sq > 0 and Sk > 0, "empty sequence")
+    _require(Sq == Sk or (not causal and window <= 0),
+             f"Sq {Sq} != Sk {Sk} needs causal=False and no window "
+             f"(causal={bool(causal)}, window={window})")
+    _require(H % KVH == 0, f"{H} query heads not a multiple of {KVH} KV heads")
+    _require(B <= 65535 and H <= 65535, "batch or heads above 65535")
+    return B, Sq, Sk, H, KVH, D
+
+
+def _check(q, k, v, causal: bool, window: int):
     _require(q.is_cuda, "q must be a CUDA tensor")
     for name, t in (("k", k), ("v", v)):
         _require(t.device == q.device, f"{name} is on {t.device}, q on "
                  f"{q.device}")
     _require(k.dtype == q.dtype and v.dtype == q.dtype,
              "q, k and v must share one dtype")
-    _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
-             "expected q (B,S,H,D), k and v (B,S,KVH,D)")
-    B, S, H, D = q.shape
-    _require(k.shape[0] == B and k.shape[1] == S and k.shape[3] == D,
-             f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    KVH = k.shape[2]
-    _require(H % KVH == 0, f"{H} query heads not a multiple of {KVH} KV heads")
-    _require(B <= 65535 and H <= 65535, "batch or heads above 65535")
-    return B, S, H, KVH, D, route(q.dtype, D)
+    shapes = check_shapes(q.shape, k.shape, v.shape, causal, window)
+    return shapes + (route(q.dtype, shapes[-1]),)
 
 
 def _rows_aligned(t) -> bool:
@@ -86,9 +103,10 @@ def _rows_aligned(t) -> bool:
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, D); k, v: (B, S, KVH, D).  Returns ``(o, lse)``: o
-    (B, S, H, D) in q's dtype, contiguous; lse (B, H, S) f32, the
-    logsumexp of each row's scaled, masked scores.
+    """q: (B, Sq, H, D); k, v: (B, Sk, KVH, D).  Returns ``(o, lse)``: o
+    (B, Sq, H, D) in q's dtype, contiguous; lse (B, H, Sq) f32, the
+    logsumexp of each row's scaled, masked scores.  Sq != Sk only with
+    ``causal=False`` and no window (:func:`check_shapes`).
 
     q, k and v are read through their strides as they lie when each has
     unit stride over D and 16-byte aligned rows (what the model path gives:
@@ -96,17 +114,17 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     not is copied once to a contiguous tensor.  k and v must then share
     strides.  Launches on the current stream and does not synchronise.
     """
-    B, S, H, KVH, D, r = _check(q, k, v)
+    B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window)
     q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
     if v.stride() != k.stride():
         k, v = k.contiguous(), v.contiguous()
-    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = getattr(lib, r.fwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, H, KVH, D, *q.stride()[:3],
+            lse.data_ptr(), B, Sq, Sk, H, KVH, D, *q.stride()[:3],
             *k.stride()[:3], int(bool(causal)), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention")
@@ -117,19 +135,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
                         window: int = 0):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the
-    output gradient ``dout`` (B, S, H, D), from the forward's ``o`` and
+    output gradient ``dout`` (B, Sq, H, D), from the forward's ``o`` and
     ``lse``.  Every operand is made contiguous (a no-op on the model path);
     the results are contiguous, in q's dtype.  On the current stream, no
     atomics: bf16 two launches (dQ, which also forms rowsum(dout * o), then
     dK/dV), f32 three (the row sums, dK/dV, dQ)."""
-    B, S, H, KVH, D, r = _check(q, k, v)
+    B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window)
     _require(o.shape == q.shape and dout.shape == q.shape
-             and lse.shape == (B, H, S), "o, dout or lse shape")
+             and lse.shape == (B, H, Sq), "o, dout or lse shape")
     _require(o.dtype == q.dtype and lse.dtype == torch.float32,
              "o must have q's dtype and lse float32")
     dout = dout.to(q.dtype)
     q, k, v, o, lse, dout = (t.contiguous() for t in (q, k, v, o, lse, dout))
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -138,7 +156,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
         code = getattr(lib, r.bwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, H, KVH, D,
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D,
             int(bool(causal)), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention_bwd")

@@ -1,6 +1,9 @@
 """Model-layout wrapper for training / prefill attention.
 
-    q (B, S, H, D);  k, v (B, S, KVH, D)  ->  (B, S, H, D)
+    q (B, Sq, H, D);  k, v (B, Sk, KVH, D)  ->  (B, Sq, H, D)
+
+Sq != Sk (cross-attention) goes to the kernels with ``causal=False`` and
+no window only; they raise ``ValueError`` for the rest.
 
 A CUDA tensor goes to the hand-written kernels through
 :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward

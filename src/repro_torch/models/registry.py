@@ -5,13 +5,16 @@
     loss_fn(params, cfg, tokens, labels)                -> scalar
     init_decode_cache(cfg, batch, max_len, device=None) -> cache dict
     decode_step(params, cfg, cache, tokens)             -> (logits, cache)
+
+The encoder-decoder family's ``forward`` / ``loss_fn`` also take
+``frame_embeddings`` (zeros when absent, as in the reference).
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.models import decoder, hybrid
+from repro_torch.models import decoder, encdec, hybrid
 from repro_torch.models.config import ModelConfig
 
 _DECODER = SimpleNamespace(
@@ -33,9 +36,16 @@ _FAMILIES = {
         init_decode_cache=hybrid.init_decode_cache,
         decode_step=hybrid.decode_step,
     ),
+    "encdec": SimpleNamespace(
+        init_params=encdec.init_params,
+        forward=encdec.forward,
+        loss_fn=encdec.loss_fn,
+        init_decode_cache=encdec.init_decode_cache,
+        decode_step=encdec.decode_step,
+    ),
 }
 
-NOT_PORTED = ("xlstm", "encdec")
+NOT_PORTED = ("xlstm",)
 
 
 def model_for(cfg: ModelConfig):

@@ -22,7 +22,10 @@ from repro.kernels.flash_attention.ops import \
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_flash_ref
 from repro.models.attention_ops import flash_attention_xla as jax_flash_xla
+from repro.models.attention_ops import mha_reference as jax_mha_reference
 
+from repro_torch.kernels.flash_attention.flash_attention import \
+    check_shapes as kernel_check_shapes
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
@@ -236,3 +239,98 @@ class TestFlashAttentionXla:
             grads.append([t.grad.numpy() for t in (tq, tk, tv)])
         for a, b in zip(*grads):
             np.testing.assert_allclose(a, b, **GRAD)
+
+
+CROSS_SHAPES = [(Sq, Sk) for Sq in (1, 5, 33) for Sk in (1, 17, 40)]
+
+
+class TestCrossAttentionShapes:
+    """Sq != Sk, non-causal and unwindowed: the encoder-decoder family's
+    cross-attention (decoder rows over encoder frames; Sq = 1 at decode).
+    The plain versions the CUDA kernels are held to on the card, and the
+    CPU route of ``ops.flash_attention``, against the reference's
+    ``mha_reference`` / ``flash_attention_xla``."""
+
+    @pytest.mark.parametrize("Sq,Sk", CROSS_SHAPES)
+    @pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2)], ids=["G1", "G2"])
+    def test_ref_forward_and_backward_match_reference(self, Sq, Sk, H, KVH):
+        """``ref.py``'s forward and its backward oracle (given the
+        forward's own output) against the values and ``jax.vjp`` of the
+        reference's ``mha_reference``."""
+        q, k, v = _inputs(2, Sq, H, KVH, 16, seed=11, Sk=Sk)
+        cot = np.random.default_rng(12).standard_normal(
+            q.shape).astype(np.float32)
+        want, vjp = jax.vjp(
+            lambda q, k, v: jax_mha_reference(q, k, v, causal=False),
+            *(jnp.asarray(x) for x in (q, k, v)))
+        want_grads = vjp(jnp.asarray(cot))
+        tq, tk, tv, tc = (torch.from_numpy(_kl(x)) for x in (q, k, v, cot))
+        o = flash_attention_ref(tq, tk, tv, causal=False)
+        assert tuple(o.shape) == (2, H, Sq, 16)
+        np.testing.assert_allclose(_f32(o.transpose(1, 2)),
+                                   np.asarray(want), **F32)
+        got = flash_attention_bwd_ref(tq, tk, tv, o, tc, causal=False)
+        for g, w in zip(got, want_grads):
+            np.testing.assert_allclose(_f32(g.transpose(1, 2)),
+                                       np.asarray(w), **GRAD)
+
+    @pytest.mark.parametrize("Sq,Sk", CROSS_SHAPES)
+    @pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2)], ids=["G1", "G2"])
+    def test_cpu_route_values_and_grads(self, Sq, Sk, H, KVH):
+        """The CPU route of ``ops.flash_attention`` (the chunked plain
+        version, autograd) against ``flash_attention_xla`` of the
+        reference and its gradient."""
+        q, k, v = _inputs(1, Sq, H, KVH, 16, seed=13, Sk=Sk)
+        cot = np.random.default_rng(14).standard_normal(
+            q.shape).astype(np.float32)
+
+        def jloss(q, k, v):
+            out = jax_flash_xla(q, k, v, causal=False, kv_chunk=16)
+            return jnp.sum(out * cot), out
+
+        (_, want), jgrads = jax.value_and_grad(
+            jloss, argnums=(0, 1, 2), has_aux=True)(
+            *(jnp.asarray(x) for x in (q, k, v)))
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v))
+        out = flash_attention(tq, tk, tv, causal=False, kv_chunk=16)
+        np.testing.assert_allclose(_f32(out), np.asarray(want), **F32)
+        (out * torch.from_numpy(cot)).sum().backward()
+        for t, jg in zip((tq, tk, tv), jgrads):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), **GRAD)
+
+
+class TestKernelShapeCheck:
+    """``check_shapes``: what the CUDA entry points take, from shapes alone
+    (run on the CPU; the card's calls go through it)."""
+
+    @pytest.mark.parametrize("Sq,Sk", [(1, 1500), (448, 1500), (65, 33),
+                                       (7, 7)])
+    def test_takes_cross_attention_shapes(self, Sq, Sk):
+        assert kernel_check_shapes((4, Sq, 16, 64), (4, Sk, 16, 64),
+                                   (4, Sk, 16, 64), False, 0) == \
+            (4, Sq, Sk, 16, 16, 64)
+
+    @pytest.mark.parametrize("causal,window", [(True, 0), (False, 32),
+                                               (True, 32)])
+    @pytest.mark.parametrize("Sq,Sk", [(1, 1500), (448, 1500), (65, 33)])
+    def test_refuses_sq_ne_sk_with_a_mask(self, Sq, Sk, causal, window):
+        with pytest.raises(ValueError, match="Sq"):
+            kernel_check_shapes((2, Sq, 4, 64), (2, Sk, 4, 64),
+                                (2, Sk, 4, 64), causal, window)
+
+    @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32)])
+    def test_sq_eq_sk_keeps_its_masks(self, causal, window):
+        assert kernel_check_shapes((1, 40, 8, 64), (1, 40, 2, 64),
+                                   (1, 40, 2, 64), causal, window) == \
+            (1, 40, 40, 8, 2, 64)
+
+    @pytest.mark.parametrize("q,k,v", [
+        ((2, 5, 4, 64), (3, 9, 4, 64), (3, 9, 4, 64)),    # batch
+        ((2, 5, 4, 64), (2, 9, 4, 32), (2, 9, 4, 32)),    # head dim
+        ((2, 5, 4, 64), (2, 9, 4, 64), (2, 8, 4, 64)),    # k vs v
+        ((2, 5, 6, 64), (2, 9, 4, 64), (2, 9, 4, 64)),    # heads vs KV heads
+    ])
+    def test_refuses_mismatches(self, q, k, v):
+        with pytest.raises(ValueError):
+            kernel_check_shapes(q, k, v, False, 0)

@@ -19,6 +19,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import attention as jax_attn
 from repro.models import attention_ops as jax_ops
 from repro.models import decoder as jax_decoder
+from repro.models import encdec as jax_encdec
 from repro.models import hybrid as jax_hybrid
 from repro.models import layers as jax_layers
 from repro.models.config import reduced as jax_reduced
@@ -29,6 +30,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import attention as t_attn
 from repro_torch.models import attention_ops as t_ops
 from repro_torch.models import decoder as t_decoder
+from repro_torch.models import encdec as t_encdec
 from repro_torch.models import hybrid as t_hybrid
 from repro_torch.models import layers as t_layers
 from repro_torch.models.config import reduced
@@ -364,15 +366,19 @@ class TestInitAndRegistry:
             assert model_for(cfg).decode_step is t_hybrid.decode_step
             assert jax_model_for(jax_get_config(arch)).decode_step \
                 is jax_hybrid.decode_step
+        elif cfg.family == "encdec":
+            assert model_for(cfg).decode_step is t_encdec.decode_step
+            assert jax_model_for(jax_get_config(arch)).decode_step \
+                is jax_encdec.decode_step
         else:
             with pytest.raises(NotImplementedError, match=cfg.family):
                 model_for(cfg)
 
     def test_families_still_to_port(self):
-        """moe and mla_moe are served by the decoder's API, hybrid by its
-        own module; the two families still to port are named by
+        """moe and mla_moe are served by the decoder's API, hybrid and
+        encdec by their own modules; the family still to port is named by
         ``NOT_PORTED``."""
-        assert NOT_PORTED == ("xlstm", "encdec")
+        assert NOT_PORTED == ("xlstm",)
         for arch in ("mixtral_8x7b", "deepseek_v3_671b"):
             m = model_for(get_config(arch))
             for fn in ("init_params", "forward", "loss_fn",
