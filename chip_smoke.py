@@ -37,7 +37,9 @@ Phases, one JSON line each:
                      a causal or windowed call at Sq != Sk must raise
                      ValueError) and at Whisper-medium's decode (Sq = 1
                      over 1,500 frames), cross (448 over 1,500) and
-                     encoder (S = 1,500) shapes beside SDPA; the copies at
+                     encoder (S = 1,500) shapes beside SDPA;
+                     ``flash_attention_kernel`` in the reference's
+                     signature and (B, H, S, D) layout; the copies at
                      the Qwen3, the latent and the Zamba2 KV rows against
                      index_select / index_copy_ and an empty kernel (the
                      launch floor), Zamba2's with -1 and past-the-pool
@@ -94,6 +96,20 @@ Phases, one JSON line each:
                      engine's latent-pool copies against ``ref.py`` bit for
                      bit; a batch-1 decode step profiled; counters zeroed
                      just before the undersized run and read just after;
+7a. ``serve_xlstm``  ``ServingEngine`` on xLSTM-125M at published width and
+                     depth (12 blocks, d 768, sLSTM at 5 and 11; no
+                     attention, no KV pages, no kernel of this repo: its
+                     23,679,136 B of decode state a sequence pinned and
+                     copied into and out of a batch slot every step), the
+                     serve settings over an exact-fit pool; counters
+                     zeroed just before and read just after, each 0; bf16
+                     logits finite; the pinned bytes a step and their
+                     copies' device ms; a batch-1 step profiled; in f32
+                     at 6 layers (the first mLSTM run and the sLSTM block
+                     at 5), the engine's greedy tokens at max_batch
+                     1 and 4 against a direct decode loop per request (a
+                     token may differ only on a top-2 margin below 1e-4 x
+                     max|logit|);
 7b. ``remote_paging`` the reference's remote-paging scenario
                      (``benchmarks/vmem_remote.py::_store_remote``):
                      ``PagedTensorStore`` over ``RemoteFramePool`` over a
@@ -141,6 +157,16 @@ Phases, one JSON line each:
                      plain-path parity of the loss and every gradient over
                      random frames; counters zeroed just before the steps
                      and read just after;
+9e. ``train_xlstm``  ``make_train_step`` on xLSTM-125M at published width cut
+                     to 2 layers (an mLSTM layer and the sLSTM block: the
+                     step is a Python loop over tokens, at 12 layers 56-59
+                     s), tokens (4, 1024) in one microbatch, remat (each
+                     mLSTM layer, and each 64-token chunk of the
+                     recurrences), bf16 params, f32 moments, 3 steps:
+                     finite losses and gradient norms, counters each 0;
+                     first a 3-layer f32 parity of the loss and every
+                     gradient, the card against the CPU; then one step at
+                     4 x 64 tokens profiled;
 10. ``train_moe``    ``Trainer`` on Mixtral-8x7B at published width cut to 2
                      layers, the same shape and steps, loss and aux loss
                      each step; a one-layer kernel-path against
@@ -152,6 +178,10 @@ Phases, one JSON line each:
                      ``torch.profiler``, host time against device time
                      (and, inside ``train``, ``train_encdec`` and
                      ``train_moe``, one training step).
+
+``serve_xlstm`` and ``train_xlstm`` launch no kernel of this repo, so they
+run first, while a thread waits on nvcc; their lines come before the
+``build`` line, and every other phase starts after the build.
 
 Then each phase's wall seconds (``phase_seconds``), one
 ``{"kernels": [...]}`` line (per kernel: launches summed over the paths
@@ -272,6 +302,28 @@ class Sizes:
     whisper_train_batch: int = 8
     whisper_train_steps: int = 3
     whisper_parity_layers: int = 2
+    # serve_xlstm: xLSTM-125M at published width and depth, the serve
+    # settings (max_batch, the 1,024-token context, prompts, max_new) over
+    # an exact-fit pool (it has no KV pages); its f32 token check on the
+    # model's first xlstm_check_mlstm mLSTM layers and first sLSTM block
+    # (6 layers: the whole first mLSTM run and the block at 5)
+    xlstm_arch: str = "xlstm_125m"
+    xlstm_check_mlstm: int = 5
+    # train_xlstm: published width cut to xlstm_train_layers (an mLSTM
+    # layer and the sLSTM block): at 12 layers a step took 55.9-59.1 s and
+    # the phase 401 s (H100 80GB HBM3, 700 W; a Python loop over tokens,
+    # ~200 k launches a step per 128 tokens); tokens (xlstm_train_batch,
+    # xlstm_train_seq) in one microbatch, remat, bf16 params, f32 moments;
+    # its f32 parity (card against CPU) at xlstm_parity_layers (sLSTM at
+    # 1), one sequence of xlstm_parity_seq; one step profiled at
+    # xlstm_profile_seq
+    xlstm_train_layers: int = 2
+    xlstm_train_batch: int = 4
+    xlstm_train_seq: int = 1024
+    xlstm_train_steps: int = 3
+    xlstm_parity_layers: int = 3
+    xlstm_parity_seq: int = 256
+    xlstm_profile_seq: int = 64
 
 
 # ------------------------------------------------------------------- helpers
@@ -415,7 +467,9 @@ def _sass_mma_counts(lib_path: str):
     return counts
 
 
-def phase_build():
+def _build_fields() -> dict:
+    """Build (or load) the kernels' library and check what nvcc made: the
+    ``build`` line's fields.  Safe in a thread: it prints nothing."""
     from repro_torch.kernels import _build
     _build.load_library()
     info = _build.BuildInfo
@@ -445,17 +499,21 @@ def phase_build():
              if n.startswith("paged_attention_kernel<")}
     require(len(paged) == 40, "paged_attention kernels in the build: "
             f"{sorted(paged)}")
-    emit("build", seconds=round(info.seconds, 3), cached=info.cached,
-         library=os.path.basename(str(info.path)),
-         sources=[s.name for s in _build.sources()],
-         spill_bytes_total=spills,
-         paged_attention={n: {k: r.get(k) for k in ("registers",
-                                                    "spill_stores",
-                                                    "spill_loads")}
-                          for n, r in sorted(paged.items())},
-         sass_read=("cuobjdump -sass" if mma is not None
-                    else "not measured (no cuobjdump)"),
-         kernels=resources)
+    return dict(seconds=round(info.seconds, 3), cached=info.cached,
+                library=os.path.basename(str(info.path)),
+                sources=[s.name for s in _build.sources()],
+                spill_bytes_total=spills,
+                paged_attention={n: {k: r.get(k) for k in ("registers",
+                                                           "spill_stores",
+                                                           "spill_loads")}
+                                 for n, r in sorted(paged.items())},
+                sass_read=("cuobjdump -sass" if mma is not None
+                           else "not measured (no cuobjdump)"),
+                kernels=resources)
+
+
+def phase_build():
+    emit("build", **_build_fields())
 
 
 # ------------------------------------------------------------- phase: kernels
@@ -830,6 +888,28 @@ FLASH_TIMED = ("flash_attention", "flash_attention_bwd",
 FLASH_TIMED_FWD = ("flash_attention", "flash_attention_plain", "sdpa")
 
 
+def _reference_signature(gen, dev) -> dict:
+    """``flash_attention_kernel`` in the reference's signature and layout
+    (q (B, H, S, D), k and v (B, KVH, S, D), causal and windowed): its
+    output against ``flash_attention_ref`` on the same tensors, f32 and
+    bf16 (``_flash_close``)."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for causal, window in ((True, 0), (True, 37), (False, 0)):
+            q = _rand(gen, (2, 8, 100, 64), dt, dev)
+            k, v = (_rand(gen, (2, 2, 100, 64), dt, dev) for _ in range(2))
+            o = flash_attention_kernel(q, k, v, causal=causal, window=window)
+            ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+            name = f"{str(dt).split('.')[-1]}_causal{int(causal)}_w{window}"
+            errs[name] = _flash_close(o, ref, False, f"flash_attention_"
+                                      f"kernel {name}")[0]
+    return errs
+
+
 def phase_flash(dev, sz: Sizes, cfg, names: list):
     """Flash attention: the cases above in f32 and bf16, then the training
     shape (B=1, S=4096, H=40, KVH=8, D=128, causal) in f32 and in bf16,
@@ -840,7 +920,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     Whisper-medium's three shapes in bf16: the decode call (Sq = 1 over
     the 1,500 frames; forward only), the training cross shape and the
     encoder's (S = 1,500, non-causal): errors against the plain version,
-    kernel / plain / SDPA times, FLOP bounds."""
+    kernel / plain / SDPA times, FLOP bounds; and
+    ``flash_attention_kernel`` in the reference's signature."""
     import torch
     from repro_torch.configs import get_config
 
@@ -901,6 +982,7 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
             cross_errs[n] = {k: max(cross_errs[n][k], x)
                              for k, x in zip(keys, e[0] + e[1])}
     errs["cross_attention"] = cross_errs
+    errs["reference_signature"] = _reference_signature(gen, dev)
     refused = _cross_refused(gen, dev)
     wcfg = get_config(sz.whisper_arch)
     Hw, Dw, T = wcfg.n_heads, wcfg.head_dim, wcfg.max_source_positions
@@ -963,7 +1045,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "whisper": {**whisper, "cross": w_cross["bwd"],
                      "encoder": w_enc["bwd"]}},
     ]
-    cases = 2 * len(FLASH_CASES) + 6 + 2 * len(CROSS_CASES) + refused + 3
+    cases = 2 * len(FLASH_CASES) + 6 + 2 * len(CROSS_CASES) + refused + 3 \
+        + len(errs["reference_signature"])
     return rows, errs, cases
 
 
@@ -2661,6 +2744,177 @@ def phase_serve_mla_moe(dev, sz: Sizes, table):
     _free(dev)
 
 
+# -------------------------------------------------------- phase: serve_xlstm
+XLSTM_FLIP_OF_MAX = 1e-4      # a token may differ only on a top-2 margin
+                              # below this x max|logit| of the loop's step
+XLSTM_STATE_BYTES = 23_679_136    # pinned decode state of one sequence
+
+
+def _xlstm_head(params, cfg, n_mlstm: int):
+    """The first ``n_mlstm`` layers of an xLSTM model's opening mLSTM run
+    and its first sLSTM block, as a model of their own: a config with the
+    block at ``n_mlstm`` and its params (views, no copy)."""
+    from repro_torch.models.xlstm_model import segments
+    from repro_torch.tree import tree_map
+    first, block = segments(cfg)[:2]
+    require(first[0] == "m" and block[0] == "s" and n_mlstm <= first[2],
+            f"{cfg.name}: no {n_mlstm} mLSTM layers before an sLSTM block")
+    cut = dataclasses.replace(cfg, n_layers=n_mlstm + 1, slstm_at=(n_mlstm,))
+    return cut, dict(
+        {k: params[k] for k in ("embed", "final_norm", "lm_head", "seg1")},
+        seg0=tree_map(lambda t: t[:n_mlstm], params["seg0"]))
+
+
+def _xlstm_direct(dev, cfg, params, prompt, max_new: int) -> list:
+    """One request by a direct ``decode_step`` loop at batch 1, under the
+    engine's feeding rule (every prompt token, then ``prompt[-1]`` again,
+    then each generated token): per generated step (greedy token, top-2
+    logit margin, max|logit|)."""
+    import torch
+    from repro_torch.models import xlstm_model
+    cache = xlstm_model.init_decode_cache(cfg, 1, device=dev)
+    toks = torch.from_numpy(prompt.astype("int64")).to(dev).reshape(-1, 1, 1)
+    for t in range(toks.shape[0]):
+        _, cache = xlstm_model.decode_step(params, cfg, cache, toks[t])
+    tok, out = toks[-1], []
+    for _ in range(max_new):
+        logits, cache = xlstm_model.decode_step(params, cfg, cache, tok)
+        row = logits[0, 0].float()
+        top2 = row.topk(2).values
+        out.append((int(row.argmax()), float(top2[0] - top2[1]),
+                    float(row.abs().max())))
+        tok = row.argmax().reshape(1, 1)
+    return out
+
+
+def _first_flips(reqs, loops) -> list:
+    """Per request, the first step whose engine token differs from the
+    direct loop's (after it the two are fed different tokens):
+    (request, step, the loop's top-2 margin, its max|logit|)."""
+    flips = []
+    for r, loop in zip(reqs, loops):
+        for i, (tok, (want, margin, top)) in enumerate(zip(r.generated,
+                                                           loop)):
+            if tok != want:
+                flips.append((r.req_id, i, margin, top))
+                break
+    return flips
+
+
+def phase_serve_xlstm(dev, sz: Sizes, table):
+    """``ServingEngine`` on xLSTM-125M at published width and depth (12
+    blocks, d 768, 4 heads, vocab 50,304, sLSTM at 5 and 11), random bf16
+    weights from a seed, greedy, the ``serve`` phase's requests at
+    ``max_batch`` 4 and a 1,024-token context over an exact-fit pool (the
+    family has no KV pages: its decode state is pinned whole, 23,679,136 B
+    a sequence, and the engine copies it into and out of a batch slot
+    every step); counters zeroed just before and read just after: no
+    kernel of this repo is on the path, so each count must be 0.  Each
+    step's logits are checked finite on the device (two small launches a
+    step inside the timed run).  Then the pinned bytes a step and their
+    copies' device ms, a batch-1 step profiled, and in float32 on the
+    model's first ``xlstm_check_mlstm`` mLSTM layers and first sLSTM block
+    the engine's greedy tokens
+    at ``max_batch`` 1 and 4 against a direct ``decode_step`` loop per
+    request: a token may differ only where the loop's top-2 margin is
+    below ``XLSTM_FLIP_OF_MAX`` x max|logit| (cuBLAS may round an M=4
+    product otherwise than an M=1 product)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import xlstm_model
+    from repro_torch.models.registry import model_for
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _arch_config(sz, sz.xlstm_arch)
+    require(cfg.family == "xlstm", cfg.family)
+    _free(dev)
+    t0 = time.perf_counter()
+    params = xlstm_model.init_params(cfg, 0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    api = model_for(cfg)                # the registry's, as the engine's
+    step = api.decode_step
+    finite = []
+
+    def recording_step(p, c, cache, tokens):
+        logits, cache = step(p, c, cache, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    api.decode_step = recording_step
+    kernels.reset_launch_counts()
+    try:
+        eng, reqs, wall = _serve(dev, sz, cfg, params, None)
+    finally:
+        api.decode_step = step
+    counts = kernels.launch_counts()
+    st = eng.stats
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    step_calls = prompt_tokens + st.decode_steps
+    require(len(finite) == step_calls, f"{len(finite)} decode_step calls "
+            f"recorded, {step_calls} expected")
+    require(bool(torch.stack(finite).all()), "bf16 logits not finite")
+    require(all(r.done and len(r.generated) == sz.max_new for r in reqs),
+            "a request did not finish")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+            "token id out of range")
+    require(not any(counts.values()), f"a kernel launched on a path "
+            f"without attention or pages: {counts}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    moved = _step_bytes(dev, sz, cfg, eng, params, 10, pinned="xlstm")
+    each = moved["per_sequence_each_way"]
+    require(each["kv_pages_bytes"] == 0 and (
+        each["xlstm_state_bytes"] == XLSTM_STATE_BYTES or not sz.full_width),
+        f"pinned state a sequence: {each}")
+    del eng
+    profile = _decode_profile(dev, sz, cfg, params, 3)
+
+    # float32 at the first layers: engine tokens against a direct loop
+    ccfg, cparams = _xlstm_head(params, cfg, sz.xlstm_check_mlstm)
+    fcfg = dataclasses.replace(ccfg, dtype="float32")
+    fparams = tree_map(lambda t: t.float(), cparams)
+    prompts = _prompts(sz.prompts, cfg.vocab_size)
+    t0 = time.perf_counter()
+    loops = [_xlstm_direct(dev, fcfg, fparams, p, sz.max_new)
+             for p in prompts]
+    loop_s = time.perf_counter() - t0
+    check = {"layers": fcfg.n_layers, "slstm_at": list(fcfg.slstm_at),
+             "dtype": "float32", "direct_loop_seconds": loop_s,
+             "flip_bound_of_max_logit": XLSTM_FLIP_OF_MAX,
+             "loop_min_top2_margin": min(m for lp in loops for _, m, _ in lp)}
+    for mb in (1, sz.max_batch):
+        _, reqs_f, wall_f = _serve(dev, dataclasses.replace(sz, max_batch=mb),
+                                   fcfg, fparams, None)
+        flips = _first_flips(reqs_f, loops)
+        require(all(m < XLSTM_FLIP_OF_MAX * top for _, _, m, top in flips),
+                f"float32 engine tokens at max_batch {mb} differ from the "
+                f"direct loop on a clear margin: {flips}")
+        check[f"max_batch_{mb}"] = {
+            "wall_seconds": wall_f, "requests_equal": len(reqs_f) - len(flips),
+            "steps_differing_on_a_tie": len(flips), "flips": flips}
+    del fparams, cparams
+    emit("serve_xlstm", arch=cfg.name, layers=cfg.n_layers,
+         segments=xlstm_model.segments(cfg), d_model=cfg.d_model,
+         heads=cfg.n_heads, vocab=cfg.vocab_size, params=n_params,
+         param_bytes=_nbytes(params), dtype=cfg.dtype, init_seconds=init_s,
+         max_batch=sz.max_batch, max_len=sz.pages_per_seq * cfg.kv_page_tokens,
+         prompt_lengths=[len(r.prompt) for r in reqs],
+         requests_done=sum(r.done for r in reqs),
+         tokens_generated=st.tokens_generated, decode_steps=st.decode_steps,
+         decode_step_calls=step_calls, wall_seconds=wall,
+         generated_tokens_per_s=st.tokens_generated / wall,
+         processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
+         bf16_logits_finite=True, spill_events=st.spill_events,
+         max_memory_allocated=peak, launches=counts,
+         bytes_moved_per_step=moved, batch1_decode_step=profile,
+         float32_tokens_engine_vs_direct_loop=check,
+         first_tokens=[r.generated[:4] for r in reqs])
+    del params
+    _free(dev)
+
+
 # --------------------------------------------------- phase: remote_paging
 REMOTE_STAT_KEYS = ("remote_reads", "remote_bytes_in", "remote_dst_faults",
                     "rapf_retransmits", "failovers", "pages_in",
@@ -3606,6 +3860,151 @@ def phase_train_encdec(dev, sz: Sizes, table, with_profile: bool = False):
     _free(dev)
 
 
+# -------------------------------------------------------- phase: train_xlstm
+XLSTM_PARITY_TOL = MLA_PARITY_TOL
+
+
+def _xlstm_train_parity(dev, sz: Sizes, cfg) -> dict:
+    """xLSTM-125M at published width cut to ``xlstm_parity_layers`` (an
+    mLSTM layer, the sLSTM block, an mLSTM layer), float32, one sequence
+    of ``xlstm_parity_seq``, remat: loss and every leaf's gradient of the
+    port on the card against the same port on the CPU (the family has no
+    kernel of this repo: the card runs cuBLAS and PyTorch's element-wise
+    kernels).  Loss within 1e-5 relative, each gradient leaf finite and
+    within 1e-4 x max|ref|."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import xlstm_model
+    from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_names
+
+    pcfg = dataclasses.replace(cfg, n_layers=sz.xlstm_parity_layers,
+                               slstm_at=(1,), dtype="float32")
+    require([k for k, _, _ in xlstm_model.segments(pcfg)] == ["m", "s", "m"],
+            "parity cut: m, s, m")
+    params = xlstm_model.init_params(pcfg, 7, device=dev)
+    tokens, labels = SyntheticLM(pcfg.vocab_size, sz.xlstm_parity_seq, 1,
+                                 seed=7).batch_at(0)
+    tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
+    loss_fn = make_loss_fn(pcfg, TrainConfig(remat=True))
+    t0 = time.perf_counter()
+    loss_k, g_k = value_and_grad(loss_fn, params, tok.to(dev), lab.to(dev))
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, g_c = value_and_grad(loss_fn, _to(params, "cpu"), tok, lab)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    require(math.isfinite(float(loss_k))
+            and loss_rel <= XLSTM_PARITY_TOL["loss_rel"],
+            f"train_xlstm parity: loss {float(loss_k)} vs {float(loss_c)}")
+    grad_of_max = {}
+    for n, a, b in zip(tree_names(g_k), tree_leaves(g_k), tree_leaves(g_c)):
+        a = a.cpu()
+        require(bool(torch.isfinite(a).all()), f"grad {n} not finite")
+        grad_of_max[n] = float((a - b).abs().max()
+                               / b.abs().max().clamp_min(1e-30))
+    worst = max(grad_of_max, key=grad_of_max.get)
+    require(grad_of_max[worst] <= XLSTM_PARITY_TOL["grad_of_max"],
+            f"train_xlstm parity: grad {worst} max abs err "
+            f"{grad_of_max[worst]} x max|ref|")
+    del params, g_k, g_c
+    return {"layers": pcfg.n_layers, "slstm_at": [1], "dtype": "float32",
+            "seq": sz.xlstm_parity_seq, "loss_card": float(loss_k),
+            "loss_cpu": float(loss_c), "loss_rel_err": loss_rel,
+            "grad_err_of_max": grad_of_max, "worst_leaf": worst,
+            "tolerance": XLSTM_PARITY_TOL, "card_seconds": card_s,
+            "cpu_seconds": cpu_s}
+
+
+def phase_train_xlstm(dev, sz: Sizes, table):
+    """``make_train_step`` on xLSTM-125M at published width cut to
+    ``xlstm_train_layers`` (an mLSTM layer and the sLSTM block; the step
+    is host-bound and linear in depth), random bf16 weights from a seed,
+    f32 moments: first the card-vs-CPU f32 parity, then
+    ``xlstm_train_steps`` steps of tokens
+    (``xlstm_train_batch``, ``xlstm_train_seq``) in one microbatch with
+    remat (each mLSTM layer checkpointed, and inside it each 64-token
+    chunk of the recurrences, without which autograd would keep the
+    matrix memory of every token), counters zeroed just before the steps
+    and read just after (no kernel of this repo on the path: each 0);
+    finite losses and gradient norms; then one step at
+    ``xlstm_profile_seq`` tokens under ``torch.profiler`` (host against
+    device time, device launches a step)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import xlstm_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch_config(sz, sz.xlstm_arch, n_layers=sz.xlstm_train_layers,
+                       slstm_at=(sz.xlstm_train_layers - 1,))
+    require(cfg.family == "xlstm", cfg.family)
+    _free(dev)
+    parity = _xlstm_train_parity(dev, sz, cfg)
+    _free(dev)
+
+    tcfg = TrainConfig(microbatches=1, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4, moment_dtype="float32"))
+    B, S = sz.xlstm_train_batch, sz.xlstm_train_seq
+    ds = SyntheticLM(cfg.vocab_size, S, B, seed=0)
+    t0 = time.perf_counter()
+    params = xlstm_model.init_params(cfg, 0, device=dev)
+    opt_state = adamw.init(tcfg.optimizer, params)
+    step_fn = make_train_step(cfg, tcfg)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    steps = []
+    kernels.reset_launch_counts()
+    for i in range(sz.xlstm_train_steps):
+        tokens, labels = (torch.from_numpy(a).to(dev)
+                          for a in ds.batch_at(i))
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, tokens,
+                                             labels)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        steps.append({"step": i + 1, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "wall_s": wall, "tokens_per_s": B * S / wall})
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in steps), f"train_xlstm: non-finite loss or "
+            f"gradient: {steps}")
+    require(not any(counts.values()), f"a kernel launched on a path "
+            f"without attention: {counts}")
+
+    short = SyntheticLM(cfg.vocab_size, sz.xlstm_profile_seq, B, seed=1)
+    tk, lb = (torch.from_numpy(a).to(dev) for a in short.batch_at(0))
+
+    def short_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = step_fn(params, opt_state, tk, lb)
+
+    profile = _profiled(dev, short_step, 1)
+    emit("train_xlstm", arch=cfg.name, layers=cfg.n_layers,
+         published_layers=_arch_config(sz, sz.xlstm_arch).n_layers,
+         segments=xlstm_model.segments(cfg), d_model=cfg.d_model,
+         heads=cfg.n_heads, vocab=cfg.vocab_size, params=n_params,
+         dtype=cfg.dtype, moment_dtype="float32", seq=S, global_batch=B,
+         microbatches=1, remat=True, recurrence_chunk=64,
+         init_seconds=init_s, steps=steps,
+         mean_tokens_per_s_after_first=(
+             sum(r["tokens_per_s"] for r in steps[1:]) / (len(steps) - 1)
+             if len(steps) > 1 else None),
+         max_memory_allocated=peak, launches=counts,
+         profiled_step={"seq": sz.xlstm_profile_seq, "batch": B, **profile},
+         parity=parity)
+    del params, opt_state
+    _free(dev)
+
+
 # ----------------------------------------------------------- phase: train_moe
 MOE_PARITY_TOL = {"float32": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
                                "top2_flip_share": 2e-2},
@@ -3977,12 +4376,32 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int,
 
 
 # ----------------------------------------------------------------------- main
+# --stop-after's choices, in the order of the phases they end after
+STOP_AFTER = ("profile", "kernels", "spill_parity", "serve", "serve_danube",
+              "serve_hybrid", "serve_encdec", "serve_mla_moe", "serve_xlstm",
+              "remote_paging", "train", "train_mla", "train_hybrid",
+              "train_encdec", "train_xlstm")
+# phases that launch no kernel of this repo: they run while nvcc builds
+WHILE_BUILDING = ("serve_xlstm", "train_xlstm")
+
+
 def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     """All phases after ``device``; returns the kernel table, or None when
     ``stop_after`` names an earlier phase (a partial run while debugging).
-    Emits each phase's wall seconds (``phase_seconds``) at the end."""
+    The phases of ``WHILE_BUILDING`` that the run reaches go first, while
+    a thread waits on the compilers; every other phase waits for the
+    build.  Emits each phase's wall seconds (``phase_seconds``; ``build``
+    is the wait for the compilers after those phases) at the end."""
+    from concurrent.futures import ThreadPoolExecutor
     cfg = _arch_config(sz, sz.arch)
     secs: dict = {}
+    phase_fn = {"serve_danube": phase_serve_danube,
+                "serve_hybrid": phase_serve_hybrid,
+                "serve_encdec": phase_serve_encdec,
+                "serve_mla_moe": phase_serve_mla_moe,
+                "serve_xlstm": phase_serve_xlstm,
+                "remote_paging": phase_remote_paging,
+                "train_xlstm": phase_train_xlstm}
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -3994,12 +4413,22 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
         emit("phase_seconds", seconds=secs, total=sum(secs.values()))
         return result
 
-    timed("build", phase_build)
     if stop_after == "profile":            # the profile alone, full depth
         from repro_torch.models import decoder
+        timed("build", phase_build)
         phase_profile(dev, sz, cfg, decoder.init_params(cfg, 0, device=dev),
                       steps=8)
         return None
+    last = STOP_AFTER.index(stop_after) if stop_after else len(STOP_AFTER)
+    early = [n for n in WHILE_BUILDING if STOP_AFTER.index(n) <= last]
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build_fields)
+        for name in early:
+            timed(name, phase_fn[name], dev, sz, None)
+        t0 = time.perf_counter()
+        built = building.result()           # raises the build's failure
+        secs["build"] = time.perf_counter() - t0
+    emit("build", **built, overlapped_with=early)
     table = timed("kernels", phase_kernels, dev, sz, cfg)
     if stop_after == "kernels":
         return done()
@@ -4014,12 +4443,10 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     del params
     if stop_after == "serve":
         return done()
-    for name, fn in (("serve_danube", phase_serve_danube),
-                     ("serve_hybrid", phase_serve_hybrid),
-                     ("serve_encdec", phase_serve_encdec),
-                     ("serve_mla_moe", phase_serve_mla_moe),
-                     ("remote_paging", phase_remote_paging)):
-        timed(name, fn, dev, sz, table)
+    for name in ("serve_danube", "serve_hybrid", "serve_encdec",
+                 "serve_mla_moe", "serve_xlstm", "remote_paging"):
+        if name not in early:
+            timed(name, phase_fn[name], dev, sz, table)
         if stop_after == name:
             return done()
     timed("train_parity", phase_train_parity, dev, sz, cfg)
@@ -4034,6 +4461,10 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
         return done()
     timed("train_encdec", phase_train_encdec, dev, sz, table, with_profile)
     if stop_after == "train_encdec":
+        return done()
+    if "train_xlstm" not in early:
+        timed("train_xlstm", phase_train_xlstm, dev, sz, table)
+    if stop_after == "train_xlstm":
         return done()
     timed("train_moe", phase_train_moe, dev, sz, table, with_profile)
     return done(table)
@@ -4054,11 +4485,7 @@ def main() -> int:
     smi = phase_device(dev)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", default="",
-                    choices=["", "profile", "kernels", "spill_parity",
-                             "serve", "serve_danube", "serve_hybrid",
-                             "serve_encdec", "serve_mla_moe",
-                             "remote_paging", "train", "train_mla",
-                             "train_hybrid", "train_encdec"],
+                    choices=("",) + STOP_AFTER,
                     help="partial run for debugging; prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="after serve, profile a batch-1 decode step; after "

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -75,6 +76,7 @@ class BuildInfo:
 
 
 _LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()      # one build at a time; a second caller waits
 
 
 def sources() -> list[Path]:
@@ -145,10 +147,16 @@ def _compile(srcs: list[Path], out: Path) -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call, with argtypes set."""
-    global _LIB
+    """The kernels' shared library, built on first call, with argtypes set.
+    Safe from two threads: a caller during the build waits for it."""
     if _LIB is not None:
         return _LIB
+    with _LOCK:
+        return _LIB if _LIB is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _LIB
     srcs = sources()
     if not srcs:
         raise KernelCompileError(f"no CUDA sources under {CSRC}")

@@ -3,7 +3,9 @@
 Counterpart of the reference's Pallas ``flash_attention_kernel``, with three
 differences.  Layout: the kernels take the **model layout** ``(B, Sq, H, D)``
 / ``(B, Sk, KVH, D)`` directly, so the reference wrapper's three transposes
-are gone.  Gradient: the forward also returns the per-row logsumexp
+are gone (:func:`flash_attention_kernel` keeps the reference's signature
+and ``(B, H, S, D)`` layout as strided views over the same forward).
+Gradient: the forward also returns the per-row logsumexp
 ``lse (B, H, Sq)`` (f32), from which :func:`flash_attention_bwd` computes
 dq, dk, dv with hand-written kernels; the reference differentiates its
 chunked scan with XLA instead.  Shape: the Pallas kernel takes one S; these
@@ -28,6 +30,7 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import check_launch, load_library
 
+NEG_INF = -1e30                # a masked score (the kernels' kNegInf)
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192)
 
 
@@ -130,6 +133,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     check_launch(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o, lse
+
+
+def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
+    """The reference's name and layout: q (B, H, S, D); k, v (B, KVH, S, D)
+    -> o (B, H, S, D).  Launches the forward kernel
+    (:func:`flash_attention_fwd`) on the three tensors viewed in the model
+    layout, which it reads through their strides, and returns ``o`` as a
+    view in the reference's layout; the ``lse`` it also writes is dropped.
+    The Pallas kernel's tile sizes and interpret mode have no counterpart:
+    the CUDA kernels' tiles are their own, and a CPU tensor goes through
+    ``ops.flash_attention``."""
+    o, _ = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
+    return o.transpose(1, 2)
 
 
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,

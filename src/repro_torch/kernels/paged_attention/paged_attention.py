@@ -32,6 +32,7 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import check_launch, load_library, sm_count
 
+NEG_INF = -1e30                # a masked score (the kernel's kNegInf)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 INSTANCE_HEAD_DIMS = (16, 32, 64, 128)   # csrc/paged_attention.cu's builds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -29,7 +29,11 @@ from repro_torch.core.costmodel import CostModel, DEFAULT_COST_MODEL
 from repro_torch.core.resolver import Strategy
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import tree_leaves, tree_unflatten
-from repro_torch.vmem import DeviceFramePool, Pager, coerce_policy
+from repro_torch.vmem import (DeviceFramePool, Pager, PagingStats,
+                              coerce_policy)
+
+# unified telemetry: the old name stays importable
+OffloadStats = PagingStats
 
 _DEFAULT = FaultPolicy(strategy=Strategy.TOUCH_AHEAD)
 

@@ -163,6 +163,10 @@ def paged_attention_scan(q, k_pool, v_pool, page_table, lengths, *,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+# the reference's name for the same function
+paged_attention_xla = paged_attention_scan
+
+
 def ring_buffer_attention(q, k_ring, v_ring, cur_len, window: int):
     """Decode attention over a sliding-window ring buffer.
 

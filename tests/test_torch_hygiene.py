@@ -12,6 +12,7 @@ import sys
 import tokenize
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -88,6 +89,80 @@ def test_verbatim_copy_has_not_drifted(rel):
     assert not _suppression_comments((PORT / rel).read_text())
 
 
+def _public_definitions(path: pathlib.Path) -> set[str]:
+    """Public top-level functions, classes and assigned names."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names.update(n.id for t in targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _top_level_names(path: pathlib.Path) -> set[str]:
+    """Every top-level name a module binds: definitions and imports."""
+    names = _public_definitions(path)
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return names
+
+
+# reference names with no twin yet, each by name: the jax-version shims of
+# compat.py that the distribution layer and the launch tooling use (they
+# come over with those modules)
+NAMES_NOT_CARRIED = {
+    "compat.py": {"axis_types_kwargs", "cost_analysis_dict",
+                  "import_shard_map"},
+}
+
+TWINS = sorted(p.relative_to(REF).as_posix() for p in REF.rglob("*.py")
+               if (PORT / p.relative_to(REF)).is_file()
+               and p.relative_to(REF).as_posix() not in VERBATIM)
+
+
+@pytest.mark.parametrize("rel", TWINS)
+def test_twin_keeps_the_reference_public_names(rel):
+    """Every public top-level name of a reference module is a top-level
+    name of its twin, but for the exceptions listed by name."""
+    missing = _public_definitions(REF / rel) - _top_level_names(PORT / rel)
+    assert missing == NAMES_NOT_CARRIED.get(rel, set()), rel
+
+
+def test_exceptions_to_the_public_names_are_three():
+    assert sum(map(len, NAMES_NOT_CARRIED.values())) == 3
+    for rel, names in NAMES_NOT_CARRIED.items():
+        assert names <= _public_definitions(REF / rel)
+
+
+def test_restored_names_are_the_port_s_own():
+    """The reference's names kept in the port are aliases of the port's
+    functions and values, not copies."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.memory.offload import OffloadStats
+    from repro_torch.models import attention_ops
+    from repro_torch.vmem import PagingStats
+    assert OffloadStats is PagingStats
+    assert attention_ops.paged_attention_xla is \
+        attention_ops.paged_attention_scan
+    assert fa.NEG_INF == pa.NEG_INF == fa_ref.NEG_INF == pa_ref.NEG_INF \
+        == -1e30
+    q = torch.zeros((1, 2, 4, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_kernel(q, q, q)
+    with pytest.raises(TypeError):            # no Pallas-only knobs
+        fa.flash_attention_kernel(q, q, q, interpret=True)
+
+
 def test_all_ten_arch_configs_are_carried():
     from repro_torch.configs import ARCH_IDS
     assert len(ARCH_IDS) == 10
@@ -117,6 +192,7 @@ def test_importing_the_launcher_loads_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.models.xlstm_model\n"
         "import repro_torch.vmem, repro_torch.kernels\n"
         "import repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.page_pack.ops\n"

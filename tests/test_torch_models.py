@@ -22,6 +22,7 @@ from repro.models import decoder as jax_decoder
 from repro.models import encdec as jax_encdec
 from repro.models import hybrid as jax_hybrid
 from repro.models import layers as jax_layers
+from repro.models import xlstm_model as jax_xlstm_model
 from repro.models.config import reduced as jax_reduced
 from repro.models.registry import model_for as jax_model_for
 
@@ -33,6 +34,7 @@ from repro_torch.models import decoder as t_decoder
 from repro_torch.models import encdec as t_encdec
 from repro_torch.models import hybrid as t_hybrid
 from repro_torch.models import layers as t_layers
+from repro_torch.models import xlstm_model as t_xlstm_model
 from repro_torch.models.config import reduced
 from repro_torch.models.registry import NOT_PORTED, model_for
 
@@ -371,19 +373,28 @@ class TestInitAndRegistry:
             assert jax_model_for(jax_get_config(arch)).decode_step \
                 is jax_encdec.decode_step
         else:
-            with pytest.raises(NotImplementedError, match=cfg.family):
-                model_for(cfg)
+            assert cfg.family == "xlstm"
+            assert model_for(cfg).decode_step is t_xlstm_model.decode_step
+            assert jax_model_for(jax_get_config(arch)).decode_step \
+                is jax_xlstm_model.decode_step
 
     def test_families_still_to_port(self):
-        """moe and mla_moe are served by the decoder's API, hybrid and
-        encdec by their own modules; the family still to port is named by
-        ``NOT_PORTED``."""
-        assert NOT_PORTED == ("xlstm",)
+        """moe and mla_moe are served by the decoder's API, hybrid, encdec
+        and xlstm by their own modules; no family is left to port, and an
+        unknown family is a ``KeyError``."""
+        assert NOT_PORTED == ()
         for arch in ("mixtral_8x7b", "deepseek_v3_671b"):
             m = model_for(get_config(arch))
             for fn in ("init_params", "forward", "loss_fn",
                        "init_decode_cache", "decode_step"):
                 assert getattr(m, fn) is getattr(t_decoder, fn), (arch, fn)
+        m = model_for(get_config("xlstm_125m"))
+        for fn in ("init_params", "forward", "loss_fn", "init_decode_cache",
+                   "decode_step"):
+            assert getattr(m, fn) is getattr(t_xlstm_model, fn), fn
+        with pytest.raises(KeyError):
+            model_for(dataclasses.replace(get_config("xlstm_125m"),
+                                          family="rwkv"))
 
     def test_device_default_is_the_gpu(self):
         """Entry points take device=None as the GPU and raise without one;

@@ -228,6 +228,12 @@ class TestLauncher:
         with pytest.raises(RuntimeError, match="CUDA"):
             t_serve.main(["--requests", "1"])
 
-    def test_unported_family_is_named(self):
-        with pytest.raises(NotImplementedError, match="xlstm"):
-            t_serve.main(["--device", "cpu", "--arch", "xlstm_125m"])
+    def test_unported_family_is_named(self, capsys):
+        """Every family is ported: xLSTM, the last one, serves on the CPU
+        through the same launcher.  (The name predates xLSTM's port: it
+        is kept so that the suite's record of this test carries on.)"""
+        t_serve.main(["--device", "cpu", "--arch", "xlstm_125m",
+                      "--requests", "3", "--max-new", "4",
+                      "--temperature", "0"])
+        out = capsys.readouterr().out
+        assert out.count("req ") == 3 and "tokens=12" in out
