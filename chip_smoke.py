@@ -44,6 +44,14 @@ Phases, one JSON line each:
                      index_select / index_copy_ and an empty kernel (the
                      launch floor), Zamba2's with -1 and past-the-pool
                      indices;
+3b. ``dist_local``   the shard-local paged decode at Qwen3-14B's decode
+                     shape (bf16, the kernels phase's lengths): two data
+                     ranks in one process, each on its slice of the pool
+                     (a view) and its rows of the page table rebased to
+                     it; one paged-attention launch a rank (counters
+                     zeroed just before, read just after); each rank's
+                     output and pools against the plain version and the
+                     unsharded kernel call;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -1903,6 +1911,113 @@ def phase_decode_parity(dev, sz: Sizes, cfg):
              logits_p.float().abs().max()), argmax_agree=agree,
          kernel_launches=launched)
     return params, pcfg
+
+
+# ---------------------------------------------------------- phase: dist_local
+def phase_dist_local(dev, sz: Sizes, cfg, table):
+    """The shard-local paged decode at Qwen3-14B's decode shape: the body
+    that ``models.attention._paged_update_and_attend_dist`` runs on each
+    data rank (``paged_shard_local``), here for two data ranks in one
+    process with no process group.  Rank r takes its ``max_batch / 2``
+    rows, its slice of a pool of 2 x ``p_local`` frames (a view: rank 1's
+    at a non-zero offset) and its rows of the global page table, rebased
+    to the slice; rank r's sequences own shuffled frames of slice r (the
+    engine's identity layout), so rank 1 holds sequences' current pages.
+    Counters are zeroed just before the ranks' calls and read just after:
+    one paged-attention launch a rank.  Then each rank's output and its
+    pool slices are held to the plain version (the same body on CPU copies,
+    the kernels phase's bf16 tolerance; pools exactly) and to the
+    unsharded kernel call on the rank's rows over the whole pool and the
+    global table (pools exactly)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.attention import (_paged_update_and_attend,
+                                              paged_shard_local)
+
+    n_ranks, bf16 = 2, torch.bfloat16
+    H, KVH, D, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.kv_page_tokens
+    B, NP = sz.max_batch, sz.pages_per_seq
+    rows, p_local = B // n_ranks, B // n_ranks * NP
+    # the kernels phase's lengths on the serving path's shapes
+    lengths = [max(1, int(ps * NP * f)) for f in
+               (0.2, 0.3, 0.6, 1.0, 0.45, 0.8, 0.1, 0.7)][:B]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    cpu_gen = torch.Generator().manual_seed(22)
+    q1 = _rand(gen, (B, H, D), bf16, dev)
+    k1, v1 = (_rand(gen, (B, KVH, D), bf16, dev) for _ in range(2))
+    k_pool, v_pool = (_rand(gen, (n_ranks * p_local, ps, KVH, D), bf16, dev)
+                      for _ in range(2))
+    pt = torch.full((B, NP), -1, dtype=torch.int32)
+    for r in range(n_ranks):
+        frames = r * p_local + torch.randperm(p_local, generator=cpu_gen)
+        for i in range(rows):
+            used = -(-lengths[r * rows + i] // ps)
+            pt[r * rows + i, :used] = frames[i * NP:i * NP + used]
+    pt = pt.to(dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    k0, v0 = k_pool.clone(), v_pool.clone()
+
+    def shard(r):
+        b, f = slice(r * rows, (r + 1) * rows), \
+            slice(r * p_local, (r + 1) * p_local)
+        return b, f
+
+    sync(dev)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    outs = []
+    for r in range(n_ranks):
+        b, f = shard(r)
+        outs.append(paged_shard_local(q1[b], k1[b], v1[b], k_pool[f],
+                                      v_pool[f], pt[b], ln[b], 0, r,
+                                      p_local))
+    sync(dev)
+    counts = kernels.launch_counts()
+    ranks_s = time.perf_counter() - t0
+    require(dev.type != "cuda" or counts["paged_attention"] == n_ranks,
+            f"dist_local: paged_attention launches {counts}")
+    require(outs[1][1].storage_offset() > 0
+            and outs[1][1].data_ptr() == k_pool[shard(1)[1]].data_ptr(),
+            "dist_local: rank 1 did not write its pool slice in place")
+
+    ku, vu = k0.clone(), v0.clone()
+    kc, vc = (x.to("cpu", copy=True) for x in (k0, v0))
+    errs = {"plain": 0.0, "unsharded": 0.0}
+    identical = True
+    for r in range(n_ranks):
+        b, f = shard(r)
+        out_u, _, _ = _paged_update_and_attend(q1[b], k1[b], v1[b], ku, vu,
+                                               pt[b], ln[b], 0)
+        out_p, kp_p, vp_p = paged_shard_local(
+            q1[b].cpu(), k1[b].cpu(), v1[b].cpu(), kc[f], vc[f],
+            pt[b].cpu(), ln[b].cpu(), 0, r, p_local)
+        sync(dev)
+        errs["unsharded"] = max(errs["unsharded"], check_close(
+            outs[r][0], out_u, TOL["bfloat16"], f"dist_local rank {r} "
+            "against the unsharded call"))
+        errs["plain"] = max(errs["plain"], check_close(
+            outs[r][0].cpu(), out_p, TOL["bfloat16"],
+            f"dist_local rank {r} against the plain version"))
+        identical = identical and torch.equal(outs[r][0], out_u)
+        require(torch.equal(outs[r][1].cpu(), kp_p)
+                and torch.equal(outs[r][2].cpu(), vp_p),
+                f"dist_local rank {r}: pools differ from the plain version")
+    require(torch.equal(k_pool, ku) and torch.equal(v_pool, vu),
+            "dist_local: pools differ from the unsharded calls'")
+    require(not torch.equal(k_pool, k0), "dist_local: nothing written")
+    _add_launches(table, "dist_local", counts, ("paged_attention",))
+    emit("dist_local", arch=cfg.name, data_ranks=n_ranks, batch=B,
+         heads=H, kv_heads=KVH, head_dim=D, page_tokens=ps,
+         pool_frames=n_ranks * p_local, frames_per_rank=p_local,
+         lengths=lengths, page_table=pt.tolist(), dtype="bfloat16",
+         rank_offsets_bytes=[outs[r][1].storage_offset()
+                             * outs[r][1].element_size()
+                             for r in range(n_ranks)],
+         launches=counts["paged_attention"], ranks_seconds=ranks_s,
+         max_abs_err=errs, bit_identical_to_unsharded=identical,
+         pools_equal=True)
 
 
 # --------------------------------------------------------------- serve phases
@@ -4377,7 +4492,7 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int,
 
 # ----------------------------------------------------------------------- main
 # --stop-after's choices, in the order of the phases they end after
-STOP_AFTER = ("profile", "kernels", "spill_parity", "serve", "serve_danube",
+STOP_AFTER = ("profile", "kernels", "dist_local", "spill_parity", "serve", "serve_danube",
               "serve_hybrid", "serve_encdec", "serve_mla_moe", "serve_xlstm",
               "remote_paging", "train", "train_mla", "train_hybrid",
               "train_encdec", "train_xlstm")
@@ -4431,6 +4546,9 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     emit("build", **built, overlapped_with=early)
     table = timed("kernels", phase_kernels, dev, sz, cfg)
     if stop_after == "kernels":
+        return done()
+    timed("dist_local", phase_dist_local, dev, sz, cfg, table)
+    if stop_after == "dist_local":
         return done()
     params, pcfg = timed("decode_parity", phase_decode_parity, dev, sz, cfg)
     timed("spill_parity", phase_spill_parity, dev, sz, pcfg, params)

@@ -12,7 +12,10 @@ Ported so far: the paged-KV serving path — ``launch.serve`` →
 (``launch.train`` → ``training.trainer``), with hand-written CUDA kernels
 under ``kernels/`` (paged decode attention, page gather, page scatter,
 flash attention); the verbs fabric and its simulator (``api``, ``core``,
-``net``, ``npr``, ``tenancy``, ``testing``) and remote paging
-(``vmem.RemoteFramePool``).  Entry points run on the GPU unless
+``net``, ``npr``, ``tenancy``, ``testing``), remote paging
+(``vmem.RemoteFramePool``), the static lint passes (``lint``, run by
+``python -m repro_torch.lint``) and the distribution layer
+(``distributed``: partition rules, logical axes, pipeline, compression,
+fault tolerance, and the shard-local paged decode under a mesh).  Entry points run on the GPU unless
 ``device="cpu"`` is passed (``compat.resolve_device``).
 """

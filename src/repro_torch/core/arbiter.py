@@ -413,6 +413,7 @@ class DMAArbiter:
         if actual_total != self._depth_total:
             out.append(f"node {self.node.node_id}: depth counter "
                        f"{self._depth_total} != actual backlog {actual_total}")
+        # torch-lint: allow(det-dict-iter): diagnostic list order only
         for pd, n in self._depth_by_pd.items():
             actual = sum(len(q.blocks) for q in self.queues.values()
                          if q.pd == pd)
@@ -430,6 +431,7 @@ class DMAArbiter:
         credit.  ``repro.testing`` asserts this after a soak.
         """
         out = []
+        # torch-lint: allow(det-dict-iter): diagnostic list order only
         for (pd, cls), q in self.queues.items():
             hi = A.BLOCK_SIZE + self.quantum * q.weight
             if not (0.0 <= q.deficit <= hi):

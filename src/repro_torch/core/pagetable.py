@@ -170,6 +170,7 @@ class PageTable:
         shootdown counters O(pages).  Returns the frames released.
         """
         released = 0
+        # torch-lint: allow(det-dict-iter): frame reuse tracks PT insertion order
         for pte in self.entries.values():
             if (pte.state in (PageState.RESIDENT, PageState.SWAPPED)
                     and pte.frame >= 0):

@@ -138,6 +138,7 @@ class EventLoop:
             if not lst:
                 # bucket indices are pushed only on an empty->non-empty
                 # transition, so every entry in this heap is unique
+                # torch-lint: allow(det-heap-tiebreak): unique int keys, no tie
                 heapq.heappush(self._pending_buckets, b)
             lst.append((t, seq, ev))
         else:
@@ -182,6 +183,7 @@ class EventLoop:
             else:
                 active = []
             while over and int(over[0][0] * _WHEEL_INV) == b:
+                # torch-lint: allow(det-heap-tiebreak): migrates an existing (time, seq, Event) tuple between tiers — seq is the tie-break
                 heapq.heappush(active, heapq.heappop(over))
             self._active = active
         return True

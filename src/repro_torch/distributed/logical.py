@@ -1,0 +1,160 @@
+"""Logical-axis activation sharding (MaxText-style logical axis rules).
+
+Model code names its activation dims (``constrain(x, "batch", "seq",
+"heads", "head_dim")``); the launcher binds logical names to mesh axes per
+architecture (e.g. heads→'model' when divisible, else seq→'model' for
+context parallelism).  Outside a policy context ``constrain`` is a no-op,
+so tests/examples on 1 device pay nothing.
+
+Every binding is divisibility-checked against the actual dim, so one rule
+set serves all architectures (starcoder2's 24 heads silently fall back to
+whatever the launcher's rules name next).
+
+A mesh here is read for its axis names and sizes only.  It is either a
+``torch.distributed.device_mesh.DeviceMesh`` built with ``mesh_dim_names``
+or an :class:`AbstractMesh` (names → sizes, no devices and no process
+group), in which specs for any number of devices can be computed in one
+process.  A spec is a :class:`PartitionSpec`: one entry per tensor dim,
+each ``None``, an axis name or a tuple of names.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+import numpy as np
+
+_STATE = threading.local()
+
+
+class AbstractMesh:
+    """Axis names and sizes, with no devices (the counterpart of
+    ``jax.sharding.AbstractMesh``).  ``shape`` maps name → size in axis
+    order."""
+
+    def __init__(self, axis_sizes: tuple, axis_names: tuple) -> None:
+        if len(axis_sizes) != len(axis_names):
+            raise ValueError(f"{axis_sizes} sizes for {axis_names} names")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, map(int, axis_sizes)))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim: ``None``, a mesh axis name or a tuple of names."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+def mesh_shape(mesh) -> dict:
+    """Axis name → size, in the mesh's axis order."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("a DeviceMesh needs mesh_dim_names")
+    return dict(zip(names, mesh.shape))
+
+
+def placements(mesh, spec) -> tuple:
+    """The DTensor placements of ``spec`` on a DeviceMesh: ``Shard(d)`` on
+    each mesh dim that tensor dim ``d`` names, ``Replicate()`` on the rest.
+    A tensor dim named over several mesh dims is split in the mesh's order
+    (outer dim first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.mesh_dim_names)
+    for d, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                out[mesh.mesh_dim_names.index(name)] = Shard(d)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _current() -> Optional[tuple]:
+    return getattr(_STATE, "policy", None)
+
+
+@contextlib.contextmanager
+def logical_rules(mesh, rules: dict):
+    """rules: logical-name -> mesh-axis (str) | tuple | None."""
+    prev = _current()
+    _STATE.policy = (mesh, dict(rules))
+    try:
+        yield
+    finally:
+        _STATE.policy = prev
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    shape = mesh_shape(mesh)
+    if isinstance(axis, (tuple, list)):
+        return int(np.prod([shape[a] for a in axis]))
+    return shape[axis]
+
+
+def spec_for(shape: tuple, names: tuple) -> Optional[PartitionSpec]:
+    pol = _current()
+    if pol is None:
+        return None
+    mesh, rules = pol
+    spec = []
+    used: set = set()
+    for dim, name in zip(shape, names):
+        ax = rules.get(name)
+        parts = tuple(ax) if isinstance(ax, (tuple, list)) else (ax,)
+        if ax is not None and not (used & set(parts)) \
+                and dim % _axis_size(mesh, ax) == 0 and dim > 0:
+            spec.append(ax)
+            used.update(parts)
+        else:
+            spec.append(None)
+    return PartitionSpec(*spec)
+
+
+def constrain(x, *names: str):
+    """Lay ``x`` out per the active logical rules.
+
+    Unchanged outside a policy context, as in the reference, and unchanged
+    for a plain tensor: in eager SPMD every rank already holds its own
+    shard, and there is no compiler to hand a constraint to.  A DTensor on
+    a DeviceMesh policy is redistributed to the placements of
+    :func:`spec_for`.
+    """
+    pol = _current()
+    if pol is None:
+        return x
+    if len(names) != x.ndim or isinstance(pol[0], AbstractMesh) \
+            or not is_dtensor(x):
+        return x
+    spec = spec_for(x.shape, names)
+    if spec is None or all(s is None for s in spec):
+        return x
+    return x.redistribute(pol[0], placements(pol[0], spec))
+
+
+def current_mesh():
+    pol = _current()
+    return pol[0] if pol is not None else None
+
+
+def rule(name: str):
+    pol = _current()
+    if pol is None:
+        return None
+    return pol[1].get(name)

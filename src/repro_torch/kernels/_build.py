@@ -161,6 +161,7 @@ def _load() -> ctypes.CDLL:
     if not srcs:
         raise KernelCompileError(f"no CUDA sources under {CSRC}")
     out = build_dir() / f"librepro_torch_kernels_{_digest(srcs)}.so"
+    # torch-lint: allow(det-wallclock): host build timing, never simulated state
     t0 = time.perf_counter()
     BuildInfo.cached = out.exists()
     if not BuildInfo.cached:
@@ -172,6 +173,7 @@ def _load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     BuildInfo.path = out
+    # torch-lint: allow(det-wallclock): host build timing, never simulated state
     BuildInfo.seconds = time.perf_counter() - t0
     _LIB = lib
     return lib

@@ -2,12 +2,12 @@
 
 A *pass* is a function ``(files: Sequence[SourceFile]) -> list[Finding]``.
 Passes never print and never consult suppressions — the CLI applies the
-``# lint: allow(<rule>)`` comments afterwards, so the same pass code
+``# torch-lint: allow(<rule>)`` comments afterwards, so the same pass code
 serves both the build gate and the fixture tests in ``tests/test_lint.py``.
 
 Suppression syntax (same line as the finding, or the line above)::
 
-    foo = time.time()   # lint: allow(<rule-id>): host telemetry only
+    foo = time.time()   # torch-lint: allow(<rule-id>): host telemetry only
 
 The justification after the ``:``/``—`` is mandatory: an allow() with no
 stated reason is itself a finding (``lint-suppression``), and so is an
@@ -43,7 +43,7 @@ KNOWN_RULES = (
 )
 
 _SUPPRESS_RE = re.compile(
-    r"#\s*lint:\s*allow\(\s*([A-Za-z0-9_,\- ]+?)\s*\)\s*(?:[:—-]\s*(.*))?$")
+    r"#\s*torch-lint:\s*allow\(\s*([A-Za-z0-9_,\- ]+?)\s*\)\s*(?:[:—-]\s*(.*))?$")
 
 #: directories (under src/repro) on the deterministic event path — the
 #: modules whose iteration order feeds simulated time and soak stats
@@ -96,11 +96,11 @@ class SourceFile:
     # ------------------------------------------------------------- scoping
     @property
     def in_repro(self) -> bool:
-        return self.rel.startswith("src/repro/")
+        return self.rel.startswith("src/repro_torch/")
 
     @property
     def in_event_path(self) -> bool:
-        return any(self.rel.startswith(f"src/repro/{d}/")
+        return any(self.rel.startswith(f"src/repro_torch/{d}/")
                    for d in EVENT_PATH_DIRS)
 
     # -------------------------------------------------------- suppressions

@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.distributed.logical import constrain
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (apply_attention,
@@ -112,9 +113,19 @@ def init_generator(key: Union[int, torch.Generator],
             raise ValueError(f"generator on {key.device}, device {dev}")
         return key, dev
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev)
     gen.manual_seed(int(key))
     return gen, dev
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that names the ``meta`` device, so that
+    ``init_params(..., device="meta")`` builds the tree of shapes and dtypes
+    with no storage (draws on ``meta`` make no numbers)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
@@ -171,13 +182,13 @@ def _apply_layer(lp, cfg: ModelConfig, x, positions, rope, moe: bool,
                               kv_chunk=kv_chunk, return_kv=return_kv,
                               rope=rope)
         attn_out, kv = res if return_kv else (res, None)
-    x = x + attn_out
+    x = constrain(x + attn_out, "batch", "seq", "embed")
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     if moe:
         y, aux = moe_mod.apply_moe(lp["moe"], cfg, h)
     else:
         y, aux = apply_mlp(lp["mlp"], h, cfg.act), 0.0
-    return x + y, aux, kv
+    return constrain(x + y, "batch", "seq", "embed"), aux, kv
 
 
 # -------------------------------------------------------------------- forward
@@ -194,6 +205,7 @@ def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
     the MoE layers' auxiliary losses (0.0 without MoE layers).
     """
     x = params["embed"][tokens.long()] if embeddings is None else embeddings
+    x = constrain(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = None if cfg.family == "mla_moe" else \

@@ -14,10 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-def constrain(x, *logical_axes):
-    """Activation-sharding hint of the reference; identity off-mesh."""
-    return x
+from repro_torch.distributed.logical import constrain
 
 
 def dtype_of(name: str) -> torch.dtype:

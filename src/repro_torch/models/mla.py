@@ -18,9 +18,8 @@ zero-padded to it as the reference pads it.  A CPU tensor takes the plain
 chunked version; a CUDA tensor the hand-written kernels at 192 (bf16 on
 the tensor cores, f32 on the CUDA cores) — there is no fallback.
 
-The reference's mesh-bound ``_mla_update_and_attend_dist`` is not ported
-(it belongs with the distribution layer); with no mesh it calls the local
-body, which is what :func:`apply_mla_decode_paged` calls here.
+Under a data-parallel mesh the decode runs shard-local on each rank
+(:func:`_mla_update_and_attend_dist`), as the GQA path does.
 """
 
 from __future__ import annotations
@@ -30,8 +29,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import PartitionSpec as P
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.attention import paged_write_slots
+from repro_torch.models.attention import (data_rank, data_shards,
+                                          paged_write_slots,
+                                          rebase_page_table)
 from repro_torch.models.attention_ops import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
@@ -135,6 +138,41 @@ def _mla_update_and_attend(q_abs, q_rope, c_new, kr_new, ckv_pool,
     return ctx, ckv_pool, krope_pool
 
 
+def _mla_update_and_attend_dist(q_abs, q_rope, c_new, kr_new, ckv_pool,
+                                krope_pool, page_table, lengths, *,
+                                scale: float):
+    """Shard-local variant: batch rows and latent pool pages co-sharded
+    over the data axes, query heads split over ``'model'`` when it divides
+    them (the latent pools have no head dim: they stay replicated over
+    ``'model'``).  The same locality argument, conditions and DTensor
+    handling as the GQA path's ``_paged_update_and_attend_dist``; the local
+    body makes its write slots from the rebased table.
+    """
+    shards = data_shards(q_abs.shape[0], ckv_pool.shape[0])
+    if shards is None or not logical.is_dtensor(q_abs):
+        return _mla_update_and_attend(q_abs, q_rope, c_new, kr_new, ckv_pool,
+                                      krope_pool, page_table, lengths,
+                                      scale=scale)
+    from torch.distributed.tensor import DTensor
+    mesh, d, dsize = shards
+    msize = logical.mesh_shape(mesh).get("model", 1)
+    h = "model" if ("model" in mesh.mesh_dim_names
+                    and q_abs.shape[1] % msize == 0) else None
+    head = logical.placements(mesh, P(d, h))
+    rows = logical.placements(mesh, P(d))
+    qa, qr, cn, kn, cp, kp, pt, ln = [
+        x.redistribute(mesh, pl).to_local() for x, pl in zip(
+            (q_abs, q_rope, c_new, kr_new, ckv_pool, krope_pool, page_table,
+             lengths), (head, head) + (rows,) * 6)]
+    pt = rebase_page_table(pt, data_rank(mesh, d),
+                           ckv_pool.shape[0] // dsize)
+    ctx, cp, kp = _mla_update_and_attend(qa, qr, cn, kn, cp, kp, pt, ln,
+                                         scale=scale)
+    return (DTensor.from_local(ctx, mesh, head, run_check=False),
+            DTensor.from_local(cp, mesh, rows, run_check=False),
+            DTensor.from_local(kp, mesh, rows, run_check=False))
+
+
 def apply_mla_decode_paged(p, cfg: ModelConfig, x, ckv_pool, krope_pool,
                            page_table, lengths):
     """Absorbed-form decode through the paged latent cache.
@@ -156,7 +194,7 @@ def apply_mla_decode_paged(p, cfg: ModelConfig, x, ckv_pool, krope_pool,
     wk_b = p["wk_b"].reshape(rkv, H, nope)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk_b.float())
     scale = 1.0 / math.sqrt(nope + rope)
-    ctx, ckv_pool, krope_pool = _mla_update_and_attend(
+    ctx, ckv_pool, krope_pool = _mla_update_and_attend_dist(
         q_abs, q_rope.float(), c_new, kr_new, ckv_pool, krope_pool,
         page_table, lengths, scale=scale)
     wv_b = p["wv_b"].reshape(rkv, H, vh)

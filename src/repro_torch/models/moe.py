@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import constrain, dense_init
+from repro_torch.distributed.logical import constrain
+from repro_torch.models.layers import dense_init
 
 
 def _expert_weights(gen: torch.Generator, E: int, d_in: int, d_out: int,
@@ -25,6 +26,8 @@ def _expert_weights(gen: torch.Generator, E: int, d_in: int, d_out: int,
     expert at a time** and cast, so the peak stays near the ``dtype`` size
     (at DeepSeek-V3 width a whole f32 draw would be 15 GB a layer)."""
     w = torch.empty((E, d_in, d_out), dtype=dtype, device=gen.device)
+    if w.is_meta:                   # a tree of shapes: nothing to draw
+        return w
     std = 1.0 / np.sqrt(d_in)
     for e in range(E):
         w[e].copy_(torch.randn((d_in, d_out), generator=gen,

@@ -231,6 +231,7 @@ class Interconnect:
         """
         expect_data: dict[tuple[int, int], int] = {}
         expect_ctrl: dict[tuple[int, int], int] = {}
+        # torch-lint: allow(det-dict-iter): commutative += accumulation
         for route, (n_data, n_ctrl) in self.injected.items():
             for hop in zip(route, route[1:]):
                 expect_data[hop] = expect_data.get(hop, 0) + n_data

@@ -106,6 +106,7 @@ class MTTCache:
         the SMMU no longer backs.  Returns entries newly staled.
         """
         staled = 0
+        # torch-lint: allow(det-dict-iter): per-entry idempotent staling, order-free
         for (epd, _), e in self._entries.items():
             if epd == pd and not e.stale:
                 e.stale = True

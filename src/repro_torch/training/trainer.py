@@ -142,6 +142,7 @@ class Trainer:
 
     def run(self, n_steps: int, log_every: int = 10,
             log_fn: Callable[[str], None] = print) -> list[dict]:
+        # torch-lint: allow(det-wallclock): host step-rate telemetry only
         t0 = time.perf_counter()
         for _ in range(n_steps):
             tokens, labels = self._batch(self.step)
@@ -152,10 +153,12 @@ class Trainer:
             rec["step"] = self.step
             self.history.append(rec)
             if log_every and self.step % log_every == 0:
+                # torch-lint: allow(det-wallclock): host step-rate telemetry only
                 dt = time.perf_counter() - t0
                 log_fn(f"step {self.step:5d}  loss {rec['loss']:.4f}  "
                        f"gnorm {rec['grad_norm']:.3f}  "
                        f"{dt / log_every:.2f}s/step")
+                # torch-lint: allow(det-wallclock): host step-rate telemetry only
                 t0 = time.perf_counter()
             if (self.checkpointer is not None and self.checkpoint_every
                     and self.step % self.checkpoint_every == 0):

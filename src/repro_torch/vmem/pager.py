@@ -173,6 +173,7 @@ class Pager:
         return self._clock
 
     def _acct(self, space: AddressSpace, **deltas) -> None:
+        # torch-lint: allow(det-dict-iter): commutative setattr accumulation
         for name, d in deltas.items():
             setattr(space.stats, name, getattr(space.stats, name) + d)
             setattr(self.stats, name, getattr(self.stats, name) + d)

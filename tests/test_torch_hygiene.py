@@ -4,12 +4,10 @@ have not drifted, and ``chip_smoke.py`` imports only the port.
 """
 
 import ast
-import io
 import pathlib
 import re
 import subprocess
 import sys
-import tokenize
 
 import pytest
 import torch
@@ -19,9 +17,10 @@ SRC = ROOT / "src"
 REF = SRC / "repro"
 PORT = SRC / "repro_torch"
 
-# copied file by file from the reference; only the import prefix differs
-# (and the determinism linter's suppression comments, which are unused
-# outside src/repro and would be findings there)
+# copied file by file from the reference; only the import prefix, the
+# lint passes' root (src/repro_torch/) and the suppression marker differ: the
+# port's is ``# torch-lint: allow(...)``, which the reference's gate (it reads
+# every file under src and tests) does not take for one of its own
 VERBATIM = [
     "errors.py", "core/addresses.py", "core/costmodel.py",
     "core/pagetable.py", "core/resolver.py", "core/arbiter.py",
@@ -38,6 +37,10 @@ VERBATIM = [
     "npr/engine.py",
     "tenancy/banks.py", "tenancy/qp.py", "tenancy/manager.py",
     "lint/__init__.py", "lint/common.py", "lint/race.py", "lint/specs.py",
+    "lint/cli.py", "lint/conformance.py", "lint/determinism.py",
+    "lint/model.py", "lint/stats_coverage.py", "lint/typed_errors.py",
+    "lint/__main__.py",
+    "distributed/fault_tolerance.py",
     "api/__init__.py", "api/memory.py", "api/completion.py",
     "api/config.py", "api/fabric.py",
     "testing/__init__.py", "testing/traffic.py", "testing/invariants.py",
@@ -48,18 +51,21 @@ VERBATIM = [
 FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
 
 
-def _normalize(text: str, prefix: str) -> list[str]:
-    lines = [ln for ln in text.splitlines()
-             if not re.match(r"\s*# lint: allow\(", ln)]
-    return [ln.replace(prefix + ".", "repro.") for ln in lines]
+#: the port's spellings of the reference's, mapped back before comparing
+PORT_SPELLINGS = (("repro_torch.", "repro."), ("src/repro_torch/", "src/repro/"),
+                  ("torch-lint:", "lint:"))
 
 
-def _suppression_comments(text: str) -> list[str]:
-    """The ``# lint: allow(...)`` comments of a source (comment tokens
-    only: ``lint/common.py`` documents the syntax in its docstring)."""
-    return [tok.string for tok in
-            tokenize.generate_tokens(io.StringIO(text).readline)
-            if tok.type == tokenize.COMMENT and "lint: allow" in tok.string]
+def _normalize(text: str) -> list[str]:
+    for port, ref in PORT_SPELLINGS:
+        text = text.replace(port, ref)
+    return text.splitlines()
+
+
+def _suppressions(sf) -> list[tuple]:
+    """A parsed file's suppressions: line, rules and reason."""
+    return [(s.line, s.rules, s.justification)
+            for s in sf.suppressions.values()]
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -83,10 +89,32 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copy_has_not_drifted(rel):
-    ref = _normalize((REF / rel).read_text(), "repro")
-    port = _normalize((PORT / rel).read_text(), "repro_torch")
-    assert port == ref, f"{rel} differs from src/repro/{rel}"
-    assert not _suppression_comments((PORT / rel).read_text())
+    """Line for line, suppression comments included; and the port's lint
+    reads the copy's suppressions where the reference's reads the
+    original's."""
+    from repro.lint.common import SourceFile as RefSourceFile
+    from repro_torch.lint.common import SourceFile
+    ref_text, port_text = (REF / rel).read_text(), (PORT / rel).read_text()
+    assert _normalize(port_text) == ref_text.splitlines(), \
+        f"{rel} differs from src/repro/{rel}"
+    assert _suppressions(SourceFile(rel, port_text)) == \
+        _suppressions(RefSourceFile(rel, ref_text))
+
+
+def _port_texts() -> list[pathlib.Path]:
+    return (sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("tests/test_torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
+
+
+def test_port_carries_no_reference_marker():
+    """No line of the port, its tests or ``chip_smoke.py`` is a reference
+    suppression: the reference's gate lints these files too, and would
+    report each as unused."""
+    from repro.lint.common import _SUPPRESS_RE
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in _port_texts()
+            for i, ln in enumerate(p.read_text().splitlines(), start=1)
+            if _SUPPRESS_RE.search(ln)]
+    assert hits == []
 
 
 def _public_definitions(path: pathlib.Path) -> set[str]:
@@ -114,9 +142,10 @@ def _top_level_names(path: pathlib.Path) -> set[str]:
     return names
 
 
-# reference names with no twin yet, each by name: the jax-version shims of
-# compat.py that the distribution layer and the launch tooling use (they
-# come over with those modules)
+# reference names with no twin, each by name: the jax-version shims of
+# compat.py.  axis_types_kwargs and cost_analysis_dict serve the launch
+# tooling and come over with it; import_shard_map has none to come: torch
+# has no shard_map, and the port's shard-local bodies run once per rank
 NAMES_NOT_CARRIED = {
     "compat.py": {"axis_types_kwargs", "cost_analysis_dict",
                   "import_shard_map"},
