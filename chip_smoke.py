@@ -52,6 +52,17 @@ Phases, one JSON line each:
                      zeroed just before, read just after); each rank's
                      output and pools against the plain version and the
                      unsharded kernel call;
+3c. ``dist_step``    the dense family's decode step and train step with
+                     DTensor parameters on a (1 x 1) DeviceMesh over a
+                     one-rank NCCL group, under the arch's logical rules,
+                     against the same steps with plain parameters:
+                     Qwen3-14B at published width cut to 2 layers, one
+                     decode step at batch 4 over 256-token pages and one
+                     train step at 2 x 4,096 in 2 microbatches with remat;
+                     launches by kernel of each run (counters zeroed just
+                     before, read just after) equal and non-zero, logits,
+                     pools, loss and updated parameters within the bf16
+                     tolerance, bits equal or not, the phase's seconds;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -68,22 +79,23 @@ Phases, one JSON line each:
                      zeroed just before the kernel path and read just
                      after (paged attention = 24 x decode_step calls); the
                      plain path on the card gives the same greedy tokens;
-                     then the published config on its ring path;
+                     then the published config on its ring path at its
+                     first 12 layers (the whole run's time);
 6c. ``serve_hybrid`` ``ServingEngine`` on Zamba2-7B at published width (81
                      Mamba2 layers, 13 groups of 6 and a tail of 3, one
                      shared attention block at 13 sites, head_dim 112),
-                     the engine run cut to 27 layers (4 groups and the
+                     the engine run cut to 15 layers (2 groups and the
                      tail; the whole run's time), the serve settings and
                      undersized pool; counters zeroed just before the
                      kernel path and read just after (paged attention =
-                     4 x decode_step calls); at
-                     the model's first 15 layers, every bf16 kernel call
-                     of the path against its plain version, and in f32
-                     the plain path on the card gives the same greedy
-                     tokens (bf16 logits tie); the bytes a step moves per
+                     2 x decode_step calls); the bytes a step moves per
                      sequence, paged KV against pinned Mamba state against
                      the weights, and a batch-1 decode step profiled, both
-                     at full depth;
+                     at full depth; ``serve_hybrid_plain``: at the model's
+                     first 15 layers, every bf16 kernel call of the path
+                     against its plain version, and in f32 the plain path
+                     on the card gives the same greedy tokens (bf16
+                     logits tie);
 6d. ``serve_encdec`` ``ServingEngine`` on Whisper-medium at published width
                      and depth (24 encoder and 24 decoder layers, d 1,024,
                      16 heads of 64), max_len 448, 5 frames against 8, six
@@ -137,7 +149,7 @@ Phases, one JSON line each:
                      every gradient, kernel path on the card against the
                      plain path on the CPU; one AdamW update on each; and
                      ``PagedAdamW`` against AdamW on the card;
-9. ``train``         ``Trainer`` on full-width Qwen3-14B cut to 4 layers,
+9. ``train``         ``Trainer`` on full-width Qwen3-14B cut to 2 layers,
                      seq 4096, batch 2 in 2 microbatches, remat, bf16
                      params, f32 moments, 4 steps; a checkpoint at step 2
                      restored into a fresh trainer repeats step 3's loss;
@@ -187,9 +199,11 @@ Phases, one JSON line each:
                      (and, inside ``train``, ``train_encdec`` and
                      ``train_moe``, one training step).
 
-``serve_xlstm`` and ``train_xlstm`` launch no kernel of this repo, so they
-run first, while a thread waits on nvcc; their lines come before the
-``build`` line, and every other phase starts after the build.
+``serve_xlstm``, ``train_xlstm``, ``remote_paging`` and
+``serve_hybrid_plain`` run in a second process on the same card
+(``--side``), started after ``kernels`` and waited for after
+``serve_danube``; the phases in between time no kernel, and the side
+phases' lines come after ``serve_danube``'s.
 
 Then each phase's wall seconds (``phase_seconds``), one
 ``{"kernels": [...]}`` line (per kernel: launches summed over the paths
@@ -247,7 +261,11 @@ class Sizes:
     flash_iters: int = 10            # timed calls at the training shape
     parity_batch: int = 2            # train_parity: one batch of 2 x 512
     parity_seq: int = 512
-    train_layers: int = 4            # train: the only cut of Qwen3-14B
+    # train: Qwen3-14B cut to train_layers (4 until a run of 978.3 s on one
+    # host passed 1,200 s on another; at 4 the phase took 125.3 s, 114.2 s
+    # of it the checkpoint's 34.5 GB written and read back, H100 80GB HBM3,
+    # 700 W)
+    train_layers: int = 2
     train_seq: int = 4096            # configs/shapes.py TRAIN_4K
     train_batch: int = 2
     train_microbatches: int = 2
@@ -265,8 +283,12 @@ class Sizes:
     moe_arch: str = "mixtral_8x7b"
     moe_layers: int = 2
     # serve_danube: H2O-Danube-1.8B at published width and depth, the
-    # serve settings above (prompts, batch, context, undersized pool)
+    # serve settings above (prompts, batch, context, undersized pool); its
+    # ring path at the first danube_ring_layers layers (at 24 it took 61.3
+    # s of a 978.3 s run that passed 1,200 s on a slower host, H100 80GB
+    # HBM3, 700 W)
     danube_arch: str = "h2o_danube_1_8b"
+    danube_ring_layers: int = 12
     # kernels: paged attention at D=80 with Danube's heads and a window
     # shorter than the context, at D=112 with Zamba2-7B's heads
     danube_kernel_window: int = 300
@@ -289,10 +311,12 @@ class Sizes:
     hybrid_train_layers: int = 15
     hybrid_train_steps: int = 3
     hybrid_parity_seq: int = 1024
-    # serve_hybrid's engine run at hybrid_serve_layers (4 groups of 6 and
-    # the 3-layer tail) to keep the whole run inside its time: at 81
-    # layers it took 121.8 s of an 842 s run (H100 80GB HBM3, 700 W)
-    hybrid_serve_layers: int = 27
+    # serve_hybrid's engine run at hybrid_serve_layers (2 groups of 6 and
+    # the 3-layer tail, the comparison's depth) to keep the whole run inside
+    # its time: at 81 layers it took 121.8 s of an 842 s run, at 27 49.9 s
+    # of a 978.3 s run that passed 1,200 s on a slower host (H100 80GB
+    # HBM3, 700 W)
+    hybrid_serve_layers: int = 15
     # serve_encdec: Whisper-medium at published width and depth, its
     # target context of 448 tokens (2 pages of 256) per sequence, an
     # undersized pool of 5 frames against 8; the encoded decode after it:
@@ -332,6 +356,10 @@ class Sizes:
     xlstm_parity_layers: int = 3
     xlstm_parity_seq: int = 256
     xlstm_profile_seq: int = 64
+    # dist_step: Qwen3-14B (arch) at published width cut to dist_layers,
+    # the decode at max_batch over pages_per_seq pages, the train step at
+    # train_batch x train_seq in train_microbatches
+    dist_layers: int = 2
 
 
 # ------------------------------------------------------------------- helpers
@@ -477,7 +505,7 @@ def _sass_mma_counts(lib_path: str):
 
 def _build_fields() -> dict:
     """Build (or load) the kernels' library and check what nvcc made: the
-    ``build`` line's fields.  Safe in a thread: it prints nothing."""
+    ``build`` line's fields."""
     from repro_torch.kernels import _build
     _build.load_library()
     info = _build.BuildInfo
@@ -2020,6 +2048,171 @@ def phase_dist_local(dev, sz: Sizes, cfg, table):
          pools_equal=True)
 
 
+# ----------------------------------------------------------- phase: dist_step
+def _dtensors(tree, shardings):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t, sh: distribute_tensor(t.clone(), sh.mesh,
+                                                    sh.placements),
+                    tree, shardings)
+
+
+def _full(tree):
+    from repro_torch.distributed.logical import full
+    from repro_torch.tree import tree_map
+    return tree_map(full, tree)
+
+
+def _tree_diff(a, b, what: str) -> tuple:
+    """(max abs difference over the leaves of two trees, every leaf's bits
+    equal), each leaf held to the bf16 tolerance."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_names
+    err, same = 0.0, True
+    for name, x, y in zip(tree_names(a), tree_leaves(a), tree_leaves(b)):
+        err = max(err, check_close(x, y, TOL["bfloat16"], f"{what} {name}"))
+        same = same and torch.equal(x, y)
+    return err, same
+
+
+def phase_dist_step(dev, sz: Sizes, table):
+    """The dense family's decode step and train step with DTensor
+    parameters, on a (1 data x 1 model) DeviceMesh over a one-rank group
+    (NCCL on the card), under the arch's logical rules, against the same
+    steps on the same parameters as plain tensors.  Qwen3-14B at published
+    width cut to ``dist_layers``: one decode step at ``max_batch`` over
+    256-token pages of random K/V (lengths the kernels phase's), and one
+    train step at ``train_batch`` x ``train_seq`` in ``train_microbatches``
+    microbatches with remat and AdamW.  Counters are zeroed just before
+    each run and read just after: the launches must be equal and non-zero
+    (paged attention for decode, flash forward and backward for train),
+    which shows the kernels launch from inside the sharded model's
+    regions.  Logits, pools, loss and the updated parameters of the two
+    runs are held to the bf16 tolerance, and whether their bits are equal
+    is reported."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.distributed.logical import logical_rules
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  param_shardings,
+                                                  token_sharding)
+    from repro_torch.launch.dryrun import logical_rules_for
+    from repro_torch.models import decoder
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = _arch_config(sz, sz.arch, n_layers=sz.dist_layers)
+    B, ps = sz.max_batch, cfg.kv_page_tokens
+    max_len = sz.pages_per_seq * ps
+    lengths = [max(1, int(max_len * f)) for f in (0.2, 0.3, 0.6, 0.99,
+                                                  0.45, 0.8, 0.1, 0.7)][:B]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    params = decoder.init_params(cfg, 23, device=dev)
+    cache = decoder.init_decode_cache(cfg, B, max_len, device=dev)
+    for k in ("k_pool", "v_pool"):
+        cache[k].copy_(_rand(gen, cache[k].shape, cache[k].dtype, dev))
+    cache["lengths"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = torch.randint(0, cfg.vocab_size,
+                          (sz.train_batch, sz.train_seq), generator=gen,
+                          device=dev, dtype=torch.int32)
+    labels = torch.roll(batch, -1, dims=1)
+    tcfg = TrainConfig(microbatches=sz.train_microbatches, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4))
+    step = make_train_step(cfg, tcfg)
+
+    def counted(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        out = fn()
+        sync(dev)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        return out, counts, time.perf_counter() - t0
+
+    def decode(p, c, tokens):
+        logits, new = decoder.decode_step(p, cfg, c, tokens)
+        return {"logits": logits, "k_pool": new["k_pool"],
+                "v_pool": new["v_pool"], "lengths": new["lengths"]}
+
+    def train(p, batch, labels):
+        p, _, metrics = step(p, adamw.init(tcfg.optimizer, p), batch, labels)
+        return p, metrics["loss"]
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = logical_rules_for(cfg, mesh)
+        runs = {}
+        clone = lambda t: tree_map(torch.clone, t)          # noqa: E731
+        runs["decode_plain"] = counted(
+            lambda: decode(params, clone(cache), tokens))
+        p_sh = param_shardings(params, mesh)
+        c_sh = cache_shardings(cache, mesh, B)
+        dp, dc = _dtensors(params, p_sh), _dtensors(cache, c_sh)
+        tok = token_sharding(mesh)
+        dtok, dbatch, dlabels = (_dtensors(t, tok)
+                                 for t in (tokens, batch, labels))
+        with logical_rules(mesh, rules):
+            runs["decode_dtensor"] = counted(
+                lambda: _full(decode(dp, dc, dtok)))
+        del dc
+        runs["train_plain"] = counted(
+            lambda: train(clone(params), batch, labels))
+        with logical_rules(mesh, rules):
+            runs["train_dtensor"] = counted(
+                lambda: tuple(map(_full, train(dp, dbatch, dlabels))))
+        del dp
+    finally:
+        dist.destroy_process_group()
+    del params, cache
+
+    on_card = dev.type == "cuda"
+    want = {"decode": ("paged_attention",),
+            "train": ("flash_attention", "flash_attention_bwd")}
+    for path, names in want.items():
+        plain, dt = runs[f"{path}_plain"][1], runs[f"{path}_dtensor"][1]
+        require(plain == dt, f"dist_step {path}: launches {plain} plain, "
+                f"{dt} under DTensor")
+        require(not on_card or all(dt.get(n, 0) > 0 for n in names),
+                f"dist_step {path}: no launch of {names}: {dt}")
+    errs, bits = {}, {}
+    errs["decode"], bits["decode"] = _tree_diff(
+        runs["decode_dtensor"][0], runs["decode_plain"][0], "dist_step")
+    (p_d, loss_d), (p_p, loss_p) = runs["train_dtensor"][0], \
+        runs["train_plain"][0]
+    require(math.isfinite(float(loss_p)), "dist_step: loss not finite")
+    errs["loss"] = abs(float(loss_d) - float(loss_p))
+    require(errs["loss"] <= TOL["bfloat16"] * (1 + abs(float(loss_p))),
+            f"dist_step: loss {float(loss_d)} vs {float(loss_p)}")
+    bits["loss"] = bool(torch.equal(loss_d, loss_p))
+    errs["params"], bits["params"] = _tree_diff(p_d, p_p, "dist_step params")
+    names = want["decode"] + want["train"]
+    _add_launches(table, "dist_step", {
+        n: runs["decode_dtensor"][1].get(n, 0)
+        + runs["train_dtensor"][1].get(n, 0) for n in names}, names)
+    emit("dist_step", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, mesh={"data": 1, "model": 1}, backend=backend,
+         rules={k: str(v) for k, v in rules.items()}, decode_batch=B,
+         page_tokens=ps, lengths=lengths, train_batch=sz.train_batch,
+         train_seq=sz.train_seq, microbatches=sz.train_microbatches,
+         remat=True,
+         launches={k: v[1] for k, v in runs.items()},
+         seconds={k: v[2] for k, v in runs.items()},
+         max_abs_err=errs, bits_equal=bits, tolerance=TOL["bfloat16"],
+         phase_seconds=time.perf_counter() - t_phase)
+
+
 # --------------------------------------------------------------- serve phases
 def _prompts(lengths, vocab: int):
     import numpy as np
@@ -2145,15 +2338,16 @@ def phase_serve_danube(dev, sz: Sizes, table):
     24 x decode_step calls; page copies; spills and fault page-ins), then
     the plain path (``paged_attention_ref``) on the card: identical greedy
     tokens.  Last the published config on its own ring path (plain torch,
-    no kernel), which must finish every request: the two layouts place a
-    batch's new token at the first sequence's offset in their own ways
-    (the reference's lock-step write), so their tokens are not compared."""
+    no kernel) at its first ``danube_ring_layers`` layers, which must
+    finish every request: the two layouts place a batch's new token at the
+    first sequence's offset in their own ways (the reference's lock-step
+    write), so their tokens are not compared."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import decoder
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     cfg = _arch_config(sz, sz.danube_arch)
     max_len = sz.pages_per_seq * cfg.kv_page_tokens
@@ -2201,7 +2395,12 @@ def phase_serve_danube(dev, sz: Sizes, table):
     same = [a.generated == b.generated for a, b in zip(reqs, reqs_p)]
     require(all(same), f"greedy tokens differ between the kernel and the "
             f"plain path: {same}")
-    ring_eng, reqs_r, wall_r = _serve(dev, sz, cfg, params, sz.pool_frames)
+    rcfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                 sz.danube_ring_layers))
+    rparams = dict(params, dense_layers=tree_map(
+        lambda t: t[:rcfg.n_layers], params["dense_layers"]))
+    ring_eng, reqs_r, wall_r = _serve(dev, sz, rcfg, rparams, sz.pool_frames)
+    del rparams
     require(all(r.done and len(r.generated) == sz.max_new for r in reqs_r),
             "a request did not finish on the ring path")
     emit("serve_danube", arch=cfg.name, layers=cfg.n_layers,
@@ -2215,7 +2414,8 @@ def phase_serve_danube(dev, sz: Sizes, table):
          requests_done=sum(r.done for r in reqs),
          tokens_generated=st.tokens_generated, decode_steps=st.decode_steps,
          decode_step_calls=step_calls, wall_seconds=wall,
-         plain_path_wall_seconds=wall_p, ring_path_wall_seconds=wall_r,
+         plain_path_wall_seconds=wall_p, ring_path_layers=rcfg.n_layers,
+         ring_path_wall_seconds=wall_r,
          generated_tokens_per_s=st.tokens_generated / wall,
          processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
          tokens_identical_kernel_vs_plain=True,
@@ -2342,31 +2542,20 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
     attention block applied after each group: head_dim 112 on paged
     attention's 128 instance), random weights from a seed, greedy, the
     ``serve`` phase's settings, requests and undersized pool; the engine
-    run at ``hybrid_serve_layers`` (4 groups and the tail: at 81 layers
+    run at ``hybrid_serve_layers`` (2 groups and the tail: at 81 layers
     it took 121.8 s of a run near its time limit), counters zeroed just
     before and read just after (``paged_attention`` launches = sites x
     decode_step calls; page copies of the sites' KV rows; spills and fault
-    page-ins); the step's bytes and a batch-1 step at full depth.
-
-    The comparison with the plain path (``paged_attention_ref``, on the
-    card) runs at the model's first ``hybrid_plain_layers`` layers: the
-    engine is host-bound (81 Mamba layers of small ops a step) and a path
-    at full depth takes minutes.  There, in bf16, every ``paged_attention``
-    call of the kernel path is held against the plain version on its own
-    inputs (the bf16 tolerance); and in float32 the kernel path and the
-    plain path must give identical greedy tokens.  bf16 tokens are not
-    compared: the model's bf16 logits tie (a top-2 gap of 0) at some
-    steps, where any rounding picks either token.  Then what a step moves
-    per sequence (KV pages against the pinned Mamba state against the
-    weights) and a batch-1 decode step profiled."""
+    page-ins); the step's bytes and a batch-1 step at full depth: what a
+    step moves per sequence (KV pages against the pinned Mamba state
+    against the weights) and a batch-1 decode step profiled.  The
+    comparison with the plain path is ``phase_serve_hybrid_plain``."""
     import torch
     from repro_torch import kernels
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import hybrid
     from repro_torch.models.mamba import mamba_dims
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
     cfg = _arch_config(sz, sz.zamba_arch)
     require(cfg.family == "hybrid", cfg.family)
@@ -2412,31 +2601,6 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
         pool_frames=sz.pool_frames, device=dev), params, 10)
     del eng
 
-    # the comparison with the plain path, at the first layers
-    ccfg, cparams = _first_layers(params, cfg, sz.hybrid_plain_layers)
-    checked = {"calls": 0, "beyond_tolerance": 0, "max_abs_err": 0.0}
-    kernel_fn = attn_mod.paged_attention
-    attn_mod.paged_attention = _checked_paged_attention(checked)
-    try:
-        _, reqs_c, wall_c = _serve(dev, sz, ccfg, cparams, sz.pool_frames)
-    finally:
-        attn_mod.paged_attention = kernel_fn
-    require(checked["beyond_tolerance"] == 0 and checked["calls"] > 0,
-            f"paged_attention against its plain version on the bf16 "
-            f"serving inputs: {checked}")
-    fcfg = dataclasses.replace(ccfg, dtype="float32")
-    fparams = tree_map(lambda t: t.float(), cparams)
-    _, reqs_f, wall_f = _serve(dev, sz, fcfg, fparams, sz.pool_frames)
-    attn_mod.paged_attention = paged_attention_ref      # plain path, on card
-    try:
-        _, reqs_p, wall_p = _serve(dev, sz, fcfg, fparams, sz.pool_frames)
-    finally:
-        attn_mod.paged_attention = kernel_fn
-    same = [a.generated == b.generated for a, b in zip(reqs_f, reqs_p)]
-    require(all(same), f"float32 greedy tokens differ between the kernel "
-            f"and the plain path at {fcfg.n_layers} layers: {same}")
-    bf16_same = [a.generated == b.generated for a, b in zip(reqs_c, reqs_f)]
-    del cparams, fparams
     profile = _decode_profile(dev, sz, cfg, params, 3)
     emit("serve_hybrid", arch=cfg.name, layers=cfg.n_layers,
          engine_run_layers=scfg.n_layers, engine_run_sites=G_run, groups=G,
@@ -2455,18 +2619,67 @@ def phase_serve_hybrid(dev, sz: Sizes, table):
          processed_tokens_per_s=(prompt_tokens + st.tokens_generated) / wall,
          spill_events=st.spill_events, fault_page_ins=st.fault_page_ins,
          engine_stats=stats, max_memory_allocated=peak, launches=counts,
-         plain_comparison={
-             "layers": ccfg.n_layers, "why": f"a {scfg.n_layers}-layer path "
-             f"takes {wall:.1f} s on the host-bound engine",
-             "bfloat16_kernel_calls_against_plain": checked,
-             "bfloat16_checked_wall_seconds": wall_c,
-             "float32_tokens_identical_kernel_vs_plain": True,
-             "float32_kernel_wall_seconds": wall_f,
-             "float32_plain_wall_seconds": wall_p,
-             "bfloat16_tokens_equal_float32_tokens": bf16_same},
+         plain_comparison="phase serve_hybrid_plain",
          bytes_moved_per_step=moved, batch1_decode_step=profile,
          first_tokens=[r.generated[:4] for r in reqs])
     del params
+    _free(dev)
+
+
+def phase_serve_hybrid_plain(dev, sz: Sizes, table):
+    """``serve_hybrid``'s comparison with the plain path
+    (``paged_attention_ref``, on the card): the same weights (the same
+    seed) at the model's first ``hybrid_plain_layers`` layers, the
+    ``serve`` phase's requests and undersized pool.  The engine is
+    host-bound (81 Mamba layers of small ops a step), and a path at full
+    depth takes minutes.  In bf16 every ``paged_attention`` call of the
+    kernel path is held against the plain version on its own inputs (the
+    bf16 tolerance); in float32 the kernel path and the plain path must
+    give identical greedy tokens.  bf16 tokens are not compared: the
+    model's bf16 logits tie (a top-2 gap of 0) at some steps, where any
+    rounding picks either token.  Times no kernel: it runs in the side
+    process (``SIDE``); ``table`` is unused."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import hybrid
+    from repro_torch.tree import tree_map
+
+    cfg = _arch_config(sz, sz.zamba_arch)
+    _free(dev)
+    params = hybrid.init_params(cfg, 0, device=dev)
+    ccfg, cparams = _first_layers(params, cfg, sz.hybrid_plain_layers)
+    checked = {"calls": 0, "beyond_tolerance": 0, "max_abs_err": 0.0}
+    kernel_fn = attn_mod.paged_attention
+    attn_mod.paged_attention = _checked_paged_attention(checked)
+    try:
+        _, reqs_c, wall_c = _serve(dev, sz, ccfg, cparams, sz.pool_frames)
+    finally:
+        attn_mod.paged_attention = kernel_fn
+    require(checked["beyond_tolerance"] == 0 and checked["calls"] > 0,
+            f"paged_attention against its plain version on the bf16 "
+            f"serving inputs: {checked}")
+    fcfg = dataclasses.replace(ccfg, dtype="float32")
+    fparams = tree_map(lambda t: t.float(), cparams)
+    del params, cparams
+    _, reqs_f, wall_f = _serve(dev, sz, fcfg, fparams, sz.pool_frames)
+    attn_mod.paged_attention = paged_attention_ref      # plain path, on card
+    try:
+        _, reqs_p, wall_p = _serve(dev, sz, fcfg, fparams, sz.pool_frames)
+    finally:
+        attn_mod.paged_attention = kernel_fn
+    same = [a.generated == b.generated for a, b in zip(reqs_f, reqs_p)]
+    require(all(same), f"float32 greedy tokens differ between the kernel "
+            f"and the plain path at {fcfg.n_layers} layers: {same}")
+    bf16_same = [a.generated == b.generated for a, b in zip(reqs_c, reqs_f)]
+    del fparams
+    emit("serve_hybrid_plain", arch=cfg.name, layers=ccfg.n_layers,
+         sites=hybrid.group_layout(ccfg)[0],
+         bfloat16_kernel_calls_against_plain=checked,
+         bfloat16_checked_wall_seconds=wall_c,
+         float32_tokens_identical_kernel_vs_plain=True,
+         float32_kernel_wall_seconds=wall_f,
+         float32_plain_wall_seconds=wall_p,
+         bfloat16_tokens_equal_float32_tokens=bf16_same)
     _free(dev)
 
 
@@ -3305,7 +3518,10 @@ def phase_train_parity(dev, sz: Sizes, cfg):
     Tolerances: loss 1e-5 relative; gradients 1e-4 x max|ref| per leaf (f32
     sums over d_model 5120 and d_ff 17408 in another order, through two
     layers, the norms and the vocabulary projection); the update 2e-5
-    (atol = rtol, f32 elementwise)."""
+    (atol = rtol, f32 elementwise).  The CPU's results are compared on the
+    card (the same elementwise f32 arithmetic, without the host's passes
+    over two billion elements); ``seconds`` says where the phase's time
+    goes."""
     import torch
     from repro_torch import kernels
     from repro_torch.data.pipeline import SyntheticLM
@@ -3318,9 +3534,11 @@ def phase_train_parity(dev, sz: Sizes, cfg):
 
     pcfg = dataclasses.replace(cfg, n_layers=sz.parity_layers,
                                dtype="float32")
+    secs, t_phase = {}, time.perf_counter()
     params = decoder.init_params(pcfg, 5, device=dev)
     cpu = torch.device("cpu")
     params_cpu = _to(params, cpu)
+    secs["init_and_copy_to_host"] = time.perf_counter() - t_phase
     tokens, labels = SyntheticLM(pcfg.vocab_size, sz.parity_seq,
                                  sz.parity_batch, seed=5).batch_at(0)
     tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
@@ -3342,18 +3560,23 @@ def phase_train_parity(dev, sz: Sizes, cfg):
     loss_p, g_p = value_and_grad(
         make_loss_fn(pcfg, TrainConfig(remat=False)), params_cpu, tok, lab)
     plain_s = time.perf_counter() - t0
+    secs.update(kernel_path=kernel_s, plain_cpu=plain_s)
+    t0 = time.perf_counter()
     loss_err = abs(float(loss_k) - float(loss_p))
     require(math.isfinite(float(loss_k)) and
             loss_err <= 1e-5 * abs(float(loss_p)),
             f"train_parity loss {float(loss_k)} vs {float(loss_p)}")
     grad_errs = {}
     for n, a, b in zip(tree_names(g_k), tree_leaves(g_k), tree_leaves(g_p)):
-        err = float((a.cpu() - b).abs().max())
+        b = b.to(dev)
+        err = float((a - b).abs().max())
         scale = float(b.abs().max())
         require(bool(torch.isfinite(a).all()) and err <= 1e-4 * scale,
                 f"train_parity grad {n}: max abs err {err}, max|ref| {scale}")
         grad_errs[n] = err / scale if scale else err
-    del g_k
+    del g_k, b
+    secs["grad_compare"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     ocfg = adamw.AdamWConfig(lr=1e-3)
     state_k = adamw.init(ocfg, params)
@@ -3361,12 +3584,16 @@ def phase_train_parity(dev, sz: Sizes, cfg):
     adamw.update(ocfg, state_k, params, _to(g_p, dev))
     _, _, m_p = adamw.update(ocfg, state_p, params_cpu, g_p)
     sync(dev)
+    secs["adamw_updates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     upd_err = 0.0
     for n, a, b in zip(tree_names(params), tree_leaves(params),
                        tree_leaves(params_cpu)):
-        upd_err = max(upd_err, check_close(a.cpu(), b, TOL["float32"],
+        upd_err = max(upd_err, check_close(a, b.to(dev), TOL["float32"],
                                            f"adamw.update {n}"))
     del params, params_cpu, state_k, state_p, g_p
+    secs["update_compare"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # PagedAdamW on the card: host-paged moments, page gather / scatter
     gen = torch.Generator(device=dev)
@@ -3393,6 +3620,7 @@ def phase_train_parity(dev, sz: Sizes, cfg):
         and after["page_scatter"] > before["page_scatter"]),
             "PagedAdamW did not page through the copy kernels")
     require(po.stats.prefetch_overlapped > 0, "PagedAdamW: no overlap")
+    secs["paged_adamw"] = time.perf_counter() - t0
     emit("train_parity", layers=pcfg.n_layers, d_model=pcfg.d_model,
          vocab=pcfg.vocab_size, dtype=pcfg.dtype, batch=sz.parity_batch,
          seq=sz.parity_seq, loss_kernel=float(loss_k),
@@ -3401,7 +3629,7 @@ def phase_train_parity(dev, sz: Sizes, cfg):
          grad_tolerance="1e-4 x max|ref| per leaf",
          adamw_update_max_abs_err=upd_err, adamw_lr=float(m_p["lr"]),
          kernel_path_seconds=kernel_s, plain_cpu_seconds=plain_s,
-         flash_launches={"fwd": fwd, "bwd": bwd},
+         seconds=secs, flash_launches={"fwd": fwd, "bwd": bwd},
          paged_adamw={"params": sum(t.numel() for t in small.values()),
                       "blocks_streamed": po.stats.blocks_streamed,
                       "faults": po.stats.faults,
@@ -4492,41 +4720,114 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int,
 
 # ----------------------------------------------------------------------- main
 # --stop-after's choices, in the order of the phases they end after
-STOP_AFTER = ("profile", "kernels", "dist_local", "spill_parity", "serve", "serve_danube",
-              "serve_hybrid", "serve_encdec", "serve_mla_moe", "serve_xlstm",
-              "remote_paging", "train", "train_mla", "train_hybrid",
-              "train_encdec", "train_xlstm")
-# phases that launch no kernel of this repo: they run while nvcc builds
-WHILE_BUILDING = ("serve_xlstm", "train_xlstm")
+STOP_AFTER = ("profile", "kernels", "serve_xlstm", "train_xlstm",
+              "remote_paging", "serve_hybrid_plain", "dist_local",
+              "dist_step", "spill_parity",
+              "serve", "serve_danube", "serve_hybrid", "serve_encdec",
+              "serve_mla_moe", "train", "train_mla", "train_hybrid",
+              "train_encdec")
+# host-bound phases that time no kernel of this repo (xLSTM's two, a
+# Python loop over tokens; the remote-paging simulation, whose one-row
+# copy timings are the exception; the hybrid's comparison with the plain
+# path): they run in a second process on the same card (``--side``),
+# started after the ``kernels`` phase and waited for after
+# ``serve_danube``; between the two the parent's phases time no kernel,
+# and every phase after the wait runs alone
+SIDE = ("serve_xlstm", "train_xlstm", "remote_paging", "serve_hybrid_plain")
+SIDE_FNS = {"serve_xlstm": phase_serve_xlstm,
+            "train_xlstm": phase_train_xlstm,
+            "remote_paging": phase_remote_paging,
+            "serve_hybrid_plain": phase_serve_hybrid_plain}
+
+
+def run_side(dev, sz: Sizes, names) -> None:
+    """The ``--side`` process: the phases ``names`` in order, crediting
+    launches to rows of their own; the last line (``side_done``) gives
+    each phase's seconds and its launches by kernel and path."""
+    import torch
+    from repro_torch import kernels
+    torch.zeros(1, device=dev)    # the allocator's state, before _free
+    rows = [{"name": n} for n in kernels.launch_counts()]
+    secs = {}
+    for name in names:
+        t0 = time.perf_counter()
+        SIDE_FNS[name](dev, sz, rows)
+        secs[name] = time.perf_counter() - t0
+    emit("side_done", seconds=secs,
+         launches_by_path={r["name"]: r["launches_by_path"] for r in rows
+                           if "launches_by_path" in r})
+
+
+def _die_with_parent() -> None:
+    """In the side process before it runs: the kernel kills it if the
+    parent dies (Linux ``prctl(PR_SET_PDEATHSIG, SIGKILL)``)."""
+    import ctypes
+    import signal
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+
+
+def _start_side(names):
+    """Start ``chip_smoke.py --side names``; a thread collects its
+    standard output (its standard error is the parent's)."""
+    import threading
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--side", ",".join(names)],
+                            stdout=subprocess.PIPE, text=True,
+                            preexec_fn=_die_with_parent)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout))
+    reader.start()
+    return proc, reader, lines
+
+
+def _join_side(side, table, secs: dict) -> None:
+    """Wait for the side process; raise if it failed.  Print its phases'
+    lines, credit its launches to ``table`` and its phases' seconds to
+    ``secs``."""
+    proc, reader, lines = side
+    rc = proc.wait()
+    reader.join()
+    require(rc == 0, f"the side phases failed (exit {rc}; their error is "
+            "above)")
+    done = [json.loads(ln) for ln in lines if '"side_done"' in ln]
+    require(len(done) == 1, "the side process gave no side_done line")
+    for ln in lines:
+        if '"side_done"' not in ln:
+            print(ln, end="", flush=True)
+    for name, by in done[0]["launches_by_path"].items():
+        for path, n in by.items():
+            _add_launches(table, path, {name: n}, (name,))
+    secs.update(done[0]["seconds"])
 
 
 def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
     """All phases after ``device``; returns the kernel table, or None when
-    ``stop_after`` names an earlier phase (a partial run while debugging).
-    The phases of ``WHILE_BUILDING`` that the run reaches go first, while
-    a thread waits on the compilers; every other phase waits for the
-    build.  Emits each phase's wall seconds (``phase_seconds``; ``build``
-    is the wait for the compilers after those phases) at the end."""
-    from concurrent.futures import ThreadPoolExecutor
+    ``stop_after`` names an earlier phase (a partial run while debugging;
+    ``STOP_AFTER`` gives the order, ``SIDE``'s phases in their second
+    process).  Emits each phase's wall seconds at the end
+    (``phase_seconds``: the side phases' overlap the parent's, ``total``
+    sums them, ``wall_seconds`` is the run's own, ``side_wait`` the
+    parent's wait for the side process)."""
     cfg = _arch_config(sz, sz.arch)
     secs: dict = {}
+    t_run = time.perf_counter()
+    side = table = None
     phase_fn = {"serve_danube": phase_serve_danube,
                 "serve_hybrid": phase_serve_hybrid,
                 "serve_encdec": phase_serve_encdec,
-                "serve_mla_moe": phase_serve_mla_moe,
-                "serve_xlstm": phase_serve_xlstm,
-                "remote_paging": phase_remote_paging,
-                "train_xlstm": phase_train_xlstm}
+                "serve_mla_moe": phase_serve_mla_moe}
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         secs[name] = time.perf_counter() - t0
+        if side is not None and side[0].poll() not in (None, 0):
+            _join_side(side, table, secs)   # the side process failed: raise
         return out
 
-    def done(result=None):
-        emit("phase_seconds", seconds=secs, total=sum(secs.values()))
-        return result
+    def reached(name) -> bool:
+        return not stop_after or \
+            STOP_AFTER.index(name) <= STOP_AFTER.index(stop_after)
 
     if stop_after == "profile":            # the profile alone, full depth
         from repro_torch.models import decoder
@@ -4534,58 +4835,52 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
         phase_profile(dev, sz, cfg, decoder.init_params(cfg, 0, device=dev),
                       steps=8)
         return None
-    last = STOP_AFTER.index(stop_after) if stop_after else len(STOP_AFTER)
-    early = [n for n in WHILE_BUILDING if STOP_AFTER.index(n) <= last]
-    with ThreadPoolExecutor(1) as pool:
-        building = pool.submit(_build_fields)
-        for name in early:
-            timed(name, phase_fn[name], dev, sz, None)
-        t0 = time.perf_counter()
-        built = building.result()           # raises the build's failure
-        secs["build"] = time.perf_counter() - t0
-    emit("build", **built, overlapped_with=early)
+    emit("build", **timed("build", _build_fields))
     table = timed("kernels", phase_kernels, dev, sz, cfg)
-    if stop_after == "kernels":
-        return done()
-    timed("dist_local", phase_dist_local, dev, sz, cfg, table)
-    if stop_after == "dist_local":
-        return done()
-    params, pcfg = timed("decode_parity", phase_decode_parity, dev, sz, cfg)
-    timed("spill_parity", phase_spill_parity, dev, sz, pcfg, params)
-    del params
-    if stop_after == "spill_parity":
-        return done()
-    params, scfg = timed("serve", phase_serve, dev, sz, cfg, table)
-    if with_profile:
-        phase_profile(dev, sz, scfg, params, steps=8)
-    del params
-    if stop_after == "serve":
-        return done()
-    for name in ("serve_danube", "serve_hybrid", "serve_encdec",
-                 "serve_mla_moe", "serve_xlstm", "remote_paging"):
-        if name not in early:
+    side_names = [n for n in SIDE if reached(n)]
+    side = _start_side(side_names) if side_names else None
+    try:
+        if reached("dist_local"):
+            timed("dist_local", phase_dist_local, dev, sz, cfg, table)
+        if reached("dist_step"):
+            timed("dist_step", phase_dist_step, dev, sz, table)
+        if reached("spill_parity"):
+            params, pcfg = timed("decode_parity", phase_decode_parity, dev,
+                                 sz, cfg)
+            timed("spill_parity", phase_spill_parity, dev, sz, pcfg, params)
+            del params
+        if reached("serve"):
+            params, scfg = timed("serve", phase_serve, dev, sz, cfg, table)
+            if with_profile:
+                phase_profile(dev, sz, scfg, params, steps=8)
+            del params
+        if reached("serve_danube"):
+            timed("serve_danube", phase_serve_danube, dev, sz, table)
+        if side is not None:
+            timed("side_wait", _join_side, side, table, secs)
+            side = None
+    finally:
+        if side is not None:                # a parent phase failed
+            side[0].kill()
+            side[0].wait()
+    for name in ("serve_hybrid", "serve_encdec", "serve_mla_moe"):
+        if reached(name):
             timed(name, phase_fn[name], dev, sz, table)
-        if stop_after == name:
-            return done()
-    timed("train_parity", phase_train_parity, dev, sz, cfg)
-    timed("train", phase_train, dev, sz, cfg, table, with_profile)
-    if stop_after == "train":
-        return done()
-    timed("train_mla", phase_train_mla, dev, sz, table)
-    if stop_after == "train_mla":
-        return done()
-    timed("train_hybrid", phase_train_hybrid, dev, sz, table)
-    if stop_after == "train_hybrid":
-        return done()
-    timed("train_encdec", phase_train_encdec, dev, sz, table, with_profile)
-    if stop_after == "train_encdec":
-        return done()
-    if "train_xlstm" not in early:
-        timed("train_xlstm", phase_train_xlstm, dev, sz, table)
-    if stop_after == "train_xlstm":
-        return done()
-    timed("train_moe", phase_train_moe, dev, sz, table, with_profile)
-    return done(table)
+    if reached("train"):
+        timed("train_parity", phase_train_parity, dev, sz, cfg)
+        timed("train", phase_train, dev, sz, cfg, table, with_profile)
+    if reached("train_mla"):
+        timed("train_mla", phase_train_mla, dev, sz, table)
+    if reached("train_hybrid"):
+        timed("train_hybrid", phase_train_hybrid, dev, sz, table)
+    if reached("train_encdec"):
+        timed("train_encdec", phase_train_encdec, dev, sz, table,
+              with_profile)
+    if not stop_after:
+        timed("train_moe", phase_train_moe, dev, sz, table, with_profile)
+    emit("phase_seconds", seconds=secs, total=sum(secs.values()),
+         wall_seconds=time.perf_counter() - t_run, side_process=side_names)
+    return None if stop_after else table
 
 
 def main() -> int:
@@ -4600,7 +4895,6 @@ def main() -> int:
     # full f32 products in every comparison (PyTorch's defaults, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device(dev)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", default="",
                     choices=("",) + STOP_AFTER,
@@ -4609,7 +4903,12 @@ def main() -> int:
                     help="after serve, profile a batch-1 decode step; after "
                          "train, train_encdec and train_moe, one training "
                          "step")
+    ap.add_argument("--side", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.side:                         # the second process of run()
+        run_side(dev, Sizes(), args.side.split(","))
+        return 0
+    smi = phase_device(dev)
     table = run(dev, Sizes(), args.stop_after, args.profile)
     if table is None:
         return 0

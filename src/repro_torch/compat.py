@@ -9,6 +9,10 @@
 * :func:`from_jax_params` turns the reference's params / decode-cache
   pytree, given as numpy arrays, into the port's nested dict of tensors —
   keys and the stacked ``(L, ...)`` layout unchanged, a pure copy.
+* :func:`axis_types_kwargs` and :func:`cost_analysis_dict` keep the
+  reference's names for the launch tooling: a DeviceMesh has no axis
+  types, and the port's cost analysis is a trace's
+  (``analysis.trace``), not a compiled executable's.
 """
 
 from __future__ import annotations
@@ -124,3 +128,17 @@ def from_jax_params(tree: Any, device: DeviceLike = None,
         return t
 
     return conv(tree)
+
+
+def axis_types_kwargs(n_axes: int) -> dict:
+    """``{}``: a torch DeviceMesh has no axis types (every mesh dim is what
+    the reference's ``AxisType.Auto`` asks for: the placements say it)."""
+    return {}
+
+
+def cost_analysis_dict(analysis) -> dict:
+    """The reference's ``{"flops", "bytes accessed"}`` of a traced step:
+    the dot FLOPs and the HBM-bytes estimate of an
+    ``analysis.hlo.HLOAnalysis`` made by ``analysis.trace``, per device."""
+    return {"flops": float(analysis.dot_flops),
+            "bytes accessed": float(analysis.hbm_bytes)}

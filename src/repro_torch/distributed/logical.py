@@ -25,6 +25,7 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 _STATE = threading.local()
 
@@ -134,18 +135,82 @@ def constrain(x, *names: str):
     for a plain tensor: in eager SPMD every rank already holds its own
     shard, and there is no compiler to hand a constraint to.  A DTensor on
     a DeviceMesh policy is redistributed to the placements of
-    :func:`spec_for`.
+    :func:`spec_for`.  An all-``None`` spec leaves the DTensor as it is,
+    unless it is ``Partial`` (a row-parallel matmul's result): that is
+    always reduced to the spec's placements, the reduction XLA inserts at
+    the reference's constraint.
     """
     pol = _current()
-    if pol is None:
+    if pol is None or not is_dtensor(x) or isinstance(pol[0], AbstractMesh) \
+            or len(names) != x.ndim:
         return x
-    if len(names) != x.ndim or isinstance(pol[0], AbstractMesh) \
-            or not is_dtensor(x):
-        return x
-    spec = spec_for(x.shape, names)
-    if spec is None or all(s is None for s in spec):
+    # a dim of size 1 (one row of a microbatch) is left whole: split over a
+    # mesh dim of size 1 it would be the same, but DTensor could then not
+    # fold it into a matmul's rows
+    spec = PartitionSpec(*(None if n == 1 else e for n, e in zip(
+        x.shape, spec_for(x.shape, names))))
+    if all(s is None for s in spec) and not any(
+            p.is_partial() for p in x.placements):
         return x
     return x.redistribute(pol[0], placements(pol[0], spec))
+
+
+def replicated(t, mesh):
+    """``t``, a tensor the step makes itself (the same values on every
+    rank), as a ``Replicate`` DTensor on ``mesh`` when that is a
+    DeviceMesh, with no collective; ``t`` itself for no mesh or an
+    :class:`AbstractMesh`."""
+    if mesh is None or isinstance(mesh, AbstractMesh):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def mesh_of(x):
+    """The DeviceMesh of a DTensor, else None."""
+    return x.device_mesh if is_dtensor(x) else None
+
+
+def placed_like(x, like):
+    """``x`` redistributed to the mesh and placements of the DTensor
+    ``like`` (a gradient to its parameter's: the data-parallel reduction
+    of a ``Partial`` gradient); ``x`` itself when ``like`` is plain."""
+    if not is_dtensor(like):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+class _GradLike(torch.autograd.Function):
+    """Identity forward; the backward lays the gradient out like the
+    forward input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_like(x):
+    """``x`` itself, whose gradient is laid out like ``x`` (a DTensor): the
+    placement GSPMD propagates to a gradient, where DTensor's backward may
+    leave it on other dims (a vocabulary-split logits' gradient split over
+    the batch instead, which makes the output projection's weight gradient
+    a full-vocabulary product on every rank).  A plain tensor, or one that
+    needs no gradient, as it is."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    return _GradLike.apply(x)
+
+
+def full(x):
+    """A DTensor's global value as a plain tensor (a ``Partial`` scalar
+    such as a loss reduced); a plain tensor as it is.  Differentiable."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def current_mesh():

@@ -10,6 +10,10 @@ the reference: the kernel's binding (``paged_attention.py`` /
 launches its kernel and nowhere else, so a run can show that it really
 went through the kernels.  ``flash_attention_bwd`` counts one per backward
 call (its three kernels launch together).
+
+A kernel takes one rank's local tensors: :func:`require_local` is each
+``ops.py`` wrapper's guard against a DTensor, on any device (the model's
+regions hand the wrappers ``.to_local()`` shards).
 """
 
 LAUNCHES = {"paged_attention": 0, "page_gather": 0, "page_scatter": 0,
@@ -23,3 +27,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def require_local(*tensors) -> None:
+    """Raise ``TypeError`` for a DTensor among ``tensors``."""
+    from torch.distributed.tensor import DTensor
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                "a kernel wrapper takes local tensors, not a DTensor "
+                f"({tuple(t.placements)} on {t.device_mesh}); call it from "
+                "a region that passes .to_local() shards")

@@ -4,6 +4,7 @@
 the kernels.  A CUDA tensor goes to the hand-written kernel (or raises —
 there is no fallback); a CPU tensor, and only a CPU tensor, takes the plain
 version.  ``scatter_pages`` updates ``pool`` **in place** and returns it.
+A DTensor raises ``TypeError`` on any device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import require_local
 from repro_torch.kernels.page_pack.page_pack import page_gather, page_scatter
 from repro_torch.kernels.page_pack.ref import (page_gather_ref,
                                                page_scatter_ref)
@@ -25,6 +27,7 @@ def _flat(pool):
 
 def gather_pages(pool, indices, out: Optional[torch.Tensor] = None):
     """(P, ...) pool, (n,) indices -> (n, ...) pages."""
+    require_local(pool, indices, *(() if out is None else (out,)))
     flat = _flat(pool)
     idx = indices.to(torch.int32)
     shape = (idx.shape[0],) + tuple(pool.shape[1:])
@@ -42,6 +45,7 @@ def gather_pages(pool, indices, out: Optional[torch.Tensor] = None):
 
 def scatter_pages(pool, indices, block):
     """Write ``block`` (n, ...) into ``pool`` (P, ...) at ``indices``."""
+    require_local(pool, indices, block)
     flat = _flat(pool)
     idx = indices.to(torch.int32)
     if not block.is_contiguous():

@@ -3,9 +3,10 @@
 Training / prefill attention (:func:`apply_attention`) calls the
 hand-written flash-attention kernels through
 ``kernels.flash_attention.ops.flash_attention``; the paged decode path calls
-the hand-written kernel through ``kernels.paged_attention.ops.paged_attention``,
-on the whole batch or, under a data-parallel mesh, on each rank's shard
-(:func:`_paged_update_and_attend_dist`).
+the hand-written kernel through ``kernels.paged_attention.ops.paged_attention``.
+Plain tensors go to the wrappers whole; DTensors go through a region
+(:func:`_flash_dist`, :func:`_paged_update_and_attend_dist`) that hands
+the wrappers each rank's local shards.
 """
 
 from __future__ import annotations
@@ -42,6 +43,43 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
     return p
 
 
+def _split_heads(t, n: int, hd: int, seq_split: bool = False):
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor split over a mesh dim
+    whose size does not divide ``n`` cannot be unflattened in place: that
+    dim moves to the sequence (``seq_split``, when it divides S: the
+    reference's ``q_seq`` rule) or is gathered (K/V stay replicated)."""
+    B, S, _ = t.shape
+    if logical.is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        pl = list(t.placements)
+        for i, p in enumerate(pl):
+            if p.is_shard(2) and n % mesh.size(i):
+                seq = seq_split and S % mesh.size(i) == 0 \
+                    and not any(o.is_shard(1) for o in pl)
+                pl[i] = Shard(1) if seq else Replicate()
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(B, S, n, hd)
+
+
+def _merge_heads(t):
+    """(B, S, n, hd) -> (B, S, n * hd) for the row-parallel output
+    projection.  A DTensor split over the sequence has that mesh dim moved
+    to the features: DTensor can neither fold a batch and a sequence split
+    into one matmul dim nor, in the backward, unflatten a feature split
+    that does not divide ``n``."""
+    B, S, n, hd = t.shape
+    t = t.reshape(B, S, n * hd)
+    if logical.is_dtensor(t) and any(p.is_shard(1) for p in t.placements):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        t = t.redistribute(mesh, [
+            (Shard(2) if n * hd % mesh.size(i) == 0 else Replicate())
+            if p.is_shard(1) else p for i, p in enumerate(t.placements)])
+    return t
+
+
 def _qkv(p, cfg: ModelConfig, x, positions, rope=None):
     """``rope``: precomputed ``rope_tables`` for ``positions`` (made here
     when absent)."""
@@ -52,9 +90,9 @@ def _qkv(p, cfg: ModelConfig, x, positions, rope=None):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KVH, hd)
-    v = v.reshape(B, S, KVH, hd)
+    q = _split_heads(q, H, hd, seq_split=True)
+    k = _split_heads(k, KVH, hd)
+    v = _split_heads(v, KVH, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
@@ -77,11 +115,11 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *,
     layers of a forward; made here when absent)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions, rope)
-    out = flash_attention(q, k, v, causal=causal,
-                          window=cfg.sliding_window if causal else 0,
-                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = _flash_dist(q, k, v, causal=causal,
+                      window=cfg.sliding_window if causal else 0,
+                      q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = constrain(out, "batch", "q_seq", "heads", "head_dim")
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = _merge_heads(out) @ p["wo"]
     out = constrain(out, "batch", "seq", "embed")
     if return_kv:
         return out, (k, v)
@@ -135,6 +173,25 @@ def data_shards(batch: int, pages: int):
     return mesh, daxes, dsize
 
 
+def _data_split(mesh, batch: int, pages: int) -> tuple:
+    """(data axes, data size) of a kernel's region on ``mesh``: those of
+    :func:`data_shards` when the active rules are on this mesh, else
+    (None, 1), every rank taking the whole batch."""
+    shards = data_shards(batch, pages)
+    if shards is None or shards[0] != mesh:
+        return None, 1
+    return shards[1], shards[2]
+
+
+def _head_split(mesh, heads: int, kv_heads: int):
+    """``"model"`` when the mesh has that dim and both head counts divide
+    its size (GQA grouping stays shard-local), else None."""
+    if "model" not in mesh.mesh_dim_names:
+        return None
+    m = logical.mesh_shape(mesh)["model"]
+    return "model" if heads % m == 0 and kv_heads % m == 0 else None
+
+
 def data_rank(mesh, daxes) -> int:
     """This rank's row-major coordinate over the data axes, in the mesh's
     order: the shard of a dim that DTensor splits over them."""
@@ -176,37 +233,78 @@ def _paged_update_and_attend_dist(q1, k1, v1, k_pool, v_pool, page_table,
     Heads also split over ``'model'`` when both the query and KV head
     counts divide it (GQA grouping stays shard-local).
 
-    The inputs are DTensors on the active DeviceMesh; each is laid out as
-    the region wants it, the shard-local body runs on ``.to_local()`` (a
-    CUDA shard launches the paged-attention kernel, a CPU one runs its
-    plain version), and the outputs come back as DTensors with the
-    region's placements.  Without a data split (the conditions of
-    :func:`data_shards`), or on plain tensors, which are whole on every
-    rank, the local body runs on the whole batch with ``slots``.
+    Plain tensors, which are whole on every rank, go to the local body on
+    the whole batch with ``slots``.  DTensors always go through the
+    region: each is laid out as the region wants it, the shard-local body
+    runs on ``.to_local()`` (a CUDA shard launches the paged-attention
+    kernel, a CPU one runs its plain version), and the outputs come back
+    as DTensors with the region's placements.  Without a data split (the
+    conditions of :func:`data_shards`) every rank takes the whole batch and
+    pool.  A pool whose placements differ from the region's was copied by
+    the layout, so the written pool is copied back into it: the caller's
+    pools hold the new token's K/V either way.
     Returns (out, k_pool, v_pool).
     """
-    shards = data_shards(q1.shape[0], k_pool.shape[0])
-    if shards is None or not logical.is_dtensor(q1):
+    if not logical.is_dtensor(q1):
         return _paged_update_and_attend(q1, k1, v1, k_pool, v_pool,
                                         page_table, lengths, window, slots)
     from torch.distributed.tensor import DTensor
-    mesh, d, dsize = shards
-    msize = logical.mesh_shape(mesh).get("model", 1)
-    H, KVH = q1.shape[1], k1.shape[1]
-    head_tp = "model" in mesh.mesh_dim_names and H % msize == 0 \
-        and KVH % msize == 0
-    h = "model" if head_tp else None
+    mesh = q1.device_mesh
+    d, dsize = _data_split(mesh, q1.shape[0], k_pool.shape[0])
+    h = _head_split(mesh, q1.shape[1], k1.shape[1])
     row = logical.placements(mesh, P(d, h))
     pool = logical.placements(mesh, P(d, None, h))
     vec = logical.placements(mesh, P(d))
     local = [x.redistribute(mesh, pl).to_local() for x, pl in zip(
         (q1, k1, v1, k_pool, v_pool, page_table, lengths),
         (row, row, row, pool, pool, vec, vec))]
-    out, kp, vp = paged_shard_local(*local, window, data_rank(mesh, d),
-                                    k_pool.shape[0] // dsize)
-    return (DTensor.from_local(out, mesh, row, run_check=False),
-            DTensor.from_local(kp, mesh, pool, run_check=False),
-            DTensor.from_local(vp, mesh, pool, run_check=False))
+    out, kp, vp = paged_shard_local(
+        *local, window, data_rank(mesh, d) if d else 0,
+        k_pool.shape[0] // dsize)
+    _write_back(((k_pool, kp), (v_pool, vp)), mesh, pool)
+    return tuple(DTensor.from_local(x, mesh, pl, run_check=False)
+                 for x, pl in ((out, row), (kp, pool), (vp, pool)))
+
+
+def _flash_dist(q, k, v, *, causal: bool, window: int, q_chunk: int,
+                kv_chunk: int):
+    """The flash kernels' region for training / prefill attention.
+
+    Plain tensors go to ``flash_attention`` as they are.  DTensors are laid
+    out as the region wants them and the kernel (or, on the CPU, its plain
+    version) runs on each rank's ``.to_local()`` shards: batch over the
+    data axes when it splits evenly (:func:`data_shards`), heads over
+    ``'model'`` when both head counts divide it, else the query sequence
+    over ``'model'`` (the reference's ``q_seq`` rule), each rank's rows at
+    their offset and K/V whole.  ``to_local`` and ``from_local`` are
+    differentiable, so the backward kernels get local tensors too; under
+    the sequence split each rank's K/V gradient is a part of the sum
+    (``Partial``).  Returns a DTensor with the query's region placements.
+    """
+    kw = dict(causal=causal, window=window, q_chunk=q_chunk,
+              kv_chunk=kv_chunk)
+    if not logical.is_dtensor(q):
+        return flash_attention(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = q.device_mesh
+    B, S, H, _ = q.shape
+    d, _ = _data_split(mesh, B, B)
+    h = _head_split(mesh, H, k.shape[2])
+    m = logical.mesh_shape(mesh).get("model", 1)
+    s = "model" if h is None and m > 1 and S == k.shape[1] \
+        and S % m == 0 else None
+    qp = logical.placements(mesh, P(d, s, h))
+    kvp = logical.placements(mesh, P(d, None, h))
+    grad = kvp
+    if s:
+        grad = list(kvp)
+        grad[mesh.mesh_dim_names.index("model")] = Partial()
+        kw["q_offset"] = mesh.get_local_rank("model") * (S // m)
+    out = flash_attention(
+        q.redistribute(mesh, qp).to_local(),
+        *(t.redistribute(mesh, kvp).to_local(grad_placements=tuple(grad))
+          for t in (k, v)), **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
 def apply_attention_decode_paged(p, cfg: ModelConfig, x, k_pool, v_pool,
@@ -232,6 +330,65 @@ def apply_attention_decode_paged(p, cfg: ModelConfig, x, k_pool, v_pool,
     return out[:, None, :], k_pool, v_pool
 
 
+def _ring_slot(lengths, window: int):
+    """(1,) ring slot the whole batch writes: that of row 0, ``pos[0] %
+    W`` (decode steps are in lockstep)."""
+    return torch.remainder(lengths[:1] - 1, window).long()
+
+
+def _ring_update_and_attend(q1, k1, v1, k_ring, v_ring, lengths,
+                            window: int, slot):
+    """Write the new token's K/V at ``slot`` (:func:`_ring_slot`), then
+    attend over the ring; the rings are updated in place (and
+    returned)."""
+    k_ring.index_copy_(1, slot, k1[:, None])
+    v_ring.index_copy_(1, slot, v1[:, None])
+    return ring_buffer_attention(q1, k_ring, v_ring, lengths, window), \
+        k_ring, v_ring
+
+
+def _ring_update_and_attend_dist(q1, k1, v1, k_ring, v_ring, lengths,
+                                 window: int):
+    """The ring decode's region, laid out as the paged one's: plain tensors
+    go to the body whole; DTensors run it on each rank's ``.to_local()``
+    rows (batch over the data axes when it splits, heads over ``'model'``
+    when both head counts divide it), and a ring laid out otherwise gets
+    the written ring copied back.  The slot is the whole batch's row 0's,
+    as without the region (not each rank's first row).  Returns (out,
+    k_ring, v_ring)."""
+    slot = _ring_slot(lengths, k_ring.shape[1])
+    if not logical.is_dtensor(q1):
+        return _ring_update_and_attend(q1, k1, v1, k_ring, v_ring, lengths,
+                                       window, slot)
+    from torch.distributed.tensor import DTensor
+    mesh = q1.device_mesh
+    d, _ = _data_split(mesh, q1.shape[0], q1.shape[0])
+    h = _head_split(mesh, q1.shape[1], k1.shape[1])
+    row = logical.placements(mesh, P(d, h))
+    ring = logical.placements(mesh, P(d, None, h))
+    local = [x.redistribute(mesh, pl).to_local() for x, pl in zip(
+        (q1, k1, v1, k_ring, v_ring, lengths),
+        (row, row, row, ring, ring, logical.placements(mesh, P(d))))]
+    out, kr, vr = _ring_update_and_attend(*local, window,
+                                          logical.full(slot))
+    _write_back(((k_ring, kr), (v_ring, vr)), mesh, ring)
+    return DTensor.from_local(out, mesh, row, run_check=False), k_ring, \
+        v_ring
+
+
+def _write_back(pairs, mesh, placements: tuple) -> None:
+    """Copy each buffer a region wrote (local, laid out as ``placements``)
+    into the caller's DTensor where the region's layout made a copy: the
+    decoder drops the buffers a region returns and relies on its own
+    being written in place."""
+    from torch.distributed.tensor import DTensor
+    for cached, written in pairs:
+        if tuple(cached.placements) != placements:
+            cached.copy_(DTensor.from_local(
+                written, mesh, placements, run_check=False).redistribute(
+                mesh, cached.placements))
+
+
 def apply_attention_decode_ring(p, cfg: ModelConfig, x, k_ring, v_ring,
                                 lengths, rope=None):
     """One-token decode over a sliding-window ring buffer (SWA archs).
@@ -242,14 +399,10 @@ def apply_attention_decode_ring(p, cfg: ModelConfig, x, k_ring, v_ring,
     place.  Returns (out, k_ring, v_ring).
     """
     B = x.shape[0]
-    W = k_ring.shape[1]
     pos = lengths - 1
     q, k, v = _qkv(p, cfg, x, pos[:, None], rope)
-    q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
-    slot = torch.remainder(pos[:1], W).long()             # (1,)
-    k_ring.index_copy_(1, slot, k1[:, None])
-    v_ring.index_copy_(1, slot, v1[:, None])
-    out = ring_buffer_attention(q1, k_ring, v_ring, lengths,
-                                cfg.sliding_window)
+    out, k_ring, v_ring = _ring_update_and_attend_dist(
+        q[:, 0], k[:, 0], v[:, 0], k_ring, v_ring, lengths,
+        cfg.sliding_window)
     out = out.reshape(B, cfg.n_heads * cfg.head_dim) @ p["wo"]
     return out[:, None, :], k_ring, v_ring

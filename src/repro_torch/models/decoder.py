@@ -26,7 +26,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
-from repro_torch.distributed.logical import constrain
+from repro_torch.distributed.logical import (constrain, grad_like, mesh_of,
+                                             replicated)
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (apply_attention,
@@ -207,7 +208,8 @@ def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
     x = params["embed"][tokens.long()] if embeddings is None else embeddings
     x = constrain(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = replicated(torch.arange(S, device=x.device).expand(B, S),
+                           mesh_of(x))
     rope = None if cfg.family == "mla_moe" else \
         rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     aux_total = 0.0
@@ -233,7 +235,7 @@ def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
                 else None
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
+    logits = grad_like(x @ head)
     if collect_kv:
         return logits, aux_total, kv_stacks
     return logits, aux_total
@@ -268,7 +270,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     * SWA archs: ring buffers (L, B, W, KVH, hd) — the resident window;
     * MLA: paged latent pools (L, P, page, kv_lora_rank / rope) + page
       table.
-    All include ``lengths`` (B,) of tokens seen so far.
+    All include ``lengths`` (B,) of tokens seen so far.  Under logical
+    rules on a DeviceMesh each leaf is a DTensor laid out by
+    ``distributed.sharding.cache_shardings``.
     """
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.dtype)
@@ -293,7 +297,21 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["k_pool"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v_pool"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["page_table"] = _identity_page_table(batch, max_len, ps, dev)
-    return cache
+    return _laid_out(cache, batch)
+
+
+def _laid_out(cache: dict, batch: int) -> dict:
+    """Under logical rules on a DeviceMesh, every leaf of a new cache as a
+    DTensor with the placements of ``cache_shardings`` (the page table and
+    ``lengths`` replicated); otherwise the cache as it is."""
+    from repro_torch.distributed import logical
+    mesh = logical.current_mesh()
+    if mesh is None or isinstance(mesh, logical.AbstractMesh):
+        return cache
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.sharding import cache_shardings
+    return tree_map(lambda t, sh: distribute_tensor(t, mesh, sh.placements),
+                    cache, cache_shardings(cache, mesh, batch))
 
 
 def _identity_page_table(batch: int, max_len: int, ps: int, device="cpu"):
@@ -313,7 +331,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     nothing here is differentiated.
     """
     with torch.no_grad():
-        x = params["embed"][tokens.long()]
+        x = constrain(params["embed"][tokens.long()], "batch", "seq",
+                      "embed")
         lengths = cache["lengths"] + 1
         new_cache = dict(cache, lengths=lengths)
         mla = cfg.family == "mla_moe"
@@ -352,14 +371,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
                         lp["attn"], cfg, h, new_cache["k_pool"][li],
                         new_cache["v_pool"][li], cache["page_table"],
                         lengths, rope, slots)
-                x = x + attn
+                x = constrain(x + attn, "batch", "seq", "embed")
                 h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
                 if moe:
                     y, _ = moe_mod.apply_moe(lp["moe"], cfg, h,
                                              dropless=True)
                 else:
                     y = apply_mlp(lp["mlp"], h, cfg.act)
-                x = x + y
+                x = constrain(x + y, "batch", "seq", "embed")
             layer_idx += n
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.logical import constrain
+from repro_torch.distributed.logical import (constrain, is_dtensor, mesh_of,
+                                             replicated)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -47,9 +48,25 @@ def init_norm(d: int, kind: str = "rms", device="cpu"):
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
+def _whole_features(x):
+    """``x`` with its last dim whole and summed on every rank: a norm reads
+    the whole feature vector.  A DTensor left split there by an all-``None``
+    constraint (a batch-1 decode's embedding) is gathered, and a
+    ``Partial`` one (a projection whose contraction dim is split, as
+    ZeRO-3 splits it) is reduced."""
+    if not is_dtensor(x) or not any(p.is_shard(x.ndim - 1) or p.is_partial()
+                                    for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(x.ndim - 1) or p.is_partial() else p
+        for p in x.placements])
+
+
 def apply_norm(params, x, kind: str = "rms", eps: float = 1e-5):
     """Computed in f32 and cast back.  The RMS form is one fused
     ``F.rms_norm`` call: x · rsqrt(mean(x²) + eps) · scale."""
+    x = _whole_features(x)
     xf = x.float()
     if kind == "rms":
         y = F.rms_norm(xf, xf.shape[-1:], params["scale"], eps)
@@ -63,6 +80,7 @@ def apply_norm(params, x, kind: str = "rms", eps: float = 1e-5):
 
 def rms_head_norm(scale, x, eps: float = 1e-5):
     """Per-head RMS norm for qk_norm (Qwen3 / Chameleon)."""
+    x = _whole_features(x)
     xf = x.float()
     return F.rms_norm(xf, xf.shape[-1:], scale, eps).to(x.dtype)
 
@@ -85,8 +103,10 @@ def rope_tables(positions, head_dim: int, theta: float = 10000.0):
 
     They depend on the positions only, so a decode step makes them once
     and every layer (and both q and k) reuses them.  The frequencies are
-    made in float64 by numpy and cast to f32."""
-    freqs = _rope_freqs_on(head_dim, float(theta), positions.device)
+    made in float64 by numpy and cast to f32.  For DTensor positions the
+    frequencies are replicated on their mesh."""
+    freqs = replicated(_rope_freqs_on(head_dim, float(theta),
+                                      positions.device), mesh_of(positions))
     angles = positions[..., :, None].float() * freqs      # (..., S, hd/2)
     return (torch.cos(angles)[..., :, None, :],
             torch.sin(angles)[..., :, None, :])
@@ -129,7 +149,10 @@ def apply_mlp(p, x, act: str):
             h = h + p["bi"]
         h = F.gelu(h, approximate="tanh")
     h = constrain(h, "batch", "seq", "ff")
-    y = h @ p["wo"]
+    # the row-parallel product is reduced before the bias and the residual
+    # join it: added to a replicated tensor, a Partial sum would make the
+    # backward's gradient Partial too, and its matmuls gather the weight
+    y = constrain(h @ p["wo"], "batch", "seq", "embed")
     if "bo" in p:
         y = y + p["bo"]
     return y

@@ -6,12 +6,17 @@
 
 The reference chose this form so a vocabulary-sharded lm_head never
 gathers the logits; the port keeps it so the two packages compute the same
-sums in the same order.  Arithmetic in f32 from the logits on.
+sums in the same order.  Arithmetic in f32 from the logits on.  For
+DTensor logits the zero is replicated on their mesh and the vocabulary
+iota split like their vocabulary dim, so the one-hot mask is never whole
+on a rank.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.logical import mesh_of, replicated
 
 
 def masked_xent(logits, labels, aux=0.0):
@@ -20,10 +25,16 @@ def masked_xent(logits, labels, aux=0.0):
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-    vocab_iota = torch.arange(V, device=logits.device)
+    mesh = mesh_of(logits)
+    vocab_iota = replicated(torch.arange(V, device=logits.device), mesh)
+    if mesh is not None:       # split like the logits' vocabulary dim
+        from torch.distributed.tensor import Replicate, Shard
+        vocab_iota = vocab_iota.redistribute(mesh, [
+            Shard(0) if p.is_shard(logits.ndim - 1) else Replicate()
+            for p in logits.placements])
     onehot_mask = vocab_iota == labels.long().clamp(min=0)[..., None]
-    sel = torch.where(onehot_mask, lf, torch.zeros((), device=lf.device)
-                      ).sum(dim=-1)
+    zero = replicated(torch.zeros((), device=lf.device), mesh)
+    sel = torch.where(onehot_mask, lf, zero).sum(dim=-1)
     nll = lse - sel
     mask = labels >= 0
     loss = (nll * mask).sum() / mask.sum().clamp(min=1)

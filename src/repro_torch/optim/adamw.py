@@ -10,7 +10,11 @@ parameters and both moments (about 29 GB at Qwen3-14B's width and 4
 layers) beside the first.
 Each leaf is updated in chunks of ``CHUNK_ELEMS`` elements, so the f32
 temporaries of the largest leaf (the embedding) stay small; the update is
-elementwise, so chunking changes no result.
+elementwise, so chunking changes no result.  For DTensor parameters the
+moments are made like them (and must be laid out like them: an update in a
+redistributed copy would be lost), each gradient is laid out like its
+parameter, and the update runs on the local shards, which then match
+element for element.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.logical import full, is_dtensor, placed_like
 from repro_torch.tree import tree_leaves, tree_map
 
 CHUNK_ELEMS = 1 << 24
@@ -48,7 +53,7 @@ def init(cfg: AdamWConfig, params) -> AdamWState:
     dev = tree_leaves(params)[0].device
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
@@ -74,7 +79,7 @@ def update(cfg: AdamWConfig, state: AdamWState, params, grads):
     and moments) are updated in place and returned."""
     state.step.add_(1)
     step = state.step
-    gnorm = global_norm(grads)
+    gnorm = full(global_norm(grads))
     scale = torch.clamp(cfg.grad_clip / gnorm.clamp(min=1e-12), max=1.0) \
         if cfg.grad_clip > 0 else 1.0
     lr = cfg.schedule(step) if cfg.schedule is not None else cfg.lr
@@ -96,6 +101,13 @@ def update(cfg: AdamWConfig, state: AdamWState, params, grads):
 
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.mu), tree_leaves(state.nu)):
+        if is_dtensor(p):
+            # a moment laid out otherwise would be updated in a copy
+            if not tuple(m.placements) == tuple(v.placements) \
+                    == tuple(p.placements):
+                raise ValueError("AdamW: moments laid out unlike their "
+                                 f"parameter ({p.placements})")
+            p, g, m, v = (t.to_local() for t in (p, placed_like(g, p), m, v))
         for chunk in zip(_chunks(p, True), _chunks(g, False),
                          _chunks(m, True), _chunks(v, True)):
             upd(*chunk)

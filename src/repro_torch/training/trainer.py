@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.distributed.logical import full, is_dtensor, placed_like
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import model_for
 from repro_torch.optim import adamw
@@ -49,19 +50,44 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
 def value_and_grad(loss_fn, params, *args):
     """(loss, grads) of ``loss_fn(params, *args)`` with respect to every
     leaf of ``params``; the params themselves are not marked as requiring
-    grad (detached views are), so they can be updated in place after."""
+    grad (detached views are), so they can be updated in place after.
+    Under DTensor parameters the loss is reduced to a plain scalar first,
+    and each gradient is laid out like its parameter (the data-parallel
+    all-reduce XLA inserts)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = loss_fn(tree_unflatten(params, leaves), *args)
+    loss = full(loss_fn(tree_unflatten(params, leaves), *args))
     grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    return loss.detach(), tree_unflatten(
+        params, [placed_like(g, p) for g, p in zip(grads, leaves)])
+
+
+def microbatches(a, m: int):
+    """``a`` (B, ...) as (m, B/m, ...): microbatch i is rows ``[i B/m,
+    (i+1) B/m)`` of the global batch.  A DTensor batch's rows over the data
+    ranks are not the microbatches' rows: it is gathered, split, and each
+    microbatch's rows laid out over the same ranks again (a slice of the
+    gathered batch, no further collective)."""
+    if not is_dtensor(a):
+        return a.reshape(m, a.shape[0] // m, *a.shape[1:])
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = a.device_mesh, a.placements
+    a = a.redistribute(mesh, [Replicate()] * mesh.ndim)
+    rows = a.shape[0] // m
+    a = a.reshape(m, rows, *a.shape[1:])
+    # a microbatch of one row, or one that does not split, stays whole
+    return a.redistribute(mesh, [
+        Shard(p.dim + 1) if p.is_shard() and rows > 1
+        and rows % mesh.size(i) == 0 else Replicate()
+        for i, p in enumerate(pl)])
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """(params, opt_state, tokens, labels) -> (params, opt_state, metrics).
 
     tokens/labels: (global_batch, seq).  With ``microbatches = m`` the
-    batch is split on axis 0 and gradients accumulate in fp32, then are
-    divided by m.
+    batch is split on axis 0 (microbatch i is rows ``[i B/m, (i+1) B/m)``
+    of the global batch, DTensor or not) and gradients accumulate in fp32,
+    laid out like their parameters, then are divided by m.
     """
     loss_fn = make_loss_fn(cfg, tcfg)
 
@@ -70,12 +96,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         if m == 1:
             l, grads = value_and_grad(loss_fn, params, tokens, labels, *extra)
         else:
-            B = tokens.shape[0]
-            split = lambda a: a.reshape(m, B // m, *a.shape[1:])  # noqa: E731
-            xs = (split(tokens), split(labels)) + tuple(
-                split(e) for e in extra)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            xs = tuple(microbatches(a, m) for a in (tokens, labels) + extra)
+            grads = tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             lsum = 0.0
             for i in range(m):
                 l, g = value_and_grad(loss_fn, params, *(x[i] for x in xs))

@@ -40,7 +40,7 @@ VERBATIM = [
     "lint/cli.py", "lint/conformance.py", "lint/determinism.py",
     "lint/model.py", "lint/stats_coverage.py", "lint/typed_errors.py",
     "lint/__main__.py",
-    "distributed/fault_tolerance.py",
+    "distributed/fault_tolerance.py", "analysis/hlo.py",
     "api/__init__.py", "api/memory.py", "api/completion.py",
     "api/config.py", "api/fabric.py",
     "testing/__init__.py", "testing/traffic.py", "testing/invariants.py",
@@ -142,13 +142,12 @@ def _top_level_names(path: pathlib.Path) -> set[str]:
     return names
 
 
-# reference names with no twin, each by name: the jax-version shims of
-# compat.py.  axis_types_kwargs and cost_analysis_dict serve the launch
-# tooling and come over with it; import_shard_map has none to come: torch
-# has no shard_map, and the port's shard-local bodies run once per rank
+# reference names with no twin, each by name: compat.py's import_shard_map
+# has none to come: torch has no shard_map, and the port's shard-local
+# bodies run once per rank (axis_types_kwargs and cost_analysis_dict came
+# over with the launch tooling)
 NAMES_NOT_CARRIED = {
-    "compat.py": {"axis_types_kwargs", "cost_analysis_dict",
-                  "import_shard_map"},
+    "compat.py": {"import_shard_map"},
 }
 
 TWINS = sorted(p.relative_to(REF).as_posix() for p in REF.rglob("*.py")
@@ -164,10 +163,17 @@ def test_twin_keeps_the_reference_public_names(rel):
     assert missing == NAMES_NOT_CARRIED.get(rel, set()), rel
 
 
-def test_exceptions_to_the_public_names_are_three():
-    assert sum(map(len, NAMES_NOT_CARRIED.values())) == 3
+def test_the_one_exception_to_the_public_names_is_import_shard_map():
+    assert NAMES_NOT_CARRIED == {"compat.py": {"import_shard_map"}}
     for rel, names in NAMES_NOT_CARRIED.items():
         assert names <= _public_definitions(REF / rel)
+
+
+def test_every_reference_module_has_a_twin():
+    """``comm`` of the two file lists: no reference file without a twin."""
+    missing = sorted(p.relative_to(REF).as_posix() for p in REF.rglob("*.py")
+                     if not (PORT / p.relative_to(REF)).is_file())
+    assert missing == []
 
 
 def test_restored_names_are_the_port_s_own():
@@ -230,6 +236,7 @@ def test_importing_the_launcher_loads_neither_jax_nor_the_reference():
         "import repro_torch.api, repro_torch.testing, repro_torch.lint\n"
         "import repro_torch.npr, repro_torch.vmem.remote\n"
         "import repro_torch.core.experiments, repro_torch.core.firehose\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis.trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -279,9 +286,26 @@ def test_no_build_or_device_decision_at_import():
 
 
 def test_ops_wrappers_have_no_fallback():
-    """No try/except around a build or a launch in the kernel packages."""
+    """No try/except around a build or a launch in the kernel packages,
+    and every public function of an ``ops.py`` wrapper starts with the
+    DTensor check (``require_local``, a plain ``isinstance`` test: no
+    exception caught either)."""
     for path in (PORT / "kernels").rglob("*.py"):
         tree = ast.parse(path.read_text())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)
                  and n.handlers]
         assert not tries, f"{path.relative_to(ROOT)} catches exceptions"
+    wrappers = sorted((PORT / "kernels").glob("*/ops.py"))
+    assert len(wrappers) == 3
+    for path in wrappers:
+        fns = [n for n in ast.parse(path.read_text()).body
+               if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")]
+        assert fns, path
+        for fn in fns:
+            body = fn.body[1:] if isinstance(fn.body[0], ast.Expr) \
+                and isinstance(fn.body[0].value, ast.Constant) else fn.body
+            first = body[0]
+            assert isinstance(first, ast.Expr) and isinstance(
+                first.value, ast.Call) and getattr(
+                first.value.func, "id", "") == "require_local", \
+                f"{path.relative_to(ROOT)}::{fn.name}"

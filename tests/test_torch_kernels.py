@@ -653,6 +653,57 @@ class TestWrappersNeverFallBack:
             fa_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
+@pytest.fixture
+def one_rank_mesh():
+    """A one-dim DeviceMesh over a one-rank gloo group, torn down after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+class TestNoDTensorReachesAKernel:
+    """Every ``ops.py`` wrapper raises ``TypeError`` for a DTensor, whatever
+    the device of its local tensor (``meta`` would otherwise go to the
+    kernel binding): the model's regions hand the wrappers local shards."""
+
+    @staticmethod
+    def _d(mesh, t, device):
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(t.to(device), mesh, [Replicate()],
+                                  run_check=False)
+
+    @pytest.mark.parametrize("device", ["cpu", "meta"])
+    def test_paged_attention(self, one_rank_mesh, device):
+        q = self._d(one_rank_mesh, torch.zeros((1, 4, 16)), device)
+        pool = torch.zeros((2, 4, 4, 16), device=device)
+        with pytest.raises(TypeError, match="DTensor"):
+            paged_attention(q, pool, pool,
+                            torch.zeros((1, 2), dtype=torch.int32),
+                            torch.ones((1,), dtype=torch.int32))
+
+    @pytest.mark.parametrize("device", ["cpu", "meta"])
+    @pytest.mark.parametrize("fn", ["gather_pages", "scatter_pages"])
+    def test_page_pack(self, one_rank_mesh, device, fn):
+        pool = self._d(one_rank_mesh, torch.zeros((4, 8)), device)
+        idx = torch.zeros((2,), dtype=torch.int32)
+        args = (pool, idx) if fn == "gather_pages" \
+            else (pool, idx, torch.zeros((2, 8)))
+        with pytest.raises(TypeError, match="DTensor"):
+            getattr(pack_ops, fn)(*args)
+
+    @pytest.mark.parametrize("device", ["cpu", "meta"])
+    def test_flash_attention(self, one_rank_mesh, device):
+        q = torch.zeros((1, 8, 2, 16), device=device)
+        kv = self._d(one_rank_mesh, torch.zeros((1, 8, 1, 16)), device)
+        with pytest.raises(TypeError, match="DTensor"):
+            fa_ops.flash_attention(q, kv, kv)
+
+
 class TestFlashRoute:
     """One route per dtype: bf16 to the tensor-core kernels, f32 to the
     CUDA-core kernels, anything else raises (no route falls back to

@@ -625,7 +625,7 @@ class TestCli:
 
     def test_gate_as_a_module(self):
         """``python -m repro_torch.lint src tests chip_smoke.py``: exit 0,
-        no finding, the 14 suppressions used, every block transition
+        no finding, the 16 suppressions used, every block transition
         extracted and the model explored in full."""
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.lint", "src", "tests",
@@ -635,7 +635,7 @@ class TestCli:
         assert r.returncode == 0, r.stdout + r.stderr
         assert r.stdout == ""
         assert re.search(r"^repro_torch\.lint: \d+ files, 15 rules, "
-                         r"0 findings, 14 suppressed$", r.stderr, re.M)
+                         r"0 findings, 16 suppressed$", r.stderr, re.M)
         assert ("repro_torch.lint: conformance extracted 11/11 block "
                 "transitions across 4 lifecycles; model explored 832 "
                 "states over 48 scenarios") in r.stderr
