@@ -63,6 +63,18 @@ Phases, one JSON line each:
                      before, read just after) equal and non-zero, logits,
                      pools, loss and updated parameters within the bf16
                      tolerance, bits equal or not, the phase's seconds;
+3d. ``dist_families`` the same for the five other families at published
+                     width (``Sizes.dist_family_*``): Mixtral-8x7B,
+                     DeepSeek-V3, Zamba2-7B and xLSTM-125M here,
+                     Whisper-medium in the side process
+                     (``dist_families_side``); launches equal, and
+                     non-zero for every kernel the plain step launches
+                     (Mixtral: paged, flash; DeepSeek-V3 train: flash at
+                     head_dim 192, its MLA decode none of ours; Zamba2:
+                     paged, flash; Whisper: paged, flash at Sq = 1 and 448
+                     over 1,500; xLSTM: none), logits, every cache leaf,
+                     loss and updated parameters within the bf16
+                     tolerance, bits equal or not;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -199,8 +211,9 @@ Phases, one JSON line each:
                      (and, inside ``train``, ``train_encdec`` and
                      ``train_moe``, one training step).
 
-``serve_xlstm``, ``train_xlstm``, ``remote_paging`` and
-``serve_hybrid_plain`` run in a second process on the same card
+``serve_xlstm``, ``train_xlstm``, ``remote_paging``,
+``serve_hybrid_plain`` and ``dist_families_side`` run in a second process
+on the same card
 (``--side``), started after ``kernels`` and waited for after
 ``serve_danube``; the phases in between time no kernel, and the side
 phases' lines come after ``serve_danube``'s.
@@ -360,6 +373,25 @@ class Sizes:
     # the decode at max_batch over pages_per_seq pages, the train step at
     # train_batch x train_seq in train_microbatches
     dist_layers: int = 2
+    # dist_families / dist_families_side: the five other families at
+    # published width, each cut to (decode layers, train layers) and a
+    # train batch x seq in one microbatch: Mixtral at 2 layers over 2 x
+    # 4,096 tokens, past GROUP_TOKENS (grouped dispatch); DeepSeek-V3's
+    # decode at its 3 dense layers and one MoE layer (22.5 GB of experts),
+    # its train at the 3 dense; Zamba2 at one group of 6 (one shared
+    # attention site); Whisper at 2 + 2 layers over 1,500 zero frames;
+    # xLSTM at an mLSTM layer and the sLSTM block.  Decode at max_batch
+    # over pages_per_seq pages (Whisper: its 448-token context)
+    dist_family_depth: tuple = (("mixtral_8x7b", 2, 2),
+                                ("deepseek_v3_671b", 4, 3),
+                                ("zamba2_7b", 6, 6),
+                                ("whisper_medium", 2, 2),
+                                ("xlstm_125m", 2, 2))
+    dist_family_train: tuple = (("mixtral_8x7b", 2, 4096),
+                                ("deepseek_v3_671b", 2, 1024),
+                                ("zamba2_7b", 2, 512),
+                                ("whisper_medium", 2, 448),
+                                ("xlstm_125m", 2, 256))
 
 
 # ------------------------------------------------------------------- helpers
@@ -2213,6 +2245,238 @@ def phase_dist_step(dev, sz: Sizes, table):
          phase_seconds=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------ phase: dist_families (A3c)
+#: arch -> (decode, train) kernels its plain steps launch on the card
+DIST_FAMILY_KERNELS = {
+    "mixtral_8x7b": (("paged_attention",),
+                     ("flash_attention", "flash_attention_bwd")),
+    "deepseek_v3_671b": ((), ("flash_attention", "flash_attention_bwd")),
+    "zamba2_7b": (("paged_attention",),
+                  ("flash_attention", "flash_attention_bwd")),
+    "whisper_medium": (("paged_attention", "flash_attention"),
+                       ("flash_attention", "flash_attention_bwd")),
+    "xlstm_125m": ((), ()),
+}
+#: the parent's share and the side process's, the two branches even (with
+#: Zamba2 and xLSTM in the side process too, it ran 18 s the longer)
+DIST_PARENT = ("mixtral_8x7b", "deepseek_v3_671b", "zamba2_7b", "xlstm_125m")
+DIST_SIDE = ("whisper_medium",)
+
+
+def _family_config(sz: Sizes, arch: str, layers: int):
+    """``arch`` at published width cut to ``layers`` (Whisper: encoder
+    and decoder; xLSTM: the sLSTM block last)."""
+    kw = {"n_layers": layers}
+    if arch == "whisper_medium":
+        kw["n_enc_layers"] = layers
+    if arch == "xlstm_125m":
+        kw["slstm_at"] = (layers - 1,)
+    return _arch_config(sz, arch, **kw)
+
+
+def _drawn_cache(gen, dev, cfg, model, B: int, max_len: int, lengths):
+    """A decode cache with every float leaf drawn (pools, pinned states;
+    an xLSTM normaliser ``n`` at 1 and above, as a run makes it) and
+    ``lengths`` set."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_names
+    cache = model.init_decode_cache(cfg, B, max_len, device=dev)
+    for name, t in zip(tree_names(cache), tree_leaves(cache)):
+        if t.is_floating_point():
+            t.copy_(_rand(gen, t.shape, t.dtype, dev))
+            if name.endswith("/n"):
+                t.abs_().add_(1.0)
+    cache["lengths"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return cache
+
+
+def _wrapped(tree, shardings):
+    """Every leaf as a DTensor with its sharding's placements over the same
+    storage: on a mesh of one rank a shard is the whole tensor."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t, sh: DTensor.from_local(
+        t, sh.mesh, sh.placements, run_check=False), tree, shardings)
+
+
+def _dist_family(dev, sz: Sizes, arch: str, mesh, counted) -> dict:
+    """One family's decode step and train step, DTensor parameters against
+    plain ones (``phase_dist_families``)."""
+    import torch
+    from repro_torch.distributed.logical import logical_rules
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  param_shardings,
+                                                  token_sharding)
+    from repro_torch.launch.dryrun import logical_rules_for
+    from repro_torch.models.registry import model_for
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    dec_layers, train_layers = dict(
+        (a, (d, t)) for a, d, t in sz.dist_family_depth)[arch]
+    tb, ts = dict((a, (b, s)) for a, b, s in sz.dist_family_train)[arch]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    runs, shapes = {}, {}
+    clone = lambda t: tree_map(torch.clone, t)              # noqa: E731
+    # decode: the plain step on a copy of the cache, the DTensor step on
+    # the cache itself (its leaves wrapped), the parameters shared
+    # Mixtral's window (4,096) masks nothing in this context: off, decode
+    # takes the paged pools (with it, a ring buffer), as in serve_danube
+    cfg = dataclasses.replace(_family_config(sz, arch, dec_layers),
+                              sliding_window=0)
+    model = model_for(cfg)
+    rules = logical_rules_for(cfg, mesh)
+    B = sz.max_batch
+    max_len = sz.whisper_max_len if cfg.is_encdec \
+        else sz.pages_per_seq * cfg.kv_page_tokens
+    lengths = [max(1, int(max_len * f)) for f in (0.2, 0.3, 0.6, 0.99,
+                                                  0.45, 0.8, 0.1, 0.7)][:B]
+    params = model.init_params(cfg, 24, device=dev)
+    cache = _drawn_cache(gen, dev, cfg, model, B, max_len, lengths)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def decode(p, c, t):
+        logits, _ = model.decode_step(p, cfg, c, t)
+        return {"logits": logits, "cache": c}
+
+    runs["decode_plain"] = counted(
+        lambda: decode(params, clone(cache), tokens))
+    dp = _wrapped(params, param_shardings(params, mesh))
+    dc = _wrapped(cache, cache_shardings(cache, mesh, B))
+    dtok = _wrapped({"t": tokens}, {"t": token_sharding(mesh)})["t"]
+    with logical_rules(mesh, rules):
+        runs["decode_dtensor"] = counted(
+            lambda: _full(decode(dp, dc, dtok)))
+    shapes["decode"] = {"layers": cfg.n_layers, "batch": B,
+                        "max_len": max_len, "lengths": lengths}
+    del dp, dc, cache
+    # train: the plain step on a copy of the parameters, the DTensor step
+    # on the parameters themselves, wrapped
+    if train_layers != dec_layers:
+        del params
+        _free(dev)
+        cfg = _family_config(sz, arch, train_layers)
+        model = model_for(cfg)
+        rules = logical_rules_for(cfg, mesh)
+        params = model.init_params(cfg, 24, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (tb, ts), generator=gen,
+                          device=dev, dtype=torch.int32)
+    labels = torch.roll(batch, -1, dims=1)
+    tcfg = TrainConfig(microbatches=1, remat=True,
+                       optimizer=AdamWConfig(lr=3e-4))
+    step = make_train_step(cfg, tcfg)
+
+    def train(p, b, lb):
+        p, _, metrics = step(p, adamw.init(tcfg.optimizer, p), b, lb)
+        return p, metrics["loss"]
+
+    runs["train_plain"] = counted(lambda: train(clone(params), batch, labels))
+    _free(dev)
+    dp = _wrapped(params, param_shardings(params, mesh))
+    db, dl = (_wrapped({"t": t}, {"t": token_sharding(mesh)})["t"]
+              for t in (batch, labels))
+    with logical_rules(mesh, rules):
+        runs["train_dtensor"] = counted(
+            lambda: tuple(map(_full, train(dp, db, dl))))
+    shapes["train"] = {"layers": cfg.n_layers, "batch": tb, "seq": ts,
+                       "microbatches": 1, "remat": True}
+    del dp, params
+    _free(dev)
+    return {"runs": runs, "shapes": shapes, "rules": rules}
+
+
+def phase_dist_families(dev, sz: Sizes, table, archs=DIST_PARENT,
+                        phase: str = "dist_families"):
+    """A3c on the card: each of ``archs`` runs a decode step and a train
+    step with DTensor parameters on a (1 data x 1 model) DeviceMesh over a
+    one-rank group (NCCL on the card), under its logical rules, against
+    the same steps on plain parameters (``Sizes.dist_family_*``).  Counters
+    are zeroed just before each run and read just after: the launches must
+    be equal, and non-zero for every kernel the family's plain step
+    launches on the card (``DIST_FAMILY_KERNELS``).  Logits, every cache
+    leaf, the loss and the updated parameters of the two runs are held to
+    the bf16 tolerance, and whether their bits are equal is reported.
+    Launches are credited to the path ``dist_<arch>``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def counted(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        out = fn()
+        sync(dev)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        return out, counts, time.perf_counter() - t0
+
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        families = {}
+        for arch in archs:
+            t0 = time.perf_counter()
+            out = _dist_family(dev, sz, arch, mesh, counted)
+            runs = out["runs"]
+            want = dict(zip(("decode", "train"), DIST_FAMILY_KERNELS[arch]))
+            for path, names in want.items():
+                plain, dt = runs[f"{path}_plain"][1], \
+                    runs[f"{path}_dtensor"][1]
+                require(plain == dt, f"{phase} {arch} {path}: launches "
+                        f"{plain} plain, {dt} under DTensor")
+                require(not on_card or all(dt.get(n, 0) > 0 for n in names),
+                        f"{phase} {arch} {path}: no launch of {names}: {dt}")
+            errs, bits = {}, {}
+            errs["decode"], bits["decode"] = _tree_diff(
+                runs["decode_dtensor"][0], runs["decode_plain"][0],
+                f"{phase} {arch} decode")
+            (p_d, loss_d), (p_p, loss_p) = runs["train_dtensor"][0], \
+                runs["train_plain"][0]
+            require(math.isfinite(float(loss_p)),
+                    f"{phase} {arch}: loss not finite")
+            errs["loss"] = abs(float(loss_d) - float(loss_p))
+            require(errs["loss"] <= TOL["bfloat16"] * (1 + abs(float(loss_p))),
+                    f"{phase} {arch}: loss {float(loss_d)} vs "
+                    f"{float(loss_p)}")
+            bits["loss"] = bool(torch.equal(loss_d, loss_p))
+            errs["params"], bits["params"] = _tree_diff(
+                p_d, p_p, f"{phase} {arch} params")
+            names = sorted(set(want["decode"]) | set(want["train"]))
+            _add_launches(table, f"dist_{arch}", {
+                n: runs["decode_dtensor"][1].get(n, 0)
+                + runs["train_dtensor"][1].get(n, 0) for n in names}, names)
+            families[arch] = {
+                **out["shapes"], "rules": {k: str(v) for k, v in
+                                           out["rules"].items()},
+                "launches": {k: v[1] for k, v in runs.items()},
+                "seconds": {k: v[2] for k, v in runs.items()},
+                "max_abs_err": errs, "bits_equal": bits,
+                "family_seconds": time.perf_counter() - t0}
+            del out, runs, p_d, p_p
+            _free(dev)
+    finally:
+        dist.destroy_process_group()
+    emit(phase, mesh={"data": 1, "model": 1}, backend=backend,
+         families=families, tolerance=TOL["bfloat16"],
+         phase_seconds=time.perf_counter() - t_phase)
+
+
+def phase_dist_families_side(dev, sz: Sizes, table):
+    """``phase_dist_families`` over the side process's share."""
+    phase_dist_families(dev, sz, table, DIST_SIDE, "dist_families_side")
+
+
 # --------------------------------------------------------------- serve phases
 def _prompts(lengths, vocab: int):
     import numpy as np
@@ -2826,19 +3090,20 @@ def phase_serve_encdec(dev, sz: Sizes, table):
                          generator=gen, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (B, sz.whisper_decode_prompt),
                            generator=gen, device=dev)
-    kernel_fns = (attn_mod.flash_attention, encdec.flash_attention,
-                  attn_mod.paged_attention)
+    kernel_fns = (attn_mod.flash_attention, attn_mod.paged_attention)
 
     def restore():
-        (attn_mod.flash_attention, encdec.flash_attention,
-         attn_mod.paged_attention) = kernel_fns
+        attn_mod.flash_attention, attn_mod.paged_attention = kernel_fns
 
     checked = {n: {"calls": 0, "beyond_tolerance": 0, "max_abs_err": 0.0,
                    "max_row_rel_err": 0.0, "shapes": set()}
                for n in ("encoder", "cross")}
-    attn_mod.flash_attention = _checked_flash(checked["encoder"],
-                                              kernel_fns[0])
-    encdec.flash_attention = _checked_flash(checked["cross"], kernel_fns[1])
+    # every flash call goes through attention's binding (cross-attention
+    # through its region, attention._flash_dist): Sq != Sk is the cross
+    by_kind = {n: _checked_flash(rec, kernel_fns[0])
+               for n, rec in checked.items()}
+    attn_mod.flash_attention = lambda q, k, v, **kw: by_kind[
+        "cross" if q.shape[1] != k.shape[1] else "encoder"](q, k, v, **kw)
     try:
         tok_bf16, wall_bf16 = _encoded_decode(
             dev, sz, cfg, params, frames.to(params["embed"].dtype), prompt)
@@ -2860,7 +3125,6 @@ def phase_serve_encdec(dev, sz: Sizes, table):
     tok_f, wall_f = _encoded_decode(dev, sz, fcfg, fparams, frames, prompt)
     f32_counts = kernels.launch_counts()
     attn_mod.flash_attention = flash_attention_xla
-    encdec.flash_attention = flash_attention_xla
     attn_mod.paged_attention = paged_attention_ref
     try:
         tok_p, wall_p = _encoded_decode(dev, sz, fcfg, fparams, frames,
@@ -3768,7 +4032,7 @@ def _mla_train_parity(dev, sz: Sizes, cfg) -> dict:
     from repro_torch import kernels
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import decoder
-    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models.attention_ops import flash_attention_xla
     from repro_torch.training.trainer import (TrainConfig, make_loss_fn,
                                               value_and_grad)
@@ -3787,13 +4051,14 @@ def _mla_train_parity(dev, sz: Sizes, cfg) -> dict:
     loss_k, g_k = value_and_grad(loss_fn, params, tok, lab)
     sync(dev)
     after = kernels.launch_counts()
-    kernel_fn = mla_mod.flash_attention
-    mla_mod.flash_attention = flash_attention_xla          # plain, on card
+    # MLA's training attention reaches flash through attention's region
+    kernel_fn = attn_mod.flash_attention
+    attn_mod.flash_attention = flash_attention_xla         # plain, on card
     try:
         loss_p, g_p = value_and_grad(loss_fn, params, tok, lab)
         sync(dev)
     finally:
-        mla_mod.flash_attention = kernel_fn
+        attn_mod.flash_attention = kernel_fn
     fwd = after["flash_attention"] - before["flash_attention"]
     bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
     require(dev.type != "cuda" or (fwd == 2 and bwd == 1),
@@ -4087,14 +4352,13 @@ def _encdec_train_parity(dev, sz: Sizes, cfg) -> dict:
     loss_k, g_k = value_and_grad(loss_fn, params, tok, lab, frames)
     sync(dev)
     after = kernels.launch_counts()
-    kernel_fns = (attn_mod.flash_attention, encdec.flash_attention)
+    kernel_fn = attn_mod.flash_attention
     attn_mod.flash_attention = flash_attention_xla        # plain, on card
-    encdec.flash_attention = flash_attention_xla
     try:
         loss_p, g_p = value_and_grad(loss_fn, params, tok, lab, frames)
         sync(dev)
     finally:
-        attn_mod.flash_attention, encdec.flash_attention = kernel_fns
+        attn_mod.flash_attention = kernel_fn
     fwd = after["flash_attention"] - before["flash_attention"]
     bwd = after["flash_attention_bwd"] - before["flash_attention_bwd"]
     per_pass = 2 * n + n                 # encoder, decoder self, cross
@@ -4721,23 +4985,25 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int,
 # ----------------------------------------------------------------------- main
 # --stop-after's choices, in the order of the phases they end after
 STOP_AFTER = ("profile", "kernels", "serve_xlstm", "train_xlstm",
-              "remote_paging", "serve_hybrid_plain", "dist_local",
-              "dist_step", "spill_parity",
+              "remote_paging", "serve_hybrid_plain", "dist_families_side",
+              "dist_local", "dist_step", "dist_families", "spill_parity",
               "serve", "serve_danube", "serve_hybrid", "serve_encdec",
               "serve_mla_moe", "train", "train_mla", "train_hybrid",
               "train_encdec")
 # host-bound phases that time no kernel of this repo (xLSTM's two, a
 # Python loop over tokens; the remote-paging simulation, whose one-row
 # copy timings are the exception; the hybrid's comparison with the plain
-# path): they run in a second process on the same card (``--side``),
+# path; three families' DTensor steps, which time nothing): they run in a second process on the same card (``--side``),
 # started after the ``kernels`` phase and waited for after
 # ``serve_danube``; between the two the parent's phases time no kernel,
 # and every phase after the wait runs alone
-SIDE = ("serve_xlstm", "train_xlstm", "remote_paging", "serve_hybrid_plain")
+SIDE = ("serve_xlstm", "train_xlstm", "remote_paging", "serve_hybrid_plain",
+        "dist_families_side")
 SIDE_FNS = {"serve_xlstm": phase_serve_xlstm,
             "train_xlstm": phase_train_xlstm,
             "remote_paging": phase_remote_paging,
-            "serve_hybrid_plain": phase_serve_hybrid_plain}
+            "serve_hybrid_plain": phase_serve_hybrid_plain,
+            "dist_families_side": phase_dist_families_side}
 
 
 def run_side(dev, sz: Sizes, names) -> None:
@@ -4844,6 +5110,8 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
             timed("dist_local", phase_dist_local, dev, sz, cfg, table)
         if reached("dist_step"):
             timed("dist_step", phase_dist_step, dev, sz, table)
+        if reached("dist_families"):
+            timed("dist_families", phase_dist_families, dev, sz, table)
         if reached("spill_parity"):
             params, pcfg = timed("decode_parity", phase_decode_parity, dev,
                                  sz, cfg)

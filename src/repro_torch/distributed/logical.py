@@ -187,7 +187,11 @@ class _GradLike(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        from torch.distributed.tensor import Replicate
+        # the gradient of a Partial sum is every summand's: replicated
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
         return x.view_as(x)
 
     @staticmethod
@@ -205,6 +209,103 @@ def grad_like(x):
     if not is_dtensor(x) or not x.requires_grad:
         return x
     return _GradLike.apply(x)
+
+
+def whole(x, *dims: int):
+    """``x`` with each of ``dims`` whole on every rank: a DTensor split
+    over one of them is gathered there (its other placements kept); a
+    plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dims = tuple(d % x.ndim for d in dims)
+    pl = [Replicate() if p.is_shard() and p.dim in dims else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def unflatten_last(x, *sizes: int):
+    """``x`` (..., prod(sizes)) as (..., *sizes).  A DTensor split over a
+    mesh dim on its last dim whose size does not divide ``sizes[0]`` (4
+    heads over 16 model ranks) cannot be unflattened in place: that split
+    is gathered first."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        mesh = x.device_mesh
+        pl = [Replicate() if p.is_shard(x.ndim - 1) and sizes[0] % mesh.size(i)
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+def pad(x, widths: tuple):
+    """``F.pad(x, widths)`` with zeros.  A DTensor is padded in a region
+    (DTensor has no padding rule in every torch version: one gave a spec
+    of one placement on a 2-D mesh): the padded dims gathered whole, each
+    rank's local tensor padded (a ``Partial`` sum stays one: the pad is
+    zeros), and the result laid out as the input.  Differentiable."""
+    import torch.nn.functional as F
+    if not is_dtensor(x):
+        return F.pad(x, widths)
+    from torch.distributed.tensor import DTensor
+    dims = [x.ndim - 1 - i for i in range(len(widths) // 2)
+            if widths[2 * i] or widths[2 * i + 1]]
+    x = whole(x, *dims)
+    shape = list(x.shape)
+    for i in range(len(widths) // 2):
+        shape[x.ndim - 1 - i] += widths[2 * i] + widths[2 * i + 1]
+    return DTensor.from_local(F.pad(x.to_local(), widths), x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``.  A DTensor's sum runs in a region, ``dim``
+    gathered whole: its backward flips the gradient, and DTensor has no
+    rule for ``flip`` in every torch version.  A ``Partial`` sum stays one
+    (the sum is linear).  Differentiable."""
+    if not is_dtensor(x):
+        return torch.cumsum(x, dim)
+    from torch.distributed.tensor import DTensor
+    x = whole(x, dim)
+    return DTensor.from_local(torch.cumsum(x.to_local(), dim),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(strides))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity forward; the backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_shard(x, mesh, placements, grad_placements=None):
+    """``x`` (a DTensor) laid out as ``placements`` on ``mesh``, as this
+    rank's local tensor, for a region's body.  Differentiable: the body's
+    gradient comes back as a DTensor with ``grad_placements`` (default
+    ``placements``), made contiguous first, since a DTensor takes its
+    local tensor's layout to be its own (a transposed local gradient, as
+    an attention backward may give, breaks a later ``view``)."""
+    local = x.redistribute(mesh, placements).to_local(
+        grad_placements=grad_placements)
+    return _ContiguousGrad.apply(local) if local.requires_grad else local
 
 
 def full(x):

@@ -14,9 +14,7 @@ The fake tensors are CPU tensors, so the model takes the kernels' plain
 versions (``"traced_path": "plain"``), as the reference's dry-run lowers
 its model path's ``lax.scan`` fallbacks.  ``lower_s`` and ``compile_s``
 are the trace's time.  The roofline terms use the H100 data-sheet values
-of ``launch.mesh``.  A family not yet run under DTensor records
-``status: "error"`` with its exception, as the reference records a
-failure.
+of ``launch.mesh``.
 
     python -m repro_torch.launch.dryrun --arch codeqwen15_7b --mesh multi
 """

@@ -266,8 +266,8 @@ def _paged_update_and_attend_dist(q1, k1, v1, k_pool, v_pool, page_table,
                  for x, pl in ((out, row), (kp, pool), (vp, pool)))
 
 
-def _flash_dist(q, k, v, *, causal: bool, window: int, q_chunk: int,
-                kv_chunk: int):
+def _flash_dist(q, k, v, *, causal: bool, window: int = 0,
+                q_chunk: int = 512, kv_chunk: int = 512):
     """The flash kernels' region for training / prefill attention.
 
     Plain tensors go to ``flash_attention`` as they are.  DTensors are laid
@@ -276,7 +276,9 @@ def _flash_dist(q, k, v, *, causal: bool, window: int, q_chunk: int,
     data axes when it splits evenly (:func:`data_shards`), heads over
     ``'model'`` when both head counts divide it, else the query sequence
     over ``'model'`` (the reference's ``q_seq`` rule), each rank's rows at
-    their offset and K/V whole.  ``to_local`` and ``from_local`` are
+    their offset and K/V whole.  Cross-attention (``Sq != Sk``) takes no
+    sequence split: where neither the batch nor the heads divide, Q and
+    K/V go whole to every rank.  ``to_local`` and ``from_local`` are
     differentiable, so the backward kernels get local tensors too; under
     the sequence split each rank's K/V gradient is a part of the sum
     (``Partial``).  Returns a DTensor with the query's region placements.
@@ -301,9 +303,9 @@ def _flash_dist(q, k, v, *, causal: bool, window: int, q_chunk: int,
         grad[mesh.mesh_dim_names.index("model")] = Partial()
         kw["q_offset"] = mesh.get_local_rank("model") * (S // m)
     out = flash_attention(
-        q.redistribute(mesh, qp).to_local(),
-        *(t.redistribute(mesh, kvp).to_local(grad_placements=tuple(grad))
-          for t in (k, v)), **kw)
+        logical.local_shard(q, mesh, qp),
+        *(logical.local_shard(t, mesh, kvp, tuple(grad)) for t in (k, v)),
+        **kw)
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 

@@ -36,7 +36,7 @@ from repro_torch.models.attention import (apply_attention,
                                           init_attention, paged_write_slots)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
-                                       dtype_of, embed_init, init_mlp,
+                                       dtype_of, embed, embed_init, init_mlp,
                                        init_norm, rope_tables)
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -205,7 +205,7 @@ def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
     hd) — None for MLA, which has no per-head cache.  ``aux`` is the sum of
     the MoE layers' auxiliary losses (0.0 without MoE layers).
     """
-    x = params["embed"][tokens.long()] if embeddings is None else embeddings
+    x = embed(params["embed"], tokens) if embeddings is None else embeddings
     x = constrain(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = replicated(torch.arange(S, device=x.device).expand(B, S),
@@ -331,7 +331,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     nothing here is differentiated.
     """
     with torch.no_grad():
-        x = constrain(params["embed"][tokens.long()], "batch", "seq",
+        x = constrain(embed(params["embed"], tokens), "batch", "seq",
                       "embed")
         lengths = cache["lengths"] + 1
         new_cache = dict(cache, lengths=lengths)

@@ -14,8 +14,10 @@ the place of the reference's scans, and ``remat=True`` wraps each layer in
 CUDA tensor: the encoder's bidirectional self-attention and the decoder's
 causal one through ``models.attention.apply_attention`` (flash), decode
 self-attention through ``apply_attention_decode_paged`` (paged attention),
-and cross-attention through ``kernels.flash_attention.ops.flash_attention``
-at Sq != Sk (448 or 1 decoder rows over 1,500 frames), non-causal.
+and cross-attention through the flash kernels' region
+``attention._flash_dist`` at Sq != Sk (448 or 1 decoder rows over 1,500
+frames), non-causal.  The positions and zero frames a step makes itself
+are replicated on the mesh of DTensor inputs.
 
 What the reference does, kept as it is: RoPE inside ``apply_attention`` on
 top of the sinusoid (encoder) and learned (decoder) position tables; decoder
@@ -32,15 +34,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.attention import (apply_attention,
+from repro_torch.distributed.logical import (constrain, grad_like, mesh_of,
+                                             replicated)
+from repro_torch.models.attention import (_flash_dist, _merge_heads,
+                                          _split_heads, apply_attention,
                                           apply_attention_decode_paged,
                                           init_attention, paged_write_slots)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import (_identity_page_table, _stack_layers,
-                                        init_generator, unstack_layers)
+from repro_torch.models.decoder import (_identity_page_table, _laid_out,
+                                        _stack_layers, init_generator,
+                                        unstack_layers)
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
-                                       dtype_of, embed_init, init_mlp,
+                                       dtype_of, embed, embed_init, init_mlp,
                                        init_norm, rope_tables,
                                        sinusoid_positions)
 
@@ -100,9 +105,10 @@ def encode(params, cfg: ModelConfig, frame_embeddings, remat: bool = False):
     """frame_embeddings: (B, T_src, d) — the stubbed conv frontend output."""
     B, T, d = frame_embeddings.shape
     dev = frame_embeddings.device
-    x = frame_embeddings + sinusoid_positions(T, d, dev).to(
-        frame_embeddings.dtype)
-    positions = torch.arange(T, device=dev).expand(B, T)
+    mesh = mesh_of(frame_embeddings)
+    x = frame_embeddings + replicated(sinusoid_positions(T, d, dev).to(
+        frame_embeddings.dtype), mesh)
+    positions = replicated(torch.arange(T, device=dev).expand(B, T), mesh)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for lp in unstack_layers(params["enc_layers"]):
         if remat:
@@ -115,20 +121,17 @@ def encode(params, cfg: ModelConfig, frame_embeddings, remat: bool = False):
 
 def _cross_attention(cp, cfg: ModelConfig, x, enc_kv):
     """x: (B, S, d) decoder rows over enc_kv = (k, v), each
-    (B, T_src, H, hd): the flash kernels at Sq = S, Sk = T_src."""
-    B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    (B, T_src, H, hd): the flash kernels at Sq = S, Sk = T_src, through
+    their region (``attention._flash_dist``)."""
     k, v = enc_kv
-    q = (x @ cp["wq"]).reshape(B, S, H, hd)
-    out = flash_attention(q, k, v, causal=False)
-    return out.reshape(B, S, H * hd) @ cp["wo"]
+    q = _split_heads(x @ cp["wq"], cfg.n_heads, cfg.head_dim)
+    return _merge_heads(_flash_dist(q, k, v, causal=False)) @ cp["wo"]
 
 
 def _cross_kv_layer(cp, cfg: ModelConfig, enc_out):
-    B, T, _ = enc_out.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    return ((enc_out @ cp["wk"]).reshape(B, T, H, hd),
-            (enc_out @ cp["wv"]).reshape(B, T, H, hd))
+    return (_split_heads(enc_out @ cp["wk"], H, hd),
+            _split_heads(enc_out @ cp["wv"], H, hd))
 
 
 def cross_kv(params, cfg: ModelConfig, enc_out):
@@ -158,16 +161,19 @@ def forward(params, cfg: ModelConfig, tokens, frame_embeddings=None,
     runs over zero frames of ``max_source_positions``."""
     B, S = tokens.shape
     dev = tokens.device
+    mesh = mesh_of(tokens)
     if frame_embeddings is None:
         frame_embeddings = embeddings
-    if frame_embeddings is None:
-        frame_embeddings = torch.zeros(
+    if frame_embeddings is None:     # laid out like the batch's rows
+        frame_embeddings = constrain(replicated(torch.zeros(
             (B, cfg.max_source_positions, cfg.d_model),
-            dtype=dtype_of(cfg.dtype), device=dev)
+            dtype=dtype_of(cfg.dtype), device=dev), mesh),
+            "batch", "seq", "embed")
     enc_out = encode(params, cfg, frame_embeddings, remat=remat)
-    pos = torch.arange(S, device=dev) % cfg.max_target_positions
-    x = params["embed"][tokens.long()] + params["pos_dec"][pos][None]
-    positions = torch.arange(S, device=dev).expand(B, S)
+    pos = replicated(torch.arange(S, device=dev) % cfg.max_target_positions,
+                     mesh)
+    x = embed(params["embed"], tokens) + embed(params["pos_dec"], pos)[None]
+    positions = replicated(torch.arange(S, device=dev).expand(B, S), mesh)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for lp in unstack_layers(params["dec_layers"]):
         if remat:
@@ -176,7 +182,7 @@ def forward(params, cfg: ModelConfig, tokens, frame_embeddings=None,
         else:
             x = _dec_layer(lp, cfg, x, enc_out, positions, rope)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return x @ params["embed"].T, 0.0
+    return grad_like(x @ params["embed"].T), 0.0
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, labels, frame_embeddings=None,
@@ -194,7 +200,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     (L, P, page, KVH, hd) and the identity ``page_table``; pinned
     cross-attention ``cross_k`` / ``cross_v`` (L, B, T_src, H, hd), zero
     until filled from :func:`cross_kv` (T_src defaults to
-    ``max_source_positions``)."""
+    ``max_source_positions``).  Under logical rules on a DeviceMesh each
+    leaf is a DTensor laid out by ``distributed.sharding.cache_shardings``.
+    """
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.dtype)
     L = cfg.n_layers
@@ -203,14 +211,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     t_src = t_src or cfg.max_source_positions
     pool = (L, n_pages, ps, cfg.n_kv_heads, cfg.head_dim)
     cross = (L, batch, t_src, cfg.n_heads, cfg.head_dim)
-    return {
+    return _laid_out({
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
         "k_pool": torch.zeros(pool, dtype=dtype, device=dev),
         "v_pool": torch.zeros(pool, dtype=dtype, device=dev),
         "page_table": _identity_page_table(batch, max_len, ps, dev),
         "cross_k": torch.zeros(cross, dtype=dtype, device=dev),
         "cross_v": torch.zeros(cross, dtype=dtype, device=dev),
-    }
+    }, batch)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
@@ -221,11 +229,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     pinned cross K/V, which a step only reads) and carries a new
     ``lengths`` tensor.  Nothing here is differentiated."""
     with torch.no_grad():
-        B = tokens.shape[0]
-        H, hd = cfg.n_heads, cfg.head_dim
+        hd = cfg.head_dim
         lengths = cache["lengths"] + 1
         pos = ((lengths - 1) % cfg.max_target_positions).long()
-        x = params["embed"][tokens.long()] + params["pos_dec"][pos][:, None]
+        x = embed(params["embed"], tokens) + embed(params["pos_dec"], pos)[:, None]
         new_cache = dict(cache, lengths=lengths)
         # shared by every layer of this step
         rope = rope_tables((lengths - 1)[:, None], hd, cfg.rope_theta)
@@ -239,10 +246,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
                 slots)
             x = x + attn
             h = apply_norm(lp["norm_x"], x, cfg.norm, cfg.norm_eps)
-            q = (h[:, 0] @ lp["cross"]["wq"]).reshape(B, 1, H, hd)
-            cross = flash_attention(q, cache["cross_k"][li],
-                                    cache["cross_v"][li], causal=False)
-            x = x + cross.reshape(B, 1, H * hd) @ lp["cross"]["wo"]
+            x = x + _cross_attention(lp["cross"], cfg, h, (
+                cache["cross_k"][li], cache["cross_v"][li]))
             h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
             x = x + apply_mlp(lp["mlp"], h, cfg.act)
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)

@@ -27,15 +27,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.distributed.logical import grad_like, mesh_of, replicated
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import (apply_attention,
                                           apply_attention_decode_paged,
                                           init_attention, paged_write_slots)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import (_identity_page_table, _stack_layers,
-                                        init_generator, unstack_layers)
+from repro_torch.models.decoder import (_identity_page_table, _laid_out,
+                                        _stack_layers, init_generator,
+                                        unstack_layers)
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
-                                       dtype_of, embed_init, init_mlp,
+                                       dtype_of, embed, embed_init, init_mlp,
                                        init_norm, rope_tables)
 from repro_torch.tree import tree_map
 
@@ -121,9 +123,10 @@ def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
     only the boundaries of every layer and of every group, recomputing
     them in the backward (``torch.utils.checkpoint``, non-reentrant, nested
     as the reference nests ``jax.checkpoint``)."""
-    x = params["embed"][tokens.long()] if embeddings is None else embeddings
+    x = embed(params["embed"], tokens) if embeddings is None else embeddings
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = replicated(torch.arange(S, device=x.device).expand(B, S),
+                           mesh_of(x))
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     sp = params["shared"]
     for glp in unstack_layers(params["groups"]):
@@ -134,7 +137,7 @@ def forward(params, cfg: ModelConfig, tokens, *, q_chunk: int = 512,
     if "tail" in params:
         x = _mamba_layers(params["tail"], cfg, x, ssm_chunk, remat)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return x @ params["lm_head"], 0.0
+    return grad_like(x @ params["lm_head"]), 0.0
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, labels, **kw):
@@ -148,7 +151,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=None, device: DeviceLike = None) -> dict:
     """``lengths`` (B,); ``ssm``: the Mamba states stacked ``(L, B, ...)``
     per leaf; ``k_pool`` / ``v_pool`` (G, P, page, KVH, hd), one pool per
-    shared-attention site; the identity ``page_table``."""
+    shared-attention site; the identity ``page_table``.  Under logical
+    rules on a DeviceMesh each leaf is a DTensor laid out by
+    ``distributed.sharding.cache_shardings``."""
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.dtype)
     n_groups, k, tail = group_layout(cfg)
@@ -156,7 +161,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     n_pages = batch * (-(-max_len // ps))
     st = mamba_mod.init_mamba_state(cfg, batch, dtype=dtype, device=dev)
     pool = (n_groups, n_pages, ps, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    return _laid_out({
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
         "ssm": {name: torch.zeros((cfg.n_layers,) + tuple(t.shape),
                                   dtype=t.dtype, device=dev)
@@ -164,7 +169,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
         "k_pool": torch.zeros(pool, dtype=dtype, device=dev),
         "v_pool": torch.zeros(pool, dtype=dtype, device=dev),
         "page_table": _identity_page_table(batch, max_len, ps, dev),
-    }
+    }, batch)
 
 
 def _mamba_decode_layer(lp, cfg: ModelConfig, x, ssm, li: int):
@@ -185,7 +190,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     them and carries a new ``lengths`` tensor.  Site ``g`` (after group
     ``g``) uses pool slice ``g``.  Nothing here is differentiated."""
     with torch.no_grad():
-        x = params["embed"][tokens.long()]
+        x = embed(params["embed"], tokens)
         n_groups, k, tail = group_layout(cfg)
         lengths = cache["lengths"] + 1
         new_cache = dict(cache, lengths=lengths)

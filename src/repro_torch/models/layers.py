@@ -48,7 +48,7 @@ def init_norm(d: int, kind: str = "rms", device="cpu"):
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
-def _whole_features(x):
+def whole_features(x):
     """``x`` with its last dim whole and summed on every rank: a norm reads
     the whole feature vector.  A DTensor left split there by an all-``None``
     constraint (a batch-1 decode's embedding) is gathered, and a
@@ -66,7 +66,7 @@ def _whole_features(x):
 def apply_norm(params, x, kind: str = "rms", eps: float = 1e-5):
     """Computed in f32 and cast back.  The RMS form is one fused
     ``F.rms_norm`` call: x · rsqrt(mean(x²) + eps) · scale."""
-    x = _whole_features(x)
+    x = whole_features(x)
     xf = x.float()
     if kind == "rms":
         y = F.rms_norm(xf, xf.shape[-1:], params["scale"], eps)
@@ -80,7 +80,7 @@ def apply_norm(params, x, kind: str = "rms", eps: float = 1e-5):
 
 def rms_head_norm(scale, x, eps: float = 1e-5):
     """Per-head RMS norm for qk_norm (Qwen3 / Chameleon)."""
-    x = _whole_features(x)
+    x = whole_features(x)
     xf = x.float()
     return F.rms_norm(xf, xf.shape[-1:], scale, eps).to(x.dtype)
 
@@ -156,6 +156,20 @@ def apply_mlp(p, x, act: str):
     if "bo" in p:
         y = y + p["bo"]
     return y
+
+
+def embed(table, ids):
+    """Rows ``ids`` of ``table``.  DTensor ids split over the batch are
+    gathered whole for the lookup, and its rows split as the ids were
+    after it: the backward then meets whole ids and a whole gradient,
+    where with split ones ``index_put`` fails on some torch versions."""
+    if not is_dtensor(ids):
+        return table[ids.long()]
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = ids.device_mesh, ids.placements
+    rows = table[ids.redistribute(mesh, [Replicate()] * mesh.ndim).long()]
+    return rows.redistribute(mesh, [Shard(p.dim) if p.is_shard()
+                                    else Replicate() for p in pl])
 
 
 # ------------------------------------------------------- sinusoidal positions

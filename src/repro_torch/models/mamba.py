@@ -39,8 +39,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import mesh_of, replicated
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, whole_features
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -76,13 +78,15 @@ def _split_proj(p, cfg: ModelConfig, x):
 def _causal_conv(p, xBC, w: int):
     """Depthwise causal conv along the sequence axis."""
     S = xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, w - 1, 0))
+    pad = logical.pad(xBC, (0, 0, w - 1, 0))
     out = sum(pad[:, k:k + S, :] * p["conv_w"][k] for k in range(w))
     return F.silu(out + p["conv_b"])
 
 
 def _gated_norm(p, y, z, eps: float):
-    yf = (y * F.silu(z.float())).float()
+    """The gated RMS norm over the whole of ``d_in`` (a DTensor split
+    there is gathered first)."""
+    yf = whole_features((y * F.silu(z.float())).float())
     return F.rms_norm(yf, yf.shape[-1:], p["norm_scale"], eps)
 
 
@@ -103,22 +107,24 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 128):
     Q = min(chunk, S)
     pad = (-S) % Q
     if pad:
-        u = F.pad(u, (0, 0, 0, 0, 0, pad))
-        Bmat = F.pad(Bmat, (0, 0, 0, pad))
-        Cmat = F.pad(Cmat, (0, 0, 0, pad))
-        a = F.pad(a, (0, 0, 0, pad))
+        u = logical.pad(u, (0, 0, 0, 0, 0, pad))
+        Bmat = logical.pad(Bmat, (0, 0, 0, pad))
+        Cmat = logical.pad(Cmat, (0, 0, 0, pad))
+        a = logical.pad(a, (0, 0, 0, pad))
     nc = (S + pad) // Q
     u = u.reshape(Bsz, nc, Q, nh, P)
     Bm = Bmat.reshape(Bsz, nc, Q, N).float()
     Cm = Cmat.reshape(Bsz, nc, Q, N).float()
-    acum = torch.cumsum(a.reshape(Bsz, nc, Q, nh), dim=2)    # (B,nc,Q,nh)
+    acum = logical.cumsum(a.reshape(Bsz, nc, Q, nh), 2)     # (B,nc,Q,nh)
 
     # intra-chunk decays L[i, j] = exp(acum_i - acum_j) for i >= j, heads
     # ahead of the positions: (B, nc, nh, Q, Q); the masked exponent
     # (module docstring) keeps the upper triangle at exp(-inf) = 0
     acum_h = acum.transpose(2, 3)                       # (B,nc,nh,Q)
     diff = acum_h[..., :, None] - acum_h[..., None, :]
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    mesh = mesh_of(x)
+    tri = replicated(torch.ones((Q, Q), dtype=torch.bool,
+                                device=x.device).tril(), mesh)
     L = torch.exp(torch.where(tri, diff, float("-inf")))
     CB = Cm @ Bm.transpose(-1, -2)                      # (B,nc,Q,Q)
     u_h = u.permute(0, 1, 3, 2, 4)                      # (B,nc,nh,Q,P)
@@ -129,8 +135,8 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 128):
     S_chunk = torch.einsum("bcqhp,bcqn->bchpn", decay_to_end[..., None] * u,
                            Bm)                          # (B,nc,nh,P,N)
     total_decay = torch.exp(acum[:, :, -1, :])          # (B,nc,nh)
-    state = torch.zeros((Bsz, nh, P, N), dtype=torch.float32,
-                        device=x.device)
+    state = replicated(torch.zeros((Bsz, nh, P, N), dtype=torch.float32,
+                                   device=x.device), mesh)
     S_prevs = []
     for c in range(nc):
         S_prevs.append(state)

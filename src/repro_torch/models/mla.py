@@ -12,13 +12,13 @@ per-head keys/values for the context; its scan over the pages is plain
 torch, as in the reference (which has no Pallas kernel for it either).
 
 Training / prefill (:func:`apply_mla`) expands per-head K/V and calls
-``kernels.flash_attention.ops.flash_attention`` at head_dim
-``qk_nope_head_dim + qk_rope_head_dim`` (192 at DeepSeek-V3's widths), V
-zero-padded to it as the reference pads it.  A CPU tensor takes the plain
-chunked version; a CUDA tensor the hand-written kernels at 192 (bf16 on
-the tensor cores, f32 on the CUDA cores) — there is no fallback.
+the flash kernels through their region ``attention._flash_dist`` at
+head_dim ``qk_nope_head_dim + qk_rope_head_dim`` (192 at DeepSeek-V3's
+widths), V zero-padded to it as the reference pads it.  A CPU tensor takes
+the plain chunked version; a CUDA tensor the hand-written kernels at 192
+(bf16 on the tensor cores, f32 on the CUDA cores) — there is no fallback.
 
-Under a data-parallel mesh the decode runs shard-local on each rank
+DTensor inputs run the decode shard-local on each rank
 (:func:`_mla_update_and_attend_dist`), as the GQA path does.
 """
 
@@ -27,12 +27,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.distributed import logical
 from repro_torch.distributed.logical import PartitionSpec as P
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.attention import (data_rank, data_shards,
+from repro_torch.models.attention import (_data_split, _flash_dist,
+                                          _write_back, data_rank,
                                           paged_write_slots,
                                           rebase_page_table)
 from repro_torch.models.attention_ops import NEG_INF
@@ -89,9 +88,9 @@ def apply_mla(p, cfg: ModelConfig, x, positions, *, q_chunk=512,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
                   dim=-1)
     # pad v to the qk head_dim so flash kernels see one head size; strip after
-    v_p = F.pad(v, (0, nope + rope - vh))
-    out = flash_attention(q, k, v_p, causal=True, q_chunk=q_chunk,
-                          kv_chunk=kv_chunk)[..., :vh]
+    v_p = logical.pad(v, (0, nope + rope - vh))
+    out = _flash_dist(q, k, v_p, causal=True, window=0, q_chunk=q_chunk,
+                      kv_chunk=kv_chunk)[..., :vh]
     return out.reshape(B, S, H * vh) @ p["wo"]
 
 
@@ -145,16 +144,19 @@ def _mla_update_and_attend_dist(q_abs, q_rope, c_new, kr_new, ckv_pool,
     over the data axes, query heads split over ``'model'`` when it divides
     them (the latent pools have no head dim: they stay replicated over
     ``'model'``).  The same locality argument, conditions and DTensor
-    handling as the GQA path's ``_paged_update_and_attend_dist``; the local
-    body makes its write slots from the rebased table.
+    handling as the GQA path's ``_paged_update_and_attend_dist``: plain
+    tensors go to the body whole; DTensors always go through the region,
+    every rank taking the whole batch and pools without a data split, and
+    a pool laid out otherwise than the region gets the written pool copied
+    back.  The local body makes its write slots from the rebased table.
     """
-    shards = data_shards(q_abs.shape[0], ckv_pool.shape[0])
-    if shards is None or not logical.is_dtensor(q_abs):
+    if not logical.is_dtensor(q_abs):
         return _mla_update_and_attend(q_abs, q_rope, c_new, kr_new, ckv_pool,
                                       krope_pool, page_table, lengths,
                                       scale=scale)
     from torch.distributed.tensor import DTensor
-    mesh, d, dsize = shards
+    mesh = q_abs.device_mesh
+    d, dsize = _data_split(mesh, q_abs.shape[0], ckv_pool.shape[0])
     msize = logical.mesh_shape(mesh).get("model", 1)
     h = "model" if ("model" in mesh.mesh_dim_names
                     and q_abs.shape[1] % msize == 0) else None
@@ -164,10 +166,11 @@ def _mla_update_and_attend_dist(q_abs, q_rope, c_new, kr_new, ckv_pool,
         x.redistribute(mesh, pl).to_local() for x, pl in zip(
             (q_abs, q_rope, c_new, kr_new, ckv_pool, krope_pool, page_table,
              lengths), (head, head) + (rows,) * 6)]
-    pt = rebase_page_table(pt, data_rank(mesh, d),
+    pt = rebase_page_table(pt, data_rank(mesh, d) if d else 0,
                            ckv_pool.shape[0] // dsize)
     ctx, cp, kp = _mla_update_and_attend(qa, qr, cn, kn, cp, kp, pt, ln,
                                          scale=scale)
+    _write_back(((ckv_pool, cp), (krope_pool, kp)), mesh, rows)
     return (DTensor.from_local(ctx, mesh, head, run_check=False),
             DTensor.from_local(cp, mesh, rows, run_check=False),
             DTensor.from_local(kp, mesh, rows, run_check=False))

@@ -2,7 +2,7 @@
 
 Top-k softmax routing, a Switch-style load-balancing auxiliary loss and
 optional shared experts, as in the reference.  Dispatch is **dense**: the
-tokens reach the experts through ``(T, E, C)`` one-hot einsums over all
+tokens reach the experts through ``(T, E, C)`` one-hot products over all
 experts — the reference's formulation, kept as it is (an index-based
 dispatch would compute the same values with less work, and is a
 performance change of its own).
@@ -16,7 +16,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.distributed.logical import constrain
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import (constrain, grad_like, mesh_of,
+                                             replicated, whole)
 from repro_torch.models.layers import dense_init
 
 
@@ -80,9 +82,11 @@ def apply_moe(p, cfg: ModelConfig, x, *, dropless: bool = False):
     if not dropless and T_all > GROUP_TOKENS:
         g = GROUP_TOKENS
         pad = (-T_all) % g
-        xf = x.reshape(T_all, d)
+        # a group spans the data ranks' token rows: each rank takes them
+        # all (a DTensor's token dim gathered), as the groups are global
+        xf = whole(x.reshape(T_all, d), 0)
         if pad:
-            xf = F.pad(xf, (0, 0, 0, pad))
+            xf = logical.pad(xf, (0, 0, 0, pad))
         ys, auxs = [], []
         for xg in xf.reshape(-1, g, d).unbind(0):
             y, aux = checkpoint(_moe_group, p, cfg, xg, False,
@@ -91,7 +95,10 @@ def apply_moe(p, cfg: ModelConfig, x, *, dropless: bool = False):
             auxs.append(aux)
         y = torch.cat(ys)[:T_all].reshape(B, S, d)
         return y, torch.stack(auxs).mean()
-    y, aux = _moe_group(p, cfg, x.reshape(T_all, d), dropless)
+    # the router's and the experts' gradients of the tokens meet here, and
+    # DTensor may split their sum over every mesh dim: laid out like the
+    # tokens, it unflattens back to (B, S, d)
+    y, aux = _moe_group(p, cfg, grad_like(x.reshape(T_all, d)), dropless)
     return y.reshape(B, S, d), aux
 
 
@@ -103,16 +110,27 @@ def _moe_group(p, cfg: ModelConfig, xf, dropless: bool):
 
     logits = xf.float() @ p["router"]                         # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, sel = torch.topk(probs, k, dim=-1)             # (T, k)
+    # top-k by a stable descending sort: equal probabilities (a zero pad
+    # token's are all 1/E) rank by expert index, as ``lax.top_k`` ranks them
+    # (``torch.topk`` takes other experts).  The values are read through a
+    # one-hot product, exact, whose backward every DTensor version has
+    # (the sort's scatter meets a plain zeros tensor in some)
+    with torch.no_grad():
+        sel = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :k]          # (T, k)
+    gate_vals = (probs[:, None, :]
+                 * F.one_hot(sel, E).to(probs.dtype)).sum(-1)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # position-in-expert via a cumsum over the tokens, one routing choice
     # after the other (choice-major): choice j's slots start after those
     # that choices < j took
-    dispatch = torch.zeros((T, E, C), dtype=xf.dtype, device=xf.device)
-    combine = torch.zeros((T, E, C), dtype=torch.float32, device=xf.device)
-    fill = torch.zeros((E,), dtype=torch.int32, device=xf.device)
-    slots = torch.arange(C, device=xf.device)
+    mesh = mesh_of(xf)
+    dispatch, combine, fill, slots = (replicated(t, mesh) for t in (
+        torch.zeros((T, E, C), dtype=xf.dtype, device=xf.device),
+        torch.zeros((T, E, C), dtype=torch.float32, device=xf.device),
+        torch.zeros((E,), dtype=torch.int32, device=xf.device),
+        torch.arange(C, device=xf.device)))
     for choice in range(k):
         onehot = F.one_hot(sel[:, choice], E).to(torch.int32)  # (T, E)
         pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1 + fill
@@ -123,15 +141,16 @@ def _moe_group(p, cfg: ModelConfig, xf, dropless: bool):
         dispatch = dispatch + slot
         combine = combine + slot.float() * gate_vals[:, choice, None, None]
 
-    expert_in = torch.einsum("tec,td->ecd", dispatch, xf)
+    # the (t, e, c) contractions as products over e-major (e, c) rows,
+    # the experts' own order, which a split over the experts keeps whole
+    expert_in = (dispatch.reshape(T, E * C).T @ xf).reshape(E, C, -1)
     expert_in = constrain(expert_in, "experts", "capacity", "embed")
-    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, p["wi"])) \
-        * torch.einsum("ecd,edf->ecf", expert_in, p["wg"])
+    h = F.silu(expert_in @ p["wi"]) * (expert_in @ p["wg"])
     h = constrain(h, "experts", "capacity", "moe_ff")
-    expert_out = torch.einsum("ecf,efd->ecd", h, p["wo"])
-    expert_out = constrain(expert_out, "experts", "capacity", "embed")
+    expert_out = constrain(h @ p["wo"], "experts", "capacity", "embed")
     # the gate weights round to x's dtype here, as in the reference
-    y = torch.einsum("tec,ecd->td", combine.to(xf.dtype), expert_out)
+    y = combine.to(xf.dtype).reshape(T, E * C) \
+        @ expert_out.reshape(E * C, -1)
 
     # load-balancing aux loss (Switch-style)
     density = F.one_hot(sel[:, 0], E).float().mean(dim=0)

@@ -40,6 +40,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import PartitionSpec as P
+from repro_torch.distributed.logical import (grad_like, mesh_of, replicated,
+                                             unflatten_last)
+from repro_torch.models.attention import _data_split
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, dense_init
 
@@ -112,10 +117,10 @@ def _project_qkv(p, cfg: ModelConfig, x_in):
     input / forget gate pre-activations: x_in (..., d_in) ->
     (..., nh, dk) ×3, (..., nh) ×2."""
     _, nh, dk = mlstm_dims(cfg)
-    shape = x_in.shape[:-1] + (nh, dk)
-    q = (x_in @ p["wq"]).reshape(shape).float()
-    k = ((x_in @ p["wk"]) / _sqrt_in(dk, x_in.dtype)).reshape(shape).float()
-    v = (x_in @ p["wv"]).reshape(shape).float()
+    q = unflatten_last(x_in @ p["wq"], nh, dk).float()
+    k = unflatten_last((x_in @ p["wk"]) / _sqrt_in(dk, x_in.dtype), nh,
+                       dk).float()
+    v = unflatten_last(x_in @ p["wv"], nh, dk).float()
     gates = x_in.float() @ p["w_if"] + p["b_if"]
     i_pre, f_pre = gates.chunk(2, dim=-1)
     return q, k, v, i_pre, f_pre
@@ -132,23 +137,98 @@ def _mlstm_chunk(C, n, m, q, k, v, i_pre, f_pre):
     return carry + (torch.stack(hs, dim=1),)
 
 
+# ---- the recurrences' regions: DTensor inputs, local loops
+def _region(x, heads: int):
+    """(mesh, data axes, head axis) of a recurrence's region on the mesh of
+    ``x`` (B, ...): batch rows over the data axes where they split, heads
+    over ``'model'`` where they divide (``heads`` 0: none), every other
+    split gathered.  The recurrences mix nothing across rows or heads, so
+    each rank runs its rows and heads on local tensors: the per-token loop
+    pays no DTensor dispatch, and none of DTensor's missing rules."""
+    mesh = x.device_mesh
+    d, _ = _data_split(mesh, x.shape[0], x.shape[0])
+    m = logical.mesh_shape(mesh).get("model", 1)
+    h = "model" if heads and "model" in mesh.mesh_dim_names \
+        and heads % m == 0 else None
+    return mesh, d, h
+
+
+def _local(ts, specs, mesh, grads=None):
+    """Each of ``ts`` laid out as its spec, as this rank's local tensor
+    (differentiable; ``grads``: the gradients' placements per tensor)."""
+    return [logical.local_shard(t, mesh, logical.placements(mesh, s),
+                                None if grads is None else g)
+            for t, s, g in zip(ts, specs, grads or [None] * len(ts))]
+
+
+def _wrap(ts, specs, mesh):
+    from torch.distributed.tensor import DTensor
+    return tuple(DTensor.from_local(t, mesh, logical.placements(mesh, s),
+                                    run_check=False)
+                 for t, s in zip(ts, specs))
+
+
+def _mlstm_chunk_dist(C, n, m, q, k, v, i_pre, f_pre):
+    """:func:`_mlstm_chunk` in a region (:func:`_region`) for DTensors."""
+    if not logical.is_dtensor(q):
+        return _mlstm_chunk(C, n, m, q, k, v, i_pre, f_pre)
+    mesh, d, h = _region(q, q.shape[2])
+    specs = (P(d, h),) * 3 + (P(d, None, h),) * 5
+    out = _mlstm_chunk(*_local((C, n, m, q, k, v, i_pre, f_pre), specs,
+                               mesh))
+    return _wrap(out, specs[:4], mesh)
+
+
+def _mlstm_cell_dist(carry, inp):
+    """:func:`_mlstm_cell` in a region for DTensors (the decode step)."""
+    if not logical.is_dtensor(inp[0]):
+        return _mlstm_cell(carry, inp)
+    mesh, d, h = _region(inp[0], inp[0].shape[1])
+    specs = (P(d, h),) * 8
+    local = _local(tuple(carry) + tuple(inp), specs, mesh)
+    carry, h_out = _mlstm_cell(tuple(local[:3]), tuple(local[3:]))
+    return _wrap(carry, specs, mesh), _wrap((h_out,), specs, mesh)[0]
+
+
+def _slstm_dist(fn, p, cfg: ModelConfig, carry, pre):
+    """``fn`` (:func:`_slstm_chunk` or a cell step) in a region for
+    DTensors: batch rows over the data axes, the gates whole (their
+    gate-major layout keeps a head's four gates apart).  The recurrent
+    weights are replicated; their gradient is a part of the sum on each
+    data rank (``Partial``)."""
+    if not logical.is_dtensor(pre):
+        return fn(p, cfg, *carry, pre)
+    from torch.distributed.tensor import Partial, Replicate
+    mesh, d, _ = _region(pre, 0)
+    daxes = (d if isinstance(d, tuple) else (d,)) if d else ()
+    r_grad = tuple(Partial() if a in daxes else Replicate()
+                   for a in mesh.mesh_dim_names)
+    r, *local = _local((p["r_gates"],) + tuple(carry) + (pre,),
+                       (P(),) + (P(d),) * 5, mesh,
+                       grads=[r_grad] + [None] * 5)
+    out = fn({"r_gates": r}, cfg, *local)
+    return _wrap(out, (P(d),) * len(out), mesh)
+
+
 def _mlstm_sequence(p, cfg: ModelConfig, x_in, chunk: int = 64):
     """x_in: (B, S, d_in) -> h: (B, S, d_in), f32.
 
     Per-token recurrence in chunks of ``chunk``, each chunk checkpointed
     (module docstring)."""
-    B, S, d_in = x_in.shape
+    B, S, _ = x_in.shape
     xs = _project_qkv(p, cfg, x_in)
     st = init_mlstm_state(cfg, B, device=x_in.device)
-    C, n, m = st["C"], st["n"], st["m"]
+    C, n, m = (replicated(st[k], mesh_of(x_in)) for k in ("C", "n", "m"))
     Q = min(chunk, S)
     outs = []
     for a in range(0, S, Q):
-        C, n, m, h = checkpoint(_mlstm_chunk, C, n, m,
+        C, n, m, h = checkpoint(_mlstm_chunk_dist, C, n, m,
                                 *(t[:, a:a + Q] for t in xs),
                                 use_reentrant=False)
         outs.append(h)
-    return torch.cat(outs, dim=1).reshape(B, S, d_in)
+    # the gradient laid out like the heads' merge (whole over heads that do
+    # not divide the model axis), or its backward cannot unflatten them
+    return grad_like(torch.cat(outs, dim=1).reshape(B, S, -1))
 
 
 def _mlstm_out(p, cfg: ModelConfig, h, x_in, z, dtype):
@@ -170,13 +250,12 @@ def apply_mlstm(p, cfg: ModelConfig, x):
 
 def apply_mlstm_decode(p, cfg: ModelConfig, x, state):
     """x: (B,1,d) -> (y, state)."""
-    B = x.shape[0]
     d_in = mlstm_dims(cfg)[0]
     up = x[:, 0] @ p["up"]
     x_in, z = up[..., :d_in], up[..., d_in:]
-    (C, n, m), h = _mlstm_cell((state["C"], state["n"], state["m"]),
-                               _project_qkv(p, cfg, x_in))
-    y = _mlstm_out(p, cfg, h.reshape(B, d_in), x_in, z, x.dtype)
+    (C, n, m), h = _mlstm_cell_dist((state["C"], state["n"], state["m"]),
+                                    _project_qkv(p, cfg, x_in))
+    y = _mlstm_out(p, cfg, h.reshape(h.shape[0], -1), x_in, z, x.dtype)
     return y[:, None, :], {"C": C, "n": n, "m": m}
 
 
@@ -242,10 +321,20 @@ def _slstm_chunk(p, cfg: ModelConfig, c, n, h, m, pre):
     return carry + (torch.stack(hs, dim=1),)
 
 
+def _slstm_step(p, cfg: ModelConfig, c, n, h, m, pre_t):
+    """One token, flat: (c, n, h, m, h_out)."""
+    carry, h_out = _slstm_cell(p, cfg, (c, n, h, m), pre_t)
+    return carry + (h_out,)
+
+
 def _slstm_ffn(p, cfg: ModelConfig, h, dtype):
     h = apply_norm({"scale": p["norm_scale"]}, h, "rms", cfg.norm_eps)
     h = h.to(dtype)
-    return F.gelu(h @ p["ffn_wi"], approximate="tanh") @ p["ffn_wo"]
+    # gradients laid out like the activations: DTensor's backward would
+    # split the tokens over 'model' where f_up does not divide it, and
+    # the products' backward could not unflatten them
+    return grad_like(F.gelu(grad_like(h @ p["ffn_wi"]), approximate="tanh")
+                     @ p["ffn_wo"])
 
 
 def apply_slstm(p, cfg: ModelConfig, x, chunk: int = 64):
@@ -256,12 +345,13 @@ def apply_slstm(p, cfg: ModelConfig, x, chunk: int = 64):
     B, S, d = x.shape
     pre = x.float() @ p["w_gates"] + p["b_gates"]
     st = init_slstm_state(cfg, B, device=x.device)
-    c, n, h, m = st["c"], st["n"], st["h"], st["m"]
+    c, n, h, m = (replicated(st[k], mesh_of(x)) for k in ("c", "n", "h", "m"))
     Q = min(chunk, S)
     outs = []
     for a in range(0, S, Q):
-        c, n, h, m, hs = checkpoint(_slstm_chunk, p, cfg, c, n, h, m,
-                                    pre[:, a:a + Q], use_reentrant=False)
+        c, n, h, m, hs = checkpoint(_slstm_dist, _slstm_chunk, p, cfg,
+                                    (c, n, h, m), pre[:, a:a + Q],
+                                    use_reentrant=False)
         outs.append(hs)
     return _slstm_ffn(p, cfg, torch.cat(outs, dim=1), x.dtype)
 
@@ -269,7 +359,8 @@ def apply_slstm(p, cfg: ModelConfig, x, chunk: int = 64):
 def apply_slstm_decode(p, cfg: ModelConfig, x, state):
     """x: (B,1,d) -> (y, state); state leaves (B, d)."""
     pre = x[:, 0].float() @ p["w_gates"] + p["b_gates"]
-    (c, n, h, m), h_out = _slstm_cell(
-        p, cfg, (state["c"], state["n"], state["h"], state["m"]), pre)
+    c, n, h, m, h_out = _slstm_dist(
+        _slstm_step, p, cfg, (state["c"], state["n"], state["h"],
+                              state["m"]), pre)
     y = _slstm_ffn(p, cfg, h_out, x.dtype)
     return y[:, None, :], {"c": c, "n": n, "h": h, "m": m}

@@ -27,12 +27,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.distributed.logical import grad_like
 from repro_torch.models import xlstm as cells
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import (_stack_layers, init_generator,
-                                        unstack_layers)
+from repro_torch.models.decoder import (_laid_out, _stack_layers,
+                                        init_generator, unstack_layers)
 from repro_torch.models.layers import (apply_norm, dense_init, dtype_of,
-                                       embed_init, init_norm)
+                                       embed, embed_init, init_norm)
 
 
 def segments(cfg: ModelConfig):
@@ -85,7 +86,7 @@ def forward(params, cfg: ModelConfig, tokens, *,
     """tokens: (B, S) int -> (logits (B, S, V), 0.0).  ``embeddings``
     overrides the token embedding; ``remat=True`` checkpoints each mLSTM
     layer (non-reentrant)."""
-    x = params["embed"][tokens.long()] if embeddings is None else embeddings
+    x = embed(params["embed"], tokens) if embeddings is None else embeddings
     for si, (kind, a, b) in enumerate(segments(cfg)):
         sp = params[f"seg{si}"]
         if kind == "m":
@@ -96,7 +97,7 @@ def forward(params, cfg: ModelConfig, tokens, *,
             h = apply_norm(sp["norm"], x, cfg.norm, cfg.norm_eps)
             x = x + cells.apply_slstm(sp["cell"], cfg, h)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return x @ params["lm_head"], 0.0
+    return grad_like(x @ params["lm_head"]), 0.0
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, labels, **kw):
@@ -110,7 +111,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
                       dtype=None, device: DeviceLike = None) -> dict:
     """``lengths`` (B,); per mLSTM segment its states stacked ``(L_seg, B,
     ...)``; per sLSTM segment its states ``(1, B, d)`` (module docstring).
-    Every state is f32; ``max_len`` and ``dtype`` are not read (no KV)."""
+    Every state is f32; ``max_len`` and ``dtype`` are not read (no KV).
+    Under logical rules on a DeviceMesh each leaf is a DTensor laid out by
+    ``distributed.sharding.cache_shardings``."""
     dev = resolve_device(device)
     cache: dict[str, Any] = {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
@@ -123,7 +126,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
         else:
             st = cells.init_slstm_state(cfg, batch, device=dev)
             cache[f"seg{si}"] = {k: v[None] for k, v in st.items()}
-    return cache
+    return _laid_out(cache, batch)
 
 
 def _update(stacked: dict, i: int, new: dict) -> None:
@@ -138,7 +141,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     families update theirs; the returned dict shares them and carries a
     new ``lengths`` tensor.  Nothing here is differentiated."""
     with torch.no_grad():
-        x = params["embed"][tokens.long()]
+        x = embed(params["embed"], tokens)
         new_cache = dict(cache, lengths=cache["lengths"] + 1)
         for si, (kind, a, b) in enumerate(segments(cfg)):
             sp, st = params[f"seg{si}"], cache[f"seg{si}"]

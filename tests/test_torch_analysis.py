@@ -9,7 +9,7 @@
 * ``launch/specs.py`` gives the reference's ``jax.eval_shape`` trees for
   every config and shape; ``launch/mesh.py`` the production meshes over a
   fake group, and abstract ones without; ``launch/dryrun.py`` the
-  reference's logical rules, and its cells run in one subprocess.
+  reference's logical rules, and its cells run in two subprocesses.
 """
 
 from __future__ import annotations
@@ -353,26 +353,41 @@ def _ref_logical_rules_for(cfg, mesh):
 
 
 DRYRUN_SMOKE = r"""
-import json
+import json, sys
 from repro_torch.launch.dryrun import run_cell
 out = {}
-for arch, shape, multi in (("codeqwen15_7b", "decode_32k", True),
-                           ("starcoder2_3b", "train_4k", False),
-                           ("zamba2_7b", "decode_32k", True)):
-    rec = run_cell(arch, shape, multi_pod=multi, save=False)
+for cell in sys.argv[1:]:
+    arch, shape, mesh = cell.split("/")
+    rec = run_cell(arch, shape, multi_pod=mesh == "multi", save=False)
     rec.pop("traceback", None)
     out[f"{arch}/{shape}"] = rec
 print(json.dumps(out, default=str))
 """
+#: the cells, in two subprocesses run side by side: the train cell alone
+DRYRUN_CELLS = (("starcoder2_3b/train_4k/single",),
+                ("codeqwen15_7b/decode_32k/multi", "zamba2_7b/decode_32k/multi",
+                 "xlstm_125m/decode_32k/multi"))
 
 
 @pytest.fixture(scope="module")
 def dryrun_cells():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    r = subprocess.run([sys.executable, "-c", DRYRUN_SMOKE],
-                       capture_output=True, text=True, env=env, timeout=900)
-    assert r.returncode == 0, r.stdout[-500:] + r.stderr[-3000:]
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    procs = [subprocess.Popen([sys.executable, "-c", DRYRUN_SMOKE, *cells],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env)
+             for cells in DRYRUN_CELLS]
+    out = {}
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=900)
+            assert p.returncode == 0, stdout[-500:] + stderr[-3000:]
+            out.update(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
 
 
 class TestDryRunMachinery:
@@ -404,12 +419,33 @@ class TestDryRunMachinery:
 
     def test_a_family_not_yet_sharded_records_its_error(self,
                                                          dryrun_cells):
-        """The hybrid family runs under DTensor only with A3c: its cell is
-        a record with ``status: "error"`` and the exception, as the
-        reference records a failed cell."""
+        """The hybrid family's multi-pod decode cell (named from before
+        A3c, when the family did not run under DTensor and its cell
+        recorded ``status: "error"``): it traces, with per-device FLOPs,
+        bytes and collective bytes."""
         rec = dryrun_cells["zamba2_7b/decode_32k"]
-        assert rec["status"] == "error" and rec["error"]
+        assert rec["status"] == "ok", rec.get("error")
         assert rec["mesh"] == "pod2x16x16" and rec["kind"] == "decode"
+        assert rec["n_devices"] == 512
+        assert rec["hlo_dot_flops_per_dev"] > 0
+        assert rec["hlo_hbm_bytes_per_dev"] > 0
+        assert rec["per_device_bytes"] > 0
+        assert rec["hlo_collective_bytes_per_dev"] > 0
+
+    def test_xlstm_cell_traces_on_512_devices(self, dryrun_cells):
+        """The twin of the reference's ``TestDryRunMachinery`` cell,
+        xLSTM-125M on 512 devices, at its ``decode_32k`` shape (the
+        reference's ``train_4k`` walks 4,096 tokens one at a time through
+        DTensor dispatch here: minutes of trace, past this fixture's
+        time)."""
+        rec = dryrun_cells["xlstm_125m/decode_32k"]
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["n_devices"] == 512 and rec["mesh"] == "pod2x16x16"
+        assert 0 < rec["hlo_dot_flops_per_dev"] * 16 \
+            < rec["model_flops_total"] \
+            <= rec["hlo_dot_flops_per_dev"] * 512
+        assert rec["per_device_bytes"] > 0
+        assert rec["hlo_collective_bytes_per_dev"] > 0
 
     def test_records_have_the_reference_keys(self, dryrun_cells):
         keys = {"arch", "shape", "mesh", "kind", "status", "n_devices",

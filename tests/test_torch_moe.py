@@ -204,6 +204,29 @@ class TestApplyMoe:
         np.testing.assert_allclose(grads[-1].numpy(), np.asarray(jgx),
                                    **GRAD)
 
+    def test_equal_router_probabilities_rank_by_expert_index(self):
+        """Zero tokens (a padded group's) give every expert 1/E: the
+        routing choices are the lowest expert indices, as ``lax.top_k``
+        picks them, so capacity fills alike and the outputs, aux loss and
+        gradients match (``torch.topk`` would take other experts)."""
+        jcfg, cfg, jp, p, x = _moe_case(S=8)
+        x[1] = 0.0                                   # a row of zero tokens
+        jx, tx = _x(x)
+        jy, jaux = jax_moe._moe_group(jp, jcfg, jx.reshape(-1, x.shape[-1]),
+                                      dropless=False)
+        leaves = [t.clone().requires_grad_(True) for t in tree_leaves(p)]
+        y, aux = t_moe._moe_group(tree_unflatten(p, leaves), cfg,
+                                  tx.reshape(-1, x.shape[-1]), False)
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **F32)
+        np.testing.assert_allclose(float(aux.detach()), float(jaux), **F32)
+        jg = jax.grad(lambda q: jnp.sum(jax_moe._moe_group(
+            q, jcfg, jx.reshape(-1, x.shape[-1]), dropless=False)[0]))(jp)
+        grads = torch.autograd.grad(y.sum(), leaves)
+        want = _jax_leaves(jg)
+        for n, g in zip(tree_names(p), grads):
+            np.testing.assert_allclose(g.numpy(), want[n], **GRAD,
+                                       err_msg=n)
+
     @pytest.mark.parametrize("arch", [ARCH, "deepseek_v3_671b"])
     def test_bf16(self, arch):
         """bf16 weights and activations; the combine weights round to bf16
