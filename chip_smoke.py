@@ -44,6 +44,24 @@ Phases, one JSON line each:
                      index_select / index_copy_ and an empty kernel (the
                      launch floor), Zamba2's with -1 and past-the-pool
                      indices;
+3a. ``seq_split``    the flash kernels at a query offset: a sequence split
+                     over 16 ranks emulated in one process, as
+                     ``models.attention._flash_dist`` runs each rank (its
+                     rows of q at ``q_offset`` over the whole K/V,
+                     forward and backward through autograd; counters
+                     zeroed just before the ranks' calls and read just
+                     after, path ``seq_split``) at Qwen3-14B's training
+                     shape, Mixtral-8x7B's heads at S = 8,192 with its
+                     4,096-token window, StarCoder2-3B's heads in f32 at
+                     S = 1,536 (96 rows a rank: no tile multiple) and
+                     H2O-Danube's D = 80; each rank against the plain
+                     version at its offset, the ranks' outputs and dq
+                     concatenated and dk, dv summed against the whole
+                     call (bits equal or not), each rank's and the whole
+                     call's device ms beside their bounds (K/V read over
+                     the keys a rank's mask reaches), the plain version's
+                     and SDPA's (over the offset mask) at the first,
+                     middle and last rank and the whole call;
 3b. ``dist_local``   the shard-local paged decode at Qwen3-14B's decode
                      shape (bf16, the kernels phase's lengths): two data
                      ranks in one process, each on its slice of the pool
@@ -75,6 +93,18 @@ Phases, one JSON line each:
                      over 1,500; xLSTM: none), logits, every cache leaf,
                      loss and updated parameters within the bf16
                      tolerance, bits equal or not;
+3e. ``examples``    (in the side process, below) the example
+                     twins in subprocesses on the card, counters zeroed in
+                     each just before the script and read just after:
+                     ``torch_serve_paged_kv.py`` at its defaults (the
+                     reference's ring-buffer scenario: no kernel of ours)
+                     and with ``--window 0`` (paged attention, the page
+                     copies), both printing the reference's two stats
+                     lines; ``torch_train_demand_paged.py`` at its default
+                     f32 size, 52.4M parameters (flash on its f32 route,
+                     ``PagedAdamW``'s page copies) for 2 steps with a
+                     checkpoint, then a restart that resumes from it for
+                     1 more; finite losses;
 4. ``decode_parity`` one full-width ``decode_step`` (2 layers), kernel path
                      against plain path;
 5. ``spill_parity``  the serve scenario at 2 layers: an undersized KV pool
@@ -211,10 +241,10 @@ Phases, one JSON line each:
                      (and, inside ``train``, ``train_encdec`` and
                      ``train_moe``, one training step).
 
-``serve_xlstm``, ``train_xlstm``, ``remote_paging``,
+``examples``, ``serve_xlstm``, ``train_xlstm``, ``remote_paging``,
 ``serve_hybrid_plain`` and ``dist_families_side`` run in a second process
 on the same card
-(``--side``), started after ``kernels`` and waited for after
+(``--side``), started after ``seq_split`` and waited for after
 ``serve_danube``; the phases in between time no kernel, and the side
 phases' lines come after ``serve_danube``'s.
 
@@ -272,6 +302,17 @@ class Sizes:
     timing_layers: int = 8           # distinct pools cycled through: L2-cold
     long_pages: int = 128            # 128 x 256 = 32,768: Qwen3-14B's native
     flash_iters: int = 10            # timed calls at the training shape
+    # seq_split: a sequence split over seq_split_ranks ranks (the
+    # production mesh's 'model' = 16), each rank's calls timed
+    # seq_split_iters times; the f32 case at seq_split_f32_seq (96 rows a
+    # rank: no multiple of the f32 kernels' 64-row tiles)
+    seq_split_ranks: int = 16
+    seq_split_iters: int = 5
+    seq_split_f32_seq: int = 1536
+    # examples: the training twin's steps before its checkpoint, and after
+    # the restart that resumes from it
+    example_train_steps: int = 2
+    example_resume_steps: int = 1
     parity_batch: int = 2            # train_parity: one batch of 2 x 512
     parity_seq: int = 512
     # train: Qwen3-14B cut to train_layers (4 until a run of 978.3 s on one
@@ -976,6 +1017,283 @@ def _reference_signature(gen, dev) -> dict:
             errs[name] = _flash_close(o, ref, False, f"flash_attention_"
                                       f"kernel {name}")[0]
     return errs
+
+
+def _split_pairs(S: int, lo: int, hi: int, causal: bool, window: int) -> int:
+    """(q, k) pairs that rows at absolute positions [lo, hi) of a sequence
+    of S keys see under the mask."""
+    n = 0
+    for p in range(lo, hi):
+        first = max(0, p - window + 1) if window > 0 else 0
+        n += (p + 1 if causal else S) - first
+    return n
+
+
+def _split_keys(S: int, lo: int, hi: int, causal: bool, window: int) -> int:
+    """Keys that rows at absolute positions [lo, hi) of a sequence of S
+    keys reach under the mask: the kernels' ``k_range`` loads no other
+    key tile."""
+    first = max(0, lo - window + 1) if window > 0 else 0
+    return max(0, (hi if causal else S) - first)
+
+
+def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
+                    window, m: int, iters: int) -> dict:
+    """One shape of a sequence split over ``m`` ranks, emulated in one
+    process as ``models.attention._flash_dist`` runs it on each rank: rank
+    r calls ``flash_attention`` on its rows ``[r S/m, (r+1) S/m)`` of q at
+    ``q_offset = r S/m`` over the whole K/V, forward and backward through
+    autograd.  Counters are zeroed just before the ranks' calls and read
+    just after: one forward and one backward launch a rank.  Then (a) each
+    rank's output and gradients against the plain version at the same
+    offset (``_flash_close``: bf16 rows within 2e-2 against the plain
+    forward and the plain backward given the kernel's output, gradients
+    within 2e-2 x max|ref| of autograd; f32 element-wise 2e-5 / 1e-4), (b)
+    the ranks' outputs and dq concatenated, dk and dv summed, against the
+    whole unsplit kernel call (the same bounds; bits equal or not), and
+    each rank's and the whole call's device ms beside their bounds (K/V
+    read over the keys the rank's mask reaches, ``_split_keys``; dk and dv
+    written over all S), and the plain version's and SDPA's ms at the
+    first, middle and last rank and the whole call."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    rows = S // m
+    require(rows * m == S, f"seq_split {name}: {m} ranks do not divide {S}")
+    kw = dict(causal=causal, window=window)
+    what = (f"seq_split {name} B{B} S{S} H{H} KVH{KVH} D{D} "
+            f"{str(dtype).split('.')[-1]} causal={causal} window={window} "
+            f"ranks={m}")
+    q = _rand(gen, (B, S, H, D), dtype, dev)
+    k = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+    v = _rand(gen, (B, S, KVH, D), dtype, dev).requires_grad_(True)
+    dout = _rand(gen, (B, S, H, D), dtype, dev)
+    qs = [q[:, r * rows:(r + 1) * rows].detach().requires_grad_(True)
+          for r in range(m)]
+
+    sync(dev)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    outs, grads = [], []
+    for r in range(m):
+        o = flash_attention(qs[r], k, v, q_offset=r * rows, **kw)
+        grads.append(torch.autograd.grad(
+            o, (qs[r], k, v), dout[:, r * rows:(r + 1) * rows]))
+        outs.append(o.detach())
+    sync(dev)
+    counts = kernels.launch_counts()
+    ranks_s = time.perf_counter() - t0
+    require(dev.type != "cuda" or (counts["flash_attention"] == m
+                                   and counts["flash_attention_bwd"] == m),
+            f"{what}: launches {counts}")
+
+    # (a) each rank against the plain version at its offset
+    f32 = dtype == torch.float32
+    e_fwd = e_grad = (0.0, 0.0)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    for r in range(m):
+        off, qr = r * rows, qs[r]
+        dr = dout[:, off:off + rows]
+        ref = flash_attention_ref(qr.transpose(1, 2), kt, vt, q_offset=off,
+                                  **kw).transpose(1, 2)
+        e = _flash_close(outs[r], ref.detach(), False, f"{what} rank {r}")
+        e_fwd = tuple(map(max, e_fwd, e))
+        want = torch.autograd.grad(ref, (qr, k, v), dr)
+        del ref
+        if f32:
+            es = [_flash_close(a, b, True, f"{what} rank {r} d{n}")
+                  for a, b, n in zip(grads[r], want, "qkv")]
+        else:
+            with torch.no_grad():
+                plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+                    qr.transpose(1, 2), kt, vt, outs[r].transpose(1, 2),
+                    dr.transpose(1, 2), q_offset=off, **kw)]
+            es = [(_close_max(a, b, f"{what} rank {r} d{n}"),
+                   _flash_close(a, c, True, f"{what} rank {r} d{n}, plain "
+                                "backward")[1])
+                  for a, b, c, n in zip(grads[r], want, plain, "qkv")]
+            del plain
+        del want
+        e_grad = tuple(max(x, *(y[i] for y in es))
+                       for i, x in enumerate(e_grad))
+
+    # (b) the ranks together against the whole unsplit call
+    with torch.no_grad():
+        o_w, lse_w = flash_attention_fwd(q, k, v, **kw)
+        dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, o_w, lse_w, dout,
+                                               **kw)
+        joined = {
+            "o": (torch.cat(outs, dim=1), o_w),
+            "dq": (torch.cat([g[0] for g in grads], dim=1), dq_w),
+            "dk": (sum(g[1].float() for g in grads).to(dtype), dk_w),
+            "dv": (sum(g[2].float() for g in grads).to(dtype), dv_w)}
+    sync(dev)
+    e_whole, same = (0.0, 0.0), {}
+    for n, (a, b) in joined.items():
+        e = _flash_close(a, b, n != "o", f"{what}: ranks joined {n} against "
+                         "the whole call")
+        e_whole = tuple(map(max, e_whole, e))
+        same[n] = bool(torch.equal(a, b))
+    del joined, grads
+
+    # device ms: each rank's forward and backward, and the whole call's;
+    # the plain version's and SDPA's (one call over the rank's Sq x Sk
+    # offset mask) at the first, middle and last rank and the whole call
+    el = q.element_size()
+    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
+
+    def bound(lo, hi, bwd):
+        n = hi - lo
+        pairs = _split_pairs(S, lo, hi, causal, window)
+        flops = (10 if bwd else 4) * B * H * D * pairs
+        # read once / written once: q, o (, dout, dq) over the rows, k, v
+        # over the keys the rows reach (, dk, dv written over all S: a key
+        # no row sees gets a zero), lse (B, H, rows) f32
+        keys = _split_keys(S, lo, hi, causal, window)
+        nbytes = el * B * ((4 if bwd else 2) * n * H * D + 2 * keys * KVH * D
+                           + (2 * S * KVH * D if bwd else 0)) + 4 * B * H * n
+        t_ops, t_mem = flops / peak, nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(t_ops, t_mem) * 1e3,
+                "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                "flops": flops, "bytes": nbytes, "keys": keys}
+
+    def timed(off, qr, dr, o_r, lse_r, others: bool) -> dict:
+        n = qr.shape[1]
+        with torch.no_grad():
+            out = {"fwd_ms": time_ms(dev, [lambda: flash_attention_fwd(
+                qr, k, v, q_offset=off, **kw)], iters),
+                "bwd_ms": time_ms(dev, [lambda: flash_attention_bwd(
+                    qr, k, v, o_r, lse_r, dr, q_offset=off, **kw)], iters)}
+        if not others:
+            return out
+        qt, dt = qr.transpose(1, 2), dr.transpose(1, 2)
+        pos = off + torch.arange(n, device=dev)[:, None]
+        key = torch.arange(S, device=dev)[None, :]
+        mask = (pos >= key) if causal else torch.ones_like(pos >= key)
+        if window > 0:
+            mask &= (pos - key) < window
+        for label, fn in (
+                ("plain", lambda: flash_attention_ref(
+                    qt, kt, vt, q_offset=off, **kw)),
+                ("library", lambda: torch.nn.functional
+                 .scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True))):
+            with torch.no_grad():
+                out[f"{label}_fwd_ms"] = time_ms(dev, [fn], iters)
+            y = fn()
+            out[f"{label}_bwd_ms"] = time_ms(dev, [
+                lambda: torch.autograd.grad(y, (qr, k, v), dt,
+                                            retain_graph=True)], iters)
+            del y
+        del mask
+        return out
+
+    others = {0, m // 2, m - 1}
+    per_rank = []
+    for r, qr in enumerate(qs):
+        off = r * rows
+        dr = dout[:, off:off + rows]
+        with torch.no_grad():
+            o_r, lse_r = flash_attention_fwd(qr, k, v, q_offset=off, **kw)
+        per_rank.append({"rank": r, "q_offset": off,
+                         **timed(off, qr, dr, o_r, lse_r, r in others),
+                         "fwd": bound(off, off + rows, False),
+                         "bwd": bound(off, off + rows, True)})
+        del o_r, lse_r
+    q.requires_grad_(True)
+    whole = {**timed(0, q, dout, o_w, lse_w, True),
+             "fwd": bound(0, S, False), "bwd": bound(0, S, True)}
+    del q, k, v, dout, qs, outs, o_w, lse_w, dq_w, dk_w, dv_w, kt, vt
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
+                      "dtype": str(dtype).split(".")[-1], "causal": causal,
+                      "window": window, "ranks": m, "rows_per_rank": rows},
+            "launches": {n: counts[n] for n in ("flash_attention",
+                                                 "flash_attention_bwd")},
+            "ranks_seconds": ranks_s,
+            "max_abs_err": {"rank_fwd": e_fwd[0], "rank_fwd_row_rel": e_fwd[1],
+                            "rank_grad": e_grad[0],
+                            "rank_grad_row_rel": e_grad[1],
+                            "joined_vs_whole": e_whole[0],
+                            "joined_vs_whole_row_rel": e_whole[1]},
+            "bit_identical_to_whole": same,
+            "whole": whole,
+            "ranks_fwd_ms_sum": sum(p["fwd_ms"] for p in per_rank),
+            "ranks_bwd_ms_sum": sum(p["bwd_ms"] for p in per_rank),
+            "per_rank": per_rank}
+
+
+def phase_seq_split(dev, sz: Sizes, table) -> dict:
+    """The flash phase's ``seq_split`` case at four shapes: Qwen3-14B's
+    training shape (bf16, causal), Mixtral-8x7B's heads at S = 8,192 with
+    its 4,096-token window active (bf16), StarCoder2-3B's heads in f32 at
+    S = 1,536 (96 rows a rank: an offset that is no multiple of the f32
+    kernels' 64-row tiles) and H2O-Danube-1.8B's head_dim 80 (bf16,
+    causal); ``sz.seq_split_ranks`` ranks each.  Emits the cases whole,
+    credits the ranks' launches to the flash rows of ``table`` (path
+    ``seq_split``) and adds each shape's per-rank device ms and bounds,
+    and the plain version's and SDPA's ms at three ranks and the whole
+    call, to them."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    m, it = sz.seq_split_ranks, sz.seq_split_iters
+    cases = {}
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for name, arch, S, dtype, window in (
+            ("qwen3_train", sz.arch, sz.train_seq, torch.bfloat16, 0),
+            ("mixtral_window", sz.moe_arch, 2 * sz.train_seq,
+             torch.bfloat16, None),
+            ("starcoder2_f32", "starcoder2_3b", sz.seq_split_f32_seq,
+             torch.float32, 0),
+            ("danube_d80", sz.danube_arch, sz.train_seq, torch.bfloat16, 0)):
+        c = get_config(arch)
+        w = c.sliding_window if window is None else window
+        case = _seq_split_case(gen, dev, name, 1, S, c.n_heads, c.n_kv_heads,
+                               c.head_dim, dtype, True, w, m, it)
+        case["arch"] = c.name
+        for n in total:
+            total[n] += case["launches"][n]
+        cases[name] = case
+    emit("seq_split", cases=cases, launches=total,
+         library="F.scaled_dot_product_attention over the rank's Sq x Sk "
+         "offset mask (enable_gqa), its backward by autograd",
+         tolerance={"float32": {"forward": TOL["float32"],
+                                "gradients": GRAD_TOL_F32},
+                    "bfloat16": "2e-2 relative L2 error per row against "
+                    "the plain forward and the plain backward given the "
+                    "kernel's output; gradients also within 2e-2 x max|ref| "
+                    "of autograd"})
+    _add_launches(table, "seq_split", total, tuple(total))
+    for row in table:
+        kind = {"flash_attention": "fwd",
+                "flash_attention_bwd": "bwd"}.get(row["name"])
+        if kind:
+            row["seq_split"] = {name: {
+                "shape": c["shape"],
+                "rank_ms": [p[f"{kind}_ms"] for p in c["per_rank"]],
+                "rank_bound_ms": [p[kind]["bound_ms"] for p in c["per_rank"]],
+                "rank_bound_by": [p[kind]["bound_by"] for p in c["per_rank"]],
+                "rank_plain_ms": {p["rank"]: p[f"plain_{kind}_ms"]
+                                  for p in c["per_rank"]
+                                  if f"plain_{kind}_ms" in p},
+                "rank_library_ms": {p["rank"]: p[f"library_{kind}_ms"]
+                                    for p in c["per_rank"]
+                                    if f"library_{kind}_ms" in p},
+                "whole_ms": c["whole"][f"{kind}_ms"],
+                "whole_bound_ms": c["whole"][kind]["bound_ms"],
+                "whole_plain_ms": c["whole"][f"plain_{kind}_ms"],
+                "whole_library_ms": c["whole"][f"library_{kind}_ms"],
+                "bit_identical_to_whole": c["bit_identical_to_whole"],
+                "max_abs_err": c["max_abs_err"]} for name, c in cases.items()}
+    return cases
 
 
 def phase_flash(dev, sz: Sizes, cfg, names: list):
@@ -4984,22 +5302,189 @@ def _decode_profile(dev, sz: Sizes, cfg, params, steps: int,
 
 # ----------------------------------------------------------------------- main
 # --stop-after's choices, in the order of the phases they end after
-STOP_AFTER = ("profile", "kernels", "serve_xlstm", "train_xlstm",
+# ------------------------------------------------------- phase: examples
+#: the two stats lines of the reference's ``examples/serve_paged_kv.py``
+#: (the JAX package's example, run on the CPU: ``PYTHONPATH=src python
+#: examples/serve_paged_kv.py``); its twin prints the same
+SERVE_EXAMPLE_STATS = (
+    "touch_a_page  : 70 tokens, 42 decode steps, spills=6, fault_events=4, "
+    "page-ins=4, simulated fault time=48.4us",
+    "touch_ahead   : 70 tokens, 42 decode steps, spills=6, fault_events=4, "
+    "page-ins=4, simulated fault time=36.0us")
+
+#: runs an example script as ``__main__`` with its arguments, the launch
+#: counters zeroed just before and printed (one JSON line) just after;
+#: killed if the process that started it dies (``prctl(PR_SET_PDEATHSIG)``,
+#: set here rather than in a ``preexec_fn``, which is unsafe in a process
+#: with threads).  With ``--wait`` it first sets up what a training script
+#: pays once (``torch._dynamo``, which ``torch.utils.checkpoint`` imports
+#: on its first call, ``torch.distributed.tensor``, which the port's
+#: DTensor checks import, the CUDA context) and then waits for ``go`` on
+#: its standard input: a restart is started beside the run it resumes
+#: from and let go when that run has ended
+EXAMPLE_RUNNER = (
+    "import ctypes, json, os, runpy, signal, sys\n"
+    "ctypes.CDLL(None).prctl(1, signal.SIGKILL)\n"
+    "if os.getppid() != int(sys.argv[1]):\n"
+    "    sys.exit('chip_smoke.py is gone')\n"
+    "from repro_torch import kernels\n"
+    "if sys.argv[2] == '--wait':\n"
+    "    import torch, torch._dynamo, torch.distributed.tensor\n"
+    "    torch.zeros(1, device='cuda')\n"
+    "    if sys.stdin.readline() != 'go\\n':\n"
+    "        sys.exit('not let go')\n"
+    "    del sys.argv[2]\n"
+    "path = sys.argv[2]\n"
+    "sys.argv = sys.argv[2:]\n"
+    "kernels.reset_launch_counts()\n"
+    "runpy.run_path(path, run_name='__main__')\n"
+    "print('launches ' + json.dumps(kernels.launch_counts()), flush=True)\n")
+
+
+def _start_example(name: str, *args, wait: bool = False):
+    """``examples/<name>`` in a subprocess on the card, its launches
+    counted (``EXAMPLE_RUNNER``); with ``wait`` it waits after its set-up
+    until :func:`_go`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUNNER, str(os.getpid()),
+         *(("--wait",) if wait else ()),
+         os.path.join(root, "examples", name), *map(str, args)],
+        cwd=root, env=env, stdin=subprocess.PIPE if wait else None,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _go(proc) -> None:
+    """Let a waiting example's runner start its script."""
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+
+
+def _finish_example(proc, what: str, timeout: float) -> tuple:
+    """(the example's output lines, its launches by kernel); raises if it
+    failed."""
+    out, err = proc.communicate(timeout=timeout)
+    require(proc.returncode == 0, f"examples: {what} exited "
+            f"{proc.returncode}:\n{err[-3000:]}")
+    lines = out.splitlines()
+    require(lines and lines[-1].startswith("launches "),
+            f"examples: {what} printed no launch counts")
+    return lines[:-1], json.loads(lines[-1][len("launches "):])
+
+
+def _train_losses(lines) -> dict:
+    """step -> loss of the training twin's ``step N  loss X ...`` lines."""
+    out = {}
+    for ln in lines:
+        m = re.match(r"step\s+(\d+)\s+loss\s+(\S+)\s", ln)
+        if m:
+            out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def phase_examples(dev, sz: Sizes, table) -> None:
+    """The example twins on the card (a phase of the side process), each
+    in a subprocess whose launch counters are zeroed just before the
+    script runs and read just after: ``torch_serve_paged_kv.py`` at its
+    defaults (the reference's scenario: its reduced H2O-Danube keeps a
+    32-token window, so decode runs over a ring buffer and no kernel of
+    ours) and with ``--window 0`` (the paged KV pools: paged attention and
+    the page copies), each printing the reference's two stats lines
+    (``SERVE_EXAMPLE_STATS``); and ``torch_train_demand_paged.py`` at its
+    default size (52.4M f32 parameters: flash on its f32 route,
+    ``PagedAdamW``'s page copies) for ``sz.example_train_steps`` steps
+    with a checkpoint at the last, the three started together; then a
+    restart of the training twin (started with them, let go when the
+    first run has ended), which must resume from that checkpoint and take
+    ``sz.example_resume_steps`` more.  Losses finite.  Credits
+    the launches to ``table`` by path and emits the phase's line."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "examples_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n1 = sz.example_train_steps
+    n2 = n1 + sz.example_resume_steps
+    train = ("torch_train_demand_paged.py", "--log-every", 1,
+             "--checkpoint-every", n1, "--checkpoint-dir", ckpt)
+    t0 = time.perf_counter()
+    procs = {"examples_serve": _start_example("torch_serve_paged_kv.py"),
+             "examples_serve_paged": _start_example(
+                 "torch_serve_paged_kv.py", "--window", 0),
+             "examples_train": _start_example(*train, "--steps", n1),
+             "examples_train_resume": _start_example(*train, "--steps", n2,
+                                                     wait=True)}
+    outs, ended = {}, {}
+    try:
+        outs["examples_train"] = _finish_example(
+            procs["examples_train"], "the training twin", 600)
+        ended["examples_train"] = time.perf_counter() - t0
+        _go(procs["examples_train_resume"])
+        for path in ("examples_serve", "examples_serve_paged",
+                     "examples_train_resume"):
+            outs[path] = _finish_example(procs[path], path, 600)
+            ended[path] = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for path in ("examples_serve", "examples_serve_paged"):
+        stats = [ln for ln in outs[path][0] if ": " in ln and "tokens" in ln]
+        require(tuple(stats) == SERVE_EXAMPLE_STATS, f"{path}: stats "
+                f"{stats} differ from the reference's {SERVE_EXAMPLE_STATS}")
+    first, resumed = (_train_losses(outs[p][0]) for p in
+                      ("examples_train", "examples_train_resume"))
+    require(sorted(first) == list(range(1, n1 + 1))
+            and sorted(resumed) == list(range(n1 + 1, n2 + 1)),
+            f"examples: logged steps {sorted(first)}, {sorted(resumed)}")
+    require(all(math.isfinite(x) for x in (*first.values(),
+                                           *resumed.values())),
+            f"examples: losses {first} {resumed}")
+    require(f"resumed from checkpoint at step {n1}"
+            in outs["examples_train_resume"][0],
+            "examples: the restart did not resume from its checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {p: o[1] for p, o in outs.items()}
+    for path, want in (("examples_serve_paged", ("paged_attention",
+                                                 "page_gather",
+                                                 "page_scatter")),
+                       ("examples_train", ("flash_attention",
+                                           "flash_attention_bwd",
+                                           "page_gather", "page_scatter")),
+                       ("examples_train_resume", ("flash_attention",
+                                                  "flash_attention_bwd"))):
+        require(all(launches[path][k] > 0 for k in want),
+                f"examples: {path} launches {launches[path]}")
+    for path, counts in launches.items():
+        _add_launches(table, path, counts, tuple(counts))
+    emit("examples", seconds=secs, ended_at_seconds=ended,
+         serve_stats=list(SERVE_EXAMPLE_STATS),
+         train_losses={"first": first, "resumed": resumed},
+         train_output={p: outs[p][0] for p in
+                       ("examples_train", "examples_train_resume")},
+         resumed_at=n1, launches=launches)
+
+
+STOP_AFTER = ("profile", "kernels", "seq_split", "examples", "serve_xlstm", "train_xlstm",
               "remote_paging", "serve_hybrid_plain", "dist_families_side",
               "dist_local", "dist_step", "dist_families", "spill_parity",
               "serve", "serve_danube", "serve_hybrid", "serve_encdec",
               "serve_mla_moe", "train", "train_mla", "train_hybrid",
               "train_encdec")
-# host-bound phases that time no kernel of this repo (xLSTM's two, a
-# Python loop over tokens; the remote-paging simulation, whose one-row
-# copy timings are the exception; the hybrid's comparison with the plain
-# path; three families' DTensor steps, which time nothing): they run in a second process on the same card (``--side``),
-# started after the ``kernels`` phase and waited for after
+# host-bound phases that time no kernel of this repo (the example twins'
+# subprocesses; xLSTM's two, a Python loop over tokens; the remote-paging
+# simulation, whose one-row copy timings are the exception; the hybrid's
+# comparison with the plain path; three families' DTensor steps, which
+# time nothing): they run in a second process on the same card (``--side``),
+# started after the ``seq_split`` phase and waited for after
 # ``serve_danube``; between the two the parent's phases time no kernel,
 # and every phase after the wait runs alone
-SIDE = ("serve_xlstm", "train_xlstm", "remote_paging", "serve_hybrid_plain",
-        "dist_families_side")
-SIDE_FNS = {"serve_xlstm": phase_serve_xlstm,
+SIDE = ("examples", "serve_xlstm", "train_xlstm", "remote_paging",
+        "serve_hybrid_plain", "dist_families_side")
+SIDE_FNS = {"examples": phase_examples,
+            "serve_xlstm": phase_serve_xlstm,
             "train_xlstm": phase_train_xlstm,
             "remote_paging": phase_remote_paging,
             "serve_hybrid_plain": phase_serve_hybrid_plain,
@@ -5103,6 +5588,8 @@ def run(dev, sz: Sizes, stop_after: str = "", with_profile: bool = False):
         return None
     emit("build", **timed("build", _build_fields))
     table = timed("kernels", phase_kernels, dev, sz, cfg)
+    if reached("seq_split"):
+        timed("seq_split", phase_seq_split, dev, sz, table)
     side_names = [n for n in SIDE if reached(n)]
     side = _start_side(side_names) if side_names else None
     try:

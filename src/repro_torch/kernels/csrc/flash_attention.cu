@@ -8,9 +8,12 @@
 // src/repro/kernels/flash_attention/flash_attention.py: q (B, Sq, H, D)
 // attends to k, v (B, Sk, KVH, D), query head h reading KV head h / G, blocks
 // wholly above the causal diagonal or outside the window skipped, the tail
-// masked by k_pos < Sk.  Sq may differ from Sk (cross-attention) only
-// without a causal mask or a window (shapes_ok refuses the rest); the TPU
-// kernel takes one S.  Same arithmetic: f32 running max / sum /
+// masked by k_pos < Sk.  Sq may differ from Sk: without a causal mask or
+// a window (cross-attention), or as one rank's rows of a sequence split,
+// q row i at absolute position q_off + i with q_off + Sq <= Sk (shapes_ok
+// refuses the rest); every mask and block range compares the row's
+// absolute position with the key's, while o, lse and delta stay indexed
+// by the local row.  The TPU kernel takes one S.  Same arithmetic: f32 running max / sum /
 // accumulator, masked scores are -1e30 (finite), the result is divided by
 // max(l, 1e-30).  The reference has no backward kernel (XLA differentiates
 // its chunked scan); here the forward also writes the per-row logsumexp
@@ -72,7 +75,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // the TPU kernel's block predicate: is any (q, k) pair of the two tiles
-// inside the causal / window band?
+// inside the causal / window band?  q0 is the q tile's absolute position.
 __device__ __forceinline__ bool block_needed(int q0, int k0, int causal,
                                              int window) {
   bool needed = true;
@@ -81,6 +84,7 @@ __device__ __forceinline__ bool block_needed(int q0, int k0, int causal,
   return needed;
 }
 
+// qp: the row's absolute position
 __device__ __forceinline__ bool pair_valid(int qp, int kp, int Sk, int causal,
                                            int window) {
   bool ok = kp < Sk;
@@ -133,7 +137,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float* __restrict__ lse,
     int Sq, int Sk, int G, long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h, int causal, int window,
-    float scale) {
+    int q_off, float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;               // output columns per thread
   extern __shared__ float smem[];
@@ -166,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int nk = (Sk + kBK - 1) / kBK;
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBK;
-    if (!block_needed(q0, k0, causal, window)) continue;
+    if (!block_needed(q_off + q0, k0, causal, window)) continue;
     __syncthreads();                 // the previous tile is consumed
     stage_rows<D, kBK>(Ks, LD, kbase, sk_s, k0, Sk, 1.f);
     stage_rows<D, kBK>(Vs, D, vbase, sk_s, k0, Sk, 1.f);
@@ -196,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float mx = kNegInf;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        if (!pair_valid(qp, k0 + tc + 16 * jj, Sk, causal, window))
+        if (!pair_valid(q_off + qp, k0 + tc + 16 * jj, Sk, causal, window))
           s[i][jj] = kNegInf;
         mx = fmaxf(mx, s[i][jj]);
       }
@@ -273,7 +277,7 @@ template <int D>
 __device__ __forceinline__ void bwd_scores(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* dl_s, float* Ps, float* dSs, int q0,
-    int k0, int Sq, int Sk, int causal, int window) {
+    int k0, int Sq, int Sk, int causal, int window, int q_off) {
   constexpr int LD = Tile<D>::kLD;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
@@ -310,7 +314,8 @@ __device__ __forceinline__ void bwd_scores(
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int kp = k0 + tc + 16 * jj;
-      const bool ok = qp < Sq && pair_valid(qp, kp, Sk, causal, window);
+      const bool ok = qp < Sq && pair_valid(q_off + qp, kp, Sk, causal,
+                                            window);
       const float p = ok ? expf(s[i][jj] - lse_s[r]) : 0.f;
       if (Ps != nullptr) Ps[r * kLDP + tc + 16 * jj] = p;
       dSs[r * kLDP + tc + 16 * jj] = p * (dp[i][jj] - dl_s[r]);
@@ -331,7 +336,10 @@ __device__ __forceinline__ void stage_row_stats(
 
 // ------------------------------------------------------- backward: dK, dV
 // grid (ceil(Sk / kBK), KVH, B).  All tensors contiguous: q, dout
-// (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse, delta (B, H, Sq).
+// (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse, delta (B, H, Sq).  A
+// k block that no row of this call sees (past q_off + Sq under a causal
+// mask, before every row's window) writes zeros: dk, dv are not cleared,
+// and under a sequence split each rank's are one term of a sum.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -339,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
     int G,
-    int causal, int window, float scale) {
+    int causal, int window, int q_off, float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
@@ -371,18 +379,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const int nq = (Sq + kBQ - 1) / kBQ;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const long long q_off = (long long)b * Sq * H * D + (long long)h * D;
+    const long long q_base = (long long)b * Sq * H * D + (long long)h * D;
     const long long head_off = ((long long)b * H + h) * Sq;
     for (int qi = 0; qi < nq; ++qi) {
       const int q0 = qi * kBQ;
-      if (!block_needed(q0, k0, causal, window)) continue;
+      if (!block_needed(q_off + q0, k0, causal, window)) continue;
       __syncthreads();               // the previous q tile is consumed
-      stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, Sq, scale);
-      stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, Sq, 1.f);
+      stage_rows<D, kBQ>(Qs, LD, q + q_base, (long long)H * D, q0, Sq, scale);
+      stage_rows<D, kBQ>(dOs, LD, dout + q_base, (long long)H * D, q0, Sq, 1.f);
       stage_row_stats(lse_s, dl_s, lse, delta, head_off, q0, Sq);
       __syncthreads();
       bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, q0, k0, Sq, Sk,
-                    causal, window);
+                    causal, window, q_off);
       __syncthreads();               // P, dS are read by key instead of by row
 #pragma unroll 2
       for (int r = 0; r < kBQ; ++r) {
@@ -427,7 +435,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int Sq, int Sk, int KVH, int G, int causal,
-    int window,
+    int window, int q_off,
     float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
@@ -447,10 +455,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int kvh = h / G;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
-  const long long q_off = (long long)b * Sq * H * D + (long long)h * D;
+  const long long q_base = (long long)b * Sq * H * D + (long long)h * D;
   const long long kv_off = (long long)b * Sk * KVH * D + (long long)kvh * D;
-  stage_rows<D, kBQ>(Qs, LD, q + q_off, (long long)H * D, q0, Sq, scale);
-  stage_rows<D, kBQ>(dOs, LD, dout + q_off, (long long)H * D, q0, Sq, 1.f);
+  stage_rows<D, kBQ>(Qs, LD, q + q_base, (long long)H * D, q0, Sq, scale);
+  stage_rows<D, kBQ>(dOs, LD, dout + q_base, (long long)H * D, q0, Sq, 1.f);
   stage_row_stats(lse_s, dl_s, lse, delta, ((long long)b * H + h) * Sq, q0,
                   Sq);
 
@@ -463,13 +471,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int nk = (Sk + kBK - 1) / kBK;
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBK;
-    if (!block_needed(q0, k0, causal, window)) continue;
+    if (!block_needed(q_off + q0, k0, causal, window)) continue;
     __syncthreads();                 // the previous k tile is consumed
     stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, Sk, 1.f);
     stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, Sk, 1.f);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, q0, k0, Sq, Sk,
-                  causal, window);
+                  causal, window, q_off);
     __syncwarp();                    // a row's dS is written and read by its 16 lanes
 #pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
@@ -490,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * tr + i;
     if (qp >= Sq) continue;
-    float* row = dq + q_off + (long long)qp * H * D;
+    float* row = dq + q_base + (long long)qp * H * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       row[tc + 16 * c] = dq_acc[i][c] * scale;
@@ -520,14 +528,14 @@ template <int D>
 cudaError_t fwd_for(const float* q, const float* k, const float* v, float* o,
                     float* lse, int B, int Sq, int Sk, int H, int KVH,
                     const long long* sq, const long long* sk, int causal,
-                    int window, cudaStream_t stream) {
+                    int window, int q_off, cudaStream_t stream) {
   const int smem = fwd_smem<D>();
   cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, lse, Sq, Sk, H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2],
-      causal, window, 1.0f / sqrtf((float)D));
+      causal, window, q_off, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -536,7 +544,7 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
                     const float* o, const float* dout, const float* lse,
                     float* delta, float* dq, float* dk, float* dv, int B,
                     int Sq, int Sk, int H, int KVH, int causal, int window,
-                    cudaStream_t stream) {
+                    int q_off, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   const long long n_rows = (long long)B * Sq * H;
   const int rows_per_block = kThreads / 32;
@@ -552,7 +560,7 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
   flash_bwd_dkdv_kernel<D><<<dim3((Sk + kBK - 1) / kBK, KVH, B), kThreads,
                              smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, H / KVH, causal, window,
-      scale);
+      q_off, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
@@ -562,7 +570,7 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
   flash_bwd_dq_kernel<D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads,
                            smem_q, stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Sk, KVH, H / KVH, causal, window,
-      scale);
+      q_off, scale);
   return cudaGetLastError();
 }
 
@@ -571,26 +579,29 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
 #define REPRO_FOR_EACH_HEAD_DIM(X) \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(192)
 
-// Sq != Sk only without a causal mask or a window (see the header)
-bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window) {
+// with a causal mask or a window, the rows q_off .. q_off + Sq - 1 lie
+// inside the Sk keys (see the header)
+bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window,
+               int q_off) {
   return B > 0 && B <= 65535 && Sq > 0 && Sk > 0 && H > 0 && H <= 65535
-         && KVH > 0 && H % KVH == 0
-         && (Sq == Sk || (!causal && window <= 0));
+         && KVH > 0 && H % KVH == 0 && q_off >= 0
+         && ((!causal && window <= 0) || (long long)q_off + Sq <= Sk);
 }
 
 }  // namespace
 
 // float32 only.  q (B, Sq, H, D) and k, v (B, Sk, KVH, D) are read through
 // their element strides (batch, seq, head; unit stride over D, 16-byte
-// aligned rows); o (B, Sq, H, D) and lse (B, H, Sq) are contiguous.  Returns
+// aligned rows); q row i is at absolute position q_off + i; o (B, Sq, H, D)
+// and lse (B, H, Sq) are contiguous.  Returns
 // the cudaError_t of the launch (0 on success); nothing is synchronised.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int Sq, int Sk, int H, int KVH, int D,
     long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h,
-    int causal, int window, void* stream) {
-  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    int causal, int window, int q_off, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off))
     return (int)cudaErrorInvalidValue;
   const long long sq[3] = {sq_b, sq_s, sq_h};
   const long long sk[3] = {sk_b, sk_s, sk_h};
@@ -600,7 +611,7 @@ extern "C" int repro_flash_attention_fwd(
     case DD: return (int)fwd_for<DD>((const float*)q, (const float*)k, \
                                      (const float*)v, (float*)o, (float*)lse, \
                                      B, Sq, Sk, H, KVH, sq, sk, causal, window, \
-                                     s);
+                                     q_off, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -610,13 +621,13 @@ extern "C" int repro_flash_attention_fwd(
 // Gradients of repro_flash_attention_fwd, float32.  Every tensor
 // contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D);
 // lse (the forward's) and delta (scratch) (B, H, Sq).  Three launches on
-// `stream`.
+// `stream`.  q_off as the forward's.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int KVH, int D, int causal,
-    int window, void* stream) {
-  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    int window, int q_off, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
@@ -624,7 +635,7 @@ extern "C" int repro_flash_attention_bwd(
     case DD: return (int)bwd_for<DD>( \
         (const float*)q, (const float*)k, (const float*)v, (const float*)o, \
         (const float*)dout, (const float*)lse, (float*)delta, (float*)dq, \
-        (float*)dk, (float*)dv, B, Sq, Sk, H, KVH, causal, window, s);
+        (float*)dk, (float*)dv, B, Sq, Sk, H, KVH, causal, window, q_off, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -12,10 +12,15 @@
 // k_pos < Sk.  Same arithmetic: f32 running max / sum /
 // accumulator, masked scores are -1e30 (finite), the result is divided by
 // max(l, 1e-30); the forward also writes the per-row logsumexp (B, H, Sq).
-// The TPU kernel takes one S; here Sq may differ from Sk (cross-attention:
-// 448 or 1 decoder rows over 1,500 encoder frames), and only without a
-// causal mask or a window (shapes_ok refuses the rest), so every query row
-// sees all Sk keys.  Sq = Sk runs exactly as before.
+// The TPU kernel takes one S; here Sq may differ from Sk: without a causal
+// mask or a window (cross-attention: 448 or 1 decoder rows over 1,500
+// encoder frames, every query row sees all Sk keys), or as one rank's rows
+// of a sequence split: q row i sits at absolute position q_off + i, with
+// q_off + Sq <= Sk (shapes_ok refuses the rest).  Every mask, tile
+// predicate and tile range compares the row's absolute position with the
+// key's; o, lse and delta stay indexed by the local row; an offset that is
+// not a tile multiple is masked element by element on the straddling
+// tiles.  Sq = Sk at q_off = 0 runs exactly as before.
 // The reference has no backward kernel (XLA differentiates its chunked
 // scan); here two kernels compute the gradients from the logsumexp:
 //   flash_tc_bwd_dq    one block per (b, h, 128-row q tile): first
@@ -307,34 +312,45 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
   }
 }
 
+// qp: the local row (checked against Sq); its absolute position q_off + qp
+// is what the masks compare with the key
 __device__ __forceinline__ bool pair_valid(int qp, int kp, int Sq, int Sk,
-                                           int causal, int window) {
+                                           int causal, int window,
+                                           int q_off) {
   bool ok = qp < Sq && kp < Sk;
-  if (causal) ok = ok && qp >= kp;
-  if (window > 0) ok = ok && (qp - kp) < window;
+  const int qa = q_off + qp;
+  if (causal) ok = ok && qa >= kp;
+  if (window > 0) ok = ok && (qa - kp) < window;
   return ok;
 }
 
 // every (q, k) pair of the tiles [q0, q0 + bq) x [k0, k0 + bk) is valid
+// (q0 local, at absolute position q_off + q0)
 __device__ __forceinline__ bool tile_full(int q0, int bq, int k0, int bk,
                                           int Sq, int Sk, int causal,
-                                          int window) {
+                                          int window, int q_off) {
   bool full = q0 + bq <= Sq && k0 + bk <= Sk;
-  if (causal) full = full && k0 + bk - 1 <= q0;
-  if (window > 0) full = full && (q0 + bq - 1) - k0 < window;
+  const int qa = q_off + q0;
+  if (causal) full = full && k0 + bk - 1 <= qa;
+  if (window > 0) full = full && (qa + bq - 1) - k0 < window;
   return full;
 }
 
+// floor(a / b) for b > 0 and any a
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
 // The k tiles [lo, hi) of size bk that the TPU kernel's block predicate
-// keeps for the q tile [q0, q0 + bq), over Sk keys.
-__device__ __forceinline__ void k_range(int q0, int bq, int bk, int Sk,
+// keeps for the q tile at absolute position qa .. qa + bq - 1, over Sk keys.
+__device__ __forceinline__ void k_range(int qa, int bq, int bk, int Sk,
                                         int causal, int window, int& lo,
                                         int& hi) {
   lo = 0;
   hi = (Sk + bk - 1) / bk;
-  if (causal) hi = min(hi, (q0 + bq - 1) / bk + 1);      // k0 <= q0 + bq - 1
-  if (window > 0) {                          // q0 - (k0 + bk - 1) < window
-    const int kmin = q0 - window - bk + 2;
+  if (causal) hi = min(hi, (qa + bq - 1) / bk + 1);      // k0 <= qa + bq - 1
+  if (window > 0) {                          // qa - (k0 + bk - 1) < window
+    const int kmin = qa - window - bk + 2;
     if (kmin > 0) lo = (kmin + bk - 1) / bk;
   }
 }
@@ -350,7 +366,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
     const bf16* __restrict__ v, bf16* __restrict__ o,
     float* __restrict__ lse, int Sq, int Sk, int G, long long sq_b, long long sq_s,
     long long sq_h, long long sk_b, long long sk_s, long long sk_h,
-    int causal, int window, float scale_log2) {
+    int causal, int window, int q_off, float scale_log2) {
   constexpr int LD = Smem<D>::kLD;
   constexpr int kBQ = kFwdBQ, kBK = KeyTile<D>::kFwd, kM = kFwdM;
   constexpr int kNT = kFwdWarps * 32;
@@ -370,7 +386,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
   const bf16* vb = v + b * sk_b + kvh * sk_h;
 
   int j_lo, j_hi;
-  k_range(q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
+  k_range(q_off + q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
   load_tile<D, kBQ, kNT>(Qs, q + b * sq_b + h * sq_h, sq_s, q0, Sq);
   if (j_lo < j_hi) {
     load_tile<D, kBK, kNT>(Ks, kb, sk_s, j_lo * kBK, Sk);
@@ -406,7 +422,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
     zero(s);
     mma_abt<D, kM, kBK>(s, Qs, r0, Kt, lane);
 
-    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window);
+    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window,
+                                q_off);
 #pragma unroll
     for (int mi = 0; mi < kM; ++mi) {
 #pragma unroll
@@ -416,7 +433,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
           float x = s[mi][i][e] * scale_log2;
           if (!full && !pair_valid(q0 + r0 + 16 * mi + gq + 8 * (e >> 1),
                                    k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
-                                   causal, window))
+                                   causal, window, q_off))
             x = kNegInf;
           s[mi][i][e] = x;
         }
@@ -481,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     const bf16* __restrict__ v, const bf16* __restrict__ o,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int KVH,
-    int G, int causal, int window, float scale_log2, float scale) {
+    int G, int causal, int window, int q_off, float scale_log2, float scale) {
   constexpr int LD = Smem<D>::kLD;
   constexpr int kBQ = kDqBQ, kBK = KeyTile<D>::kDq;
   constexpr int kND = D / 8, kNK = kBK / 8;
@@ -497,14 +514,14 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int r0 = warp * kRowsPerWarp;
-  const long long q_off = (long long)b * Sq * H * D + (long long)h * D;
+  const long long q_base = (long long)b * Sq * H * D + (long long)h * D;
   const long long kv_off = (long long)b * Sk * KVH * D + (long long)kvh * D;
   const long long sq = (long long)H * D, sk = (long long)KVH * D;
 
   int j_lo, j_hi;
-  k_range(q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
-  load_tile<D, kBQ>(Qs, q + q_off, sq, q0, Sq);
-  load_tile<D, kBQ>(dOs, dout + q_off, sq, q0, Sq);
+  k_range(q_off + q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
+  load_tile<D, kBQ>(Qs, q + q_base, sq, q0, Sq);
+  load_tile<D, kBQ>(dOs, dout + q_base, sq, q0, Sq);
   if (j_lo < j_hi) {
     load_tile<D, kBK>(Ks, k + kv_off, sk, j_lo * kBK, Sk);
     load_tile<D, kBK>(Vs, v + kv_off, sk, j_lo * kBK, Sk);
@@ -518,8 +535,8 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     const int qp = q0 + r0 + r;
     float sum = 0.f;
     if (qp < Sq) {
-      const bf16* orow = o + q_off + (long long)qp * sq;
-      const bf16* drow = dout + q_off + (long long)qp * sq;
+      const bf16* orow = o + q_base + (long long)qp * sq;
+      const bf16* drow = dout + q_base + (long long)qp * sq;
       for (int ch = half; ch < D / 8; ch += 2) {
         const uint4 a = *reinterpret_cast<const uint4*>(orow + ch * 8);
         const uint4 c = *reinterpret_cast<const uint4*>(drow + ch * 8);
@@ -565,7 +582,8 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
     mma_abt<D, 1, kBK>(s, Qs, r0, Kt, lane);
     mma_abt<D, 1, kBK>(dp, dOs, r0, Vt, lane);
 
-    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window);
+    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window,
+                                q_off);
 #pragma unroll
     for (int i = 0; i < kNK; ++i)
 #pragma unroll
@@ -574,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
         float p = exp2_approx(s[0][i][e] * scale_log2 - ls[hf]);
         if (!full && !pair_valid(q0 + r0 + gq + 8 * hf,
                                  k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
-                                 causal, window))
+                                 causal, window, q_off))
           p = 0.f;
         dp[0][i][e] = p * (dp[0][i][e] - dl[hf]);    // dS / scale
       }
@@ -585,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
   for (int hf = 0; hf < 2; ++hf) {
     const int qp = q0 + r0 + gq + 8 * hf;
     if (qp >= Sq) continue;
-    bf16* row = dq + q_off + (long long)qp * sq + 2 * tq;
+    bf16* row = dq + q_base + (long long)qp * sq + 2 * tq;
 #pragma unroll
     for (int i = 0; i < kND; ++i)
       *reinterpret_cast<uint32_t*>(row + 8 * i) =
@@ -599,14 +617,17 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
 // Each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so P^T
 // and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q.
 // kPass: both gradients, or only dV (no V, no dP^T) or only dK (see the
-// header: head dims above 128).
+// header: head dims above 128).  A k tile that no row of this call sees
+// (past q_off + Sq under a causal mask, before every row's window) loops
+// over no q tile and writes zeros: dk, dv are not cleared, and under a
+// sequence split each rank's are one term of a sum.
 template <int D, int kPass>
 __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H, int G,
-    int causal, int window, float scale_log2, float scale) {
+    int causal, int window, int q_off, float scale_log2, float scale) {
   constexpr int LD = Smem<D>::kLD;
   constexpr int kBK = kKvBK, kBQ = kKvBQ;
   constexpr int kND = D / 8, kNQ = kBQ / 8;
@@ -626,10 +647,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
   const long long sq = (long long)H * D, sk = (long long)KVH * D;
   const long long kv_off = (long long)b * Sk * sk + (long long)kvh * D;
 
-  // the q tiles [i_lo, i_hi) that see this k tile, for each of the G heads
+  // the q tiles [i_lo, i_hi) that see this k tile, for each of the G heads:
+  // causal, rows at q_off + qp >= k0; window, rows at
+  // q_off + qp <= window + k0 + kBK - 2
   const int nq = (Sq + kBQ - 1) / kBQ;
-  const int i_lo = causal ? k0 / kBQ : 0;
-  const int i_hi = window > 0 ? min(nq, (window + k0 + kBK - 2) / kBQ + 1) : nq;
+  const int i_lo = causal ? max(0, floor_div(k0 - q_off, kBQ)) : 0;
+  const int i_hi = window > 0
+      ? min(nq, floor_div(window + k0 + kBK - 2 - q_off, kBQ) + 1) : nq;
   const int n_i = max(0, i_hi - i_lo);
   const int n_it = G * n_i;
 
@@ -640,9 +664,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
   auto load_q_tile = [&](int it, int stage) {
     const int gg = it / n_i;
     const int qs = (i_lo + it - gg * n_i) * kBQ;
-    const long long q_off = (long long)b * Sq * sq + (long long)(kvh * G + gg) * D;
-    load_tile<D, kBQ>(Qs + stage * kBQ * LD, q + q_off, sq, qs, Sq);
-    load_tile<D, kBQ>(dOs + stage * kBQ * LD, dout + q_off, sq, qs, Sq);
+    const long long q_base = (long long)b * Sq * sq + (long long)(kvh * G + gg) * D;
+    load_tile<D, kBQ>(Qs + stage * kBQ * LD, q + q_base, sq, qs, Sq);
+    load_tile<D, kBQ>(dOs + stage * kBQ * LD, dout + q_base, sq, qs, Sq);
   };
   // threads [0, kBQ) fetch lse * log2(e), [kBQ, 2 kBQ) delta of a q tile
   auto fetch_stat = [&](int it) -> float {
@@ -694,7 +718,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
     float s[1][kNQ][4];
     zero(s);
     mma_abt<D, 1, kBQ>(s, Ks, r0, Qt, lane);
-    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window);
+    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window,
+                                q_off);
 #pragma unroll
     for (int i = 0; i < kNQ; ++i) {
       const float2 lq = *reinterpret_cast<const float2*>(Lt + 8 * i + 2 * tq);
@@ -704,7 +729,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
         float p = exp2_approx(s[0][i][e] * scale_log2 - (c ? lq.y : lq.x));
         if (!full && !pair_valid(q0 + 8 * i + 2 * tq + c,
                                  k0 + r0 + gq + 8 * (e >> 1), Sq, Sk,
-                                 causal, window))
+                                 causal, window, q_off))
           p = 0.f;
         s[0][i][e] = p;
       }
@@ -773,7 +798,7 @@ template <int D>
 cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int Sq, int Sk, int H, int KVH,
                     const long long* sq, const long long* sk, int causal,
-                    int window, cudaStream_t stream) {
+                    int window, int q_off, cudaStream_t stream) {
   const int smem = fwd_smem<D>();
   cudaError_t e = allow_smem(flash_tc_fwd<D>, smem);
   if (e != cudaSuccess) return e;
@@ -781,7 +806,7 @@ cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
   flash_tc_fwd<D><<<grid, kFwdWarps * 32, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, Sq, Sk,
       H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], causal, window,
-      scale_log2_of(D));
+      q_off, scale_log2_of(D));
   return cudaGetLastError();
 }
 
@@ -789,7 +814,8 @@ template <int D, int kPass>
 cudaError_t dkdv_for(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dk, void* dv, int B, int Sq, int Sk, int H,
-                     int KVH, int causal, int window, cudaStream_t stream) {
+                     int KVH, int causal, int window, int q_off,
+                     cudaStream_t stream) {
   const int smem_kv = dkdv_smem<D>();
   cudaError_t e = allow_smem(flash_tc_bwd_dkdv<D, kPass>, smem_kv);
   if (e != cudaSuccess) return e;
@@ -797,7 +823,7 @@ cudaError_t dkdv_for(const void* q, const void* k, const void* v,
                                 kThreads, smem_kv, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
       delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H, H / KVH, causal, window,
-      scale_log2_of(D), 1.0f / sqrtf((float)D));
+      q_off, scale_log2_of(D), 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -805,7 +831,7 @@ template <int D>
 cudaError_t bwd_for(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                    int Sk, int H, int KVH, int causal, int window,
+                    int Sk, int H, int KVH, int causal, int window, int q_off,
                     cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   const int smem_q = dq_smem<D>();
@@ -815,28 +841,30 @@ cudaError_t bwd_for(const void* q, const void* k, const void* v,
                        smem_q, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
       (const bf16*)dout, lse, delta, (bf16*)dq, Sq, Sk, KVH, H / KVH, causal,
-      window, scale_log2_of(D), scale);
+      window, q_off, scale_log2_of(D), scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   if constexpr (D > kWideD) {     // two passes (see the header)
     e = dkdv_for<D, kDvPass>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
-                             H, KVH, causal, window, stream);
+                             H, KVH, causal, window, q_off, stream);
     if (e != cudaSuccess) return e;
     return dkdv_for<D, kDkPass>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
-                                H, KVH, causal, window, stream);
+                                H, KVH, causal, window, q_off, stream);
   } else {
     return dkdv_for<D, kBothPass>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
-                                  Sk, H, KVH, causal, window, stream);
+                                  Sk, H, KVH, causal, window, q_off, stream);
   }
 }
 
-// Sq != Sk only without a causal mask or a window (see the header)
-bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window) {
+// with a causal mask or a window, the rows q_off .. q_off + Sq - 1 lie
+// inside the Sk keys (see the header)
+bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window,
+               int q_off) {
   return B > 0 && B <= 65535 && Sq > 0 && Sk > 0
          && (Sq + kFwdBQ - 1) / kFwdBQ <= 65535
-         && (Sk + kKvBK - 1) / kKvBK <= 65535
-         && (Sq == Sk || (!causal && window <= 0))
+         && (Sk + kKvBK - 1) / kKvBK <= 65535 && q_off >= 0
+         && ((!causal && window <= 0) || (long long)q_off + Sq <= Sk)
          && H > 0 && KVH > 0 && H % KVH == 0;
 }
 
@@ -847,16 +875,16 @@ bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window) {
 
 // bf16 only.  q (B, Sq, H, D) and k, v (B, Sk, KVH, D) are read through
 // their element strides (batch, seq, head; unit stride over D, 16-byte
-// aligned rows); o (B, Sq, H, D) and lse (B, H, Sq, f32) are contiguous.
-// Returns the cudaError_t of the launch (0 on success); nothing is
-// synchronised.
+// aligned rows); q row i is at absolute position q_off + i; o (B, Sq, H, D)
+// and lse (B, H, Sq, f32) are contiguous.  Returns the cudaError_t of the
+// launch (0 on success); nothing is synchronised.
 extern "C" int repro_flash_attention_tc_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int Sq, int Sk, int H, int KVH, int D,
     long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_s, long long sk_h,
-    int causal, int window, void* stream) {
-  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    int causal, int window, int q_off, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off))
     return (int)cudaErrorInvalidValue;
   const long long sq[3] = {sq_b, sq_s, sq_h};
   const long long sk[3] = {sk_b, sk_s, sk_h};
@@ -864,7 +892,7 @@ extern "C" int repro_flash_attention_tc_fwd(
   switch (D) {
 #define REPRO_CASE(DD) \
     case DD: return (int)fwd_for<DD>(q, k, v, o, (float*)lse, B, Sq, Sk, H, \
-                                     KVH, sq, sk, causal, window, s);
+                                     KVH, sq, sk, causal, window, q_off, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -874,20 +902,21 @@ extern "C" int repro_flash_attention_tc_fwd(
 // Gradients of repro_flash_attention_tc_fwd, bf16.  Every tensor
 // contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D);
 // lse (the forward's) and delta (scratch) (B, H, Sq) f32.  Two launches on
-// `stream`: dQ (which also writes delta), then dK/dV.
+// `stream`: dQ (which also writes delta), then dK/dV.  q_off as the
+// forward's.
 extern "C" int repro_flash_attention_tc_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int KVH, int D, int causal,
-    int window, void* stream) {
-  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window))
+    int window, int q_off, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
 #define REPRO_CASE(DD) \
     case DD: return (int)bwd_for<DD>(q, k, v, o, dout, (const float*)lse, \
                                      (float*)delta, dq, dk, dv, B, Sq, Sk, H, \
-                                     KVH, causal, window, s);
+                                     KVH, causal, window, q_off, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -9,9 +9,12 @@ Gradient: the forward also returns the per-row logsumexp
 ``lse (B, H, Sq)`` (f32), from which :func:`flash_attention_bwd` computes
 dq, dk, dv with hand-written kernels; the reference differentiates its
 chunked scan with XLA instead.  Shape: the Pallas kernel takes one S; these
-take Sq query rows over Sk keys, Sq != Sk without a causal mask or a window
-only (:func:`check_shapes`) — the cross-attention of the encoder-decoder
-family, whose plain version (``flash_attention_xla``) takes the same.
+take Sq query rows over Sk keys (:func:`check_shapes`): without a causal
+mask or a window at any Sq, Sk — the cross-attention of the
+encoder-decoder family — and, given a query offset ``q_offset``, with them
+too: row i of q sits at absolute position ``q_offset + i`` of the keys
+(one rank's rows of a sequence split over ranks), as in the plain version
+``flash_attention_xla``.
 
 Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
 training path's dtype) runs on the tensor cores (``csrc/
@@ -23,6 +26,7 @@ tensors to the plain version.
 
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -66,11 +70,17 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention_kernel: {msg}")
 
 
-def check_shapes(q_shape, k_shape, v_shape, causal: bool, window: int):
+def check_shapes(q_shape, k_shape, v_shape, causal: bool, window: int,
+                 q_offset=None):
     """(B, Sq, Sk, H, KVH, D) of q (B, Sq, H, D) over k, v (B, Sk, KVH, D),
-    from shapes alone.  Raises ``ValueError`` for a mismatch, and for
-    Sq != Sk with ``causal`` or a window: the kernels serve Sq != Sk
-    non-causal and unwindowed only (the reference's one use of it)."""
+    from shapes alone.  Raises ``ValueError`` for a mismatch.
+
+    ``q_offset=None``: Sq != Sk only with ``causal=False`` and no window
+    (cross-attention, the reference's one use of it).  An integer
+    ``q_offset >= 0``: row i of q sits at absolute position
+    ``q_offset + i``; with ``causal`` or a window the rows must lie inside
+    the keys, ``q_offset + Sq <= Sk`` (a rank's rows of a sequence split).
+    Any other offset raises."""
     _require(len(q_shape) == 4 and len(k_shape) == 4
              and tuple(v_shape) == tuple(k_shape),
              "expected q (B,Sq,H,D), k and v (B,Sk,KVH,D)")
@@ -79,22 +89,33 @@ def check_shapes(q_shape, k_shape, v_shape, causal: bool, window: int):
     _require(k_shape[0] == B and k_shape[3] == D,
              f"k {tuple(k_shape)} does not match q {tuple(q_shape)}")
     _require(Sq > 0 and Sk > 0, "empty sequence")
-    _require(Sq == Sk or (not causal and window <= 0),
-             f"Sq {Sq} != Sk {Sk} needs causal=False and no window "
-             f"(causal={bool(causal)}, window={window})")
+    masked = bool(causal) or window > 0
+    if q_offset is None:
+        _require(Sq == Sk or not masked,
+                 f"Sq {Sq} != Sk {Sk} needs causal=False and no window "
+                 f"(causal={bool(causal)}, window={window}) or a q_offset")
+    else:
+        _require(isinstance(q_offset, numbers.Integral)
+                 and not isinstance(q_offset, bool) and q_offset >= 0,
+                 f"q_offset {q_offset!r} is not an integer >= 0")
+        _require(not masked or q_offset + Sq <= Sk,
+                 f"q_offset {q_offset} + Sq {Sq} > Sk {Sk} "
+                 f"(causal={bool(causal)}, window={window})")
+        _require(q_offset + Sq <= 2 ** 31 - 1, "q_offset + Sq above 2^31 - 1")
     _require(H % KVH == 0, f"{H} query heads not a multiple of {KVH} KV heads")
     _require(B <= 65535 and H <= 65535, "batch or heads above 65535")
     return B, Sq, Sk, H, KVH, D
 
 
-def _check(q, k, v, causal: bool, window: int):
+def _check(q, k, v, causal: bool, window: int, q_offset):
     _require(q.is_cuda, "q must be a CUDA tensor")
     for name, t in (("k", k), ("v", v)):
         _require(t.device == q.device, f"{name} is on {t.device}, q on "
                  f"{q.device}")
     _require(k.dtype == q.dtype and v.dtype == q.dtype,
              "q, k and v must share one dtype")
-    shapes = check_shapes(q.shape, k.shape, v.shape, causal, window)
+    shapes = check_shapes(q.shape, k.shape, v.shape, causal, window,
+                          q_offset)
     return shapes + (route(q.dtype, shapes[-1]),)
 
 
@@ -105,11 +126,13 @@ def _rows_aligned(t) -> bool:
             and all(s % vec == 0 for s in t.stride()[:3]))
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset=None):
     """q: (B, Sq, H, D); k, v: (B, Sk, KVH, D).  Returns ``(o, lse)``: o
     (B, Sq, H, D) in q's dtype, contiguous; lse (B, H, Sq) f32, the
-    logsumexp of each row's scaled, masked scores.  Sq != Sk only with
-    ``causal=False`` and no window (:func:`check_shapes`).
+    logsumexp of each row's scaled, masked scores.  ``q_offset``: the
+    absolute position of q's row 0 (:func:`check_shapes`; ``None`` is 0
+    and allows Sq != Sk only without a mask).
 
     q, k and v are read through their strides as they lie when each has
     unit stride over D and 16-byte aligned rows (what the model path gives:
@@ -117,7 +140,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     not is copied once to a contiguous tensor.  k and v must then share
     strides.  Launches on the current stream and does not synchronise.
     """
-    B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window)
+    B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window, q_offset)
     q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
     if v.stride() != k.stride():
         k, v = k.contiguous(), v.contiguous()
@@ -129,6 +152,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, Sq, Sk, H, KVH, D, *q.stride()[:3],
             *k.stride()[:3], int(bool(causal)), int(window),
+            int(q_offset or 0),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -151,14 +175,16 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, q_offset=None):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the
     output gradient ``dout`` (B, Sq, H, D), from the forward's ``o`` and
-    ``lse``.  Every operand is made contiguous (a no-op on the model path);
-    the results are contiguous, in q's dtype.  On the current stream, no
-    atomics: bf16 two launches (dQ, which also forms rowsum(dout * o), then
-    dK/dV), f32 three (the row sums, dK/dV, dQ)."""
-    B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window)
+    ``lse``, at the forward's ``q_offset``.  Every operand is made
+    contiguous (a no-op on the model path); the results are contiguous, in
+    q's dtype, and every key row of dk, dv is written (zeros where no row
+    of q sees the key).  On the current stream, no atomics: bf16 two
+    launches (dQ, which also forms rowsum(dout * o), then dK/dV), f32
+    three (the row sums, dK/dV, dQ)."""
+    B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window, q_offset)
     _require(o.shape == q.shape and dout.shape == q.shape
              and lse.shape == (B, H, Sq), "o, dout or lse shape")
     _require(o.dtype == q.dtype and lse.dtype == torch.float32,
@@ -175,7 +201,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D,
-            int(bool(causal)), int(window),
+            int(bool(causal)), int(window), int(q_offset or 0),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import logical
-from repro_torch.distributed.logical import PartitionSpec as P, constrain
+from repro_torch.distributed.logical import PartitionSpec as P, constrain, \
+    grad_like
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.attention_ops import ring_buffer_attention
@@ -68,9 +69,11 @@ def _merge_heads(t):
     projection.  A DTensor split over the sequence has that mesh dim moved
     to the features: DTensor can neither fold a batch and a sequence split
     into one matmul dim nor, in the backward, unflatten a feature split
-    that does not divide ``n``."""
+    that does not divide ``n`` — so the merged tensor's gradient is laid
+    out like it (``grad_like``), not split over the features as the
+    projection's backward leaves it."""
     B, S, n, hd = t.shape
-    t = t.reshape(B, S, n * hd)
+    t = grad_like(t.reshape(B, S, n * hd))
     if logical.is_dtensor(t) and any(p.is_shard(1) for p in t.placements):
         from torch.distributed.tensor import Replicate, Shard
         mesh = t.device_mesh
@@ -276,7 +279,9 @@ def _flash_dist(q, k, v, *, causal: bool, window: int = 0,
     data axes when it splits evenly (:func:`data_shards`), heads over
     ``'model'`` when both head counts divide it, else the query sequence
     over ``'model'`` (the reference's ``q_seq`` rule), each rank's rows at
-    their offset and K/V whole.  Cross-attention (``Sq != Sk``) takes no
+    their offset and K/V whole: the kernels take the offset (``q_offset``,
+    rank 0's 0 given explicitly) and mask by each row's absolute position.
+    Cross-attention (``Sq != Sk``) takes no
     sequence split: where neither the batch nor the heads divide, Q and
     K/V go whole to every rank.  ``to_local`` and ``from_local`` are
     differentiable, so the backward kernels get local tensors too; under

@@ -334,3 +334,191 @@ class TestKernelShapeCheck:
     def test_refuses_mismatches(self, q, k, v):
         with pytest.raises(ValueError):
             kernel_check_shapes(q, k, v, False, 0)
+
+
+class TestKernelShapeCheckOffset:
+    """``check_shapes`` with a query offset: a rank's rows of a sequence
+    split, ``q_offset + Sq <= Sk`` under a causal mask or a window."""
+
+    @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
+                                               (False, 32)])
+    @pytest.mark.parametrize("Sq,Sk,q_offset", [(256, 4096, 0),
+                                                (256, 4096, 3840),
+                                                (96, 1536, 96),
+                                                (7, 40, 33), (40, 40, 0)])
+    def test_takes_an_offset_inside_the_keys(self, Sq, Sk, q_offset, causal,
+                                             window):
+        assert kernel_check_shapes((1, Sq, 6, 64), (1, Sk, 2, 64),
+                                   (1, Sk, 2, 64), causal, window,
+                                   q_offset) == (1, Sq, Sk, 6, 2, 64)
+
+    @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
+                                               (False, 32)])
+    @pytest.mark.parametrize("Sq,Sk,q_offset", [(256, 4096, 3841),
+                                                (7, 40, 34), (40, 40, 1),
+                                                (41, 40, 0)])
+    def test_refuses_rows_past_the_keys(self, Sq, Sk, q_offset, causal,
+                                        window):
+        with pytest.raises(ValueError, match="q_offset"):
+            kernel_check_shapes((1, Sq, 6, 64), (1, Sk, 2, 64),
+                                (1, Sk, 2, 64), causal, window, q_offset)
+
+    @pytest.mark.parametrize("q_offset", [-1, -256, 1.5, "3", True])
+    def test_refuses_an_offset_that_is_no_integer_at_or_above_0(self,
+                                                                 q_offset):
+        with pytest.raises(ValueError, match="q_offset"):
+            kernel_check_shapes((1, 8, 4, 64), (1, 64, 4, 64),
+                                (1, 64, 4, 64), True, 0, q_offset)
+
+    def test_takes_any_offset_without_a_mask(self):
+        assert kernel_check_shapes((1, 8, 4, 64), (1, 5, 4, 64),
+                                   (1, 5, 4, 64), False, 0, 1000) == \
+            (1, 8, 5, 4, 4, 64)
+
+    @pytest.mark.parametrize("causal,window", [(True, 0), (False, 32),
+                                               (True, 32)])
+    def test_no_offset_keeps_the_cross_attention_contract(self, causal,
+                                                          window):
+        with pytest.raises(ValueError, match="Sq"):
+            kernel_check_shapes((1, 256, 6, 64), (1, 4096, 2, 64),
+                                (1, 4096, 2, 64), causal, window, None)
+
+
+SPLIT_CASES = [
+    # S, H, KVH, D, causal, window, ranks: rows a rank = S / ranks
+    (64, 6, 2, 16, True, 0, 4),       # 16 rows a rank
+    (96, 6, 2, 16, True, 0, 16),      # 6 rows: no multiple of any tile
+    (96, 6, 2, 16, True, 20, 4),      # a window shorter than the sequence
+    (80, 4, 4, 32, True, 8, 5),       # rows past a rank's window
+    (48, 4, 2, 16, False, 12, 3),     # a window without a causal mask
+]
+
+
+class TestSequenceSplitPlain:
+    """The plain versions the kernels are held to on the card, split over
+    ranks as ``attention._flash_dist`` splits q: each rank's rows at its
+    offset over the whole K/V, concatenated (dk, dv summed), equal the
+    whole call; and the CPU route of ``ops.flash_attention`` at each
+    rank's offset equals the reference's ``flash_attention_xla`` at the
+    same offset, values and gradients."""
+
+    @pytest.mark.parametrize("S,H,KVH,D,causal,window,ranks", SPLIT_CASES)
+    def test_ranks_joined_equal_the_whole_call(self, S, H, KVH, D, causal,
+                                               window, ranks):
+        q, k, v = (torch.from_numpy(_kl(x)) for x in
+                   _inputs(1, S, H, KVH, D, seed=21))
+        do = torch.from_numpy(_kl(np.random.default_rng(22).standard_normal(
+            (1, S, H, D)).astype(np.float32)))
+        kw = dict(causal=causal, window=window)
+        o = flash_attention_ref(q, k, v, **kw)
+        want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        rows = S // ranks
+        outs, dqs, dk, dv = [], [], 0, 0
+        for r in range(ranks):
+            sl = slice(r * rows, (r + 1) * rows)
+            o_r = flash_attention_ref(q[:, :, sl], k, v, q_offset=r * rows,
+                                      **kw)
+            g = flash_attention_bwd_ref(q[:, :, sl], k, v, o_r, do[:, :, sl],
+                                        q_offset=r * rows, **kw)
+            outs.append(o_r)
+            dqs.append(g[0])
+            dk, dv = dk + g[1], dv + g[2]
+        np.testing.assert_allclose(_f32(torch.cat(outs, 2)), _f32(o), **F32)
+        for got, w in zip((torch.cat(dqs, 2), dk, dv), want):
+            np.testing.assert_allclose(_f32(got), _f32(w), **GRAD)
+
+    @pytest.mark.parametrize("S,H,KVH,D,causal,window,ranks", SPLIT_CASES)
+    def test_cpu_route_at_each_offset_matches_reference(self, S, H, KVH, D,
+                                                        causal, window,
+                                                        ranks):
+        q, k, v = _inputs(1, S, H, KVH, D, seed=23)
+        cot = np.random.default_rng(24).standard_normal(
+            q.shape).astype(np.float32)
+        rows = S // ranks
+        for r in (0, ranks // 2, ranks - 1):
+            sl = slice(r * rows, (r + 1) * rows)
+            kw = dict(causal=causal, window=window, q_offset=r * rows,
+                      kv_chunk=16)
+
+            def jloss(q, k, v):
+                out = jax_flash_xla(q, k, v, **kw)
+                return jnp.sum(out * cot[:, sl]), out
+
+            (_, want), jgrads = jax.value_and_grad(
+                jloss, argnums=(0, 1, 2), has_aux=True)(
+                *(jnp.asarray(x) for x in (q[:, sl], k, v)))
+            tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(x))
+                          .requires_grad_(True) for x in (q[:, sl], k, v))
+            out = flash_attention(tq, tk, tv, **kw)
+            np.testing.assert_allclose(_f32(out), np.asarray(want), **F32)
+            (out * torch.from_numpy(cot[:, sl])).sum().backward()
+            for t, jg in zip((tq, tk, tv), jgrads):
+                np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                           **GRAD)
+
+    def test_the_plain_version_at_an_offset_is_the_whole_call_s_rows(self):
+        """``flash_attention_ref`` at ``q_offset`` on rows of q equals
+        those rows of the whole call, bit for bit (the masks see the same
+        absolute positions)."""
+        q, k, v = (torch.from_numpy(_kl(x)) for x in
+                   _inputs(1, 70, 4, 2, 16, seed=25))
+        whole = flash_attention_ref(q, k, v, causal=True, window=9)
+        part = flash_attention_ref(q[:, :, 33:51], k, v, causal=True,
+                                   window=9, q_offset=33)
+        np.testing.assert_allclose(_f32(part), _f32(whole[:, :, 33:51]),
+                                   **F32)
+
+
+def test_chip_seq_split_case_runs_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s ``seq_split`` case at a small f32 shape, the
+    bindings standing in as the plain versions (the CUDA kernels have no
+    CPU route; ``time_ms`` times the host there): every rank holds against
+    the plain version, the ranks joined against the whole call, the pair
+    and key counts behind the bounds are the masks' own, and the plain
+    and SDPA times come at the first, middle and last rank and the whole
+    call."""
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    def fwd(q, k, v, *, causal=True, window=0, q_offset=None):
+        o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, q_offset=q_offset or 0)
+        return o.transpose(1, 2), None
+
+    def bwd(q, k, v, o, lse, dout, *, causal=True, window=0, q_offset=None):
+        return tuple(g.transpose(1, 2) for g in flash_attention_bwd_ref(
+            *(t.transpose(1, 2) for t in (q, k, v, o, dout)), causal=causal,
+            window=window, q_offset=q_offset or 0))
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", bwd)
+    gen = torch.Generator().manual_seed(0)
+    for window in (0, 20):
+        case = chip_smoke._seq_split_case(
+            gen, torch.device("cpu"), "small", 1, 96, 6, 2, 16,
+            torch.float32, True, window, 4, 1)
+        assert case["shape"]["rows_per_rank"] == 24
+        assert [p["q_offset"] for p in case["per_rank"]] == [0, 24, 48, 72]
+        assert case["max_abs_err"]["rank_grad"] <= 1e-4
+        pairs = sum(p["fwd"]["flops"] for p in case["per_rank"])
+        assert pairs == case["whole"]["fwd"]["flops"]
+        first = [max(0, 24 * r - window + 1) if window else 0
+                 for r in range(4)]
+        assert [p["fwd"]["keys"] for p in case["per_rank"]] == \
+            [24 * (r + 1) - first[r] for r in range(4)]
+        assert case["whole"]["fwd"]["keys"] == 96
+        timed = [p["rank"] for p in case["per_rank"] if "plain_fwd_ms" in p]
+        assert timed == [0, 2, 3]
+        for p in (*case["per_rank"], case["whole"]):
+            assert p["fwd_ms"] > 0 and p["bwd_ms"] > 0
+        assert all(case["whole"][f"{w}_{k}_ms"] > 0
+                   for w in ("plain", "library") for k in ("fwd", "bwd"))
+    assert chip_smoke._split_pairs(8, 0, 8, True, 0) == 36
+    assert chip_smoke._split_pairs(8, 0, 8, True, 3) == 21
+    assert chip_smoke._split_pairs(8, 0, 8, False, 3) == 49
+    assert chip_smoke._split_pairs(8, 0, 8, False, 0) == 64
+    assert chip_smoke._split_keys(8, 4, 6, True, 0) == 6
+    assert chip_smoke._split_keys(8, 4, 6, True, 3) == 4
+    assert chip_smoke._split_keys(8, 4, 6, False, 3) == 6
+    assert chip_smoke._split_keys(8, 4, 6, False, 0) == 8

@@ -16,6 +16,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 REF = SRC / "repro"
 PORT = SRC / "repro_torch"
+EXAMPLE_TWINS = sorted(ROOT.glob("examples/torch_*.py"))
 
 # copied file by file from the reference; only the import prefix, the
 # lint passes' root (src/repro_torch/) and the suppression marker differ: the
@@ -103,7 +104,7 @@ def test_verbatim_copy_has_not_drifted(rel):
 
 def _port_texts() -> list[pathlib.Path]:
     return (sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("tests/test_torch_*.py"))
-            + [ROOT / "chip_smoke.py"])
+            + [ROOT / "chip_smoke.py"] + EXAMPLE_TWINS)
 
 
 def test_port_carries_no_reference_marker():
@@ -210,6 +211,20 @@ def test_all_ten_arch_configs_are_carried():
 def test_port_module_imports_no_jax_and_no_reference(path):
     bad = sorted(m for m in _imported_modules(path) if FORBIDDEN.match(m))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_example_has_a_twin():
+    refs = sorted(p.name for p in (ROOT / "examples").glob("*.py")
+                  if not p.name.startswith("torch_"))
+    assert [p.name for p in EXAMPLE_TWINS] == [f"torch_{n}" for n in refs]
+
+
+@pytest.mark.parametrize("path", EXAMPLE_TWINS, ids=lambda p: p.name)
+def test_example_twin_imports_no_jax_and_no_reference(path):
+    mods = _imported_modules(path)
+    bad = sorted(m for m in mods if FORBIDDEN.match(m))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    assert any(m.startswith("repro_torch") for m in mods)
 
 
 def test_chip_smoke_parses_and_imports_only_the_port():

@@ -37,6 +37,9 @@ from repro_torch.lint.specs import ALL_SPECS, BLOCK, WC_ERROR_STATUSES
 from repro_torch.testing import soak
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the port's example twins, which the gate lints beside the port
+EXAMPLE_TWINS = sorted(p.relative_to(ROOT).as_posix()
+                       for p in ROOT.glob("examples/torch_*.py"))
 
 EVENT_PATH = "src/repro/core/fixture.py"      # det-dict-iter/id-order scope
 OFF_PATH = "src/repro/launch/fixture.py"      # in repro, off the event path
@@ -519,7 +522,8 @@ class TestSuppressions:
         assert ref_cli.lint([ref], with_model=False) == []
 
     def test_every_repo_suppression_names_a_known_rule(self):
-        files = collect_files(["src", "tests", "chip_smoke.py"], ROOT)
+        files = collect_files(["src", "tests", "chip_smoke.py",
+                               *EXAMPLE_TWINS], ROOT)
         sups = [(f.rel, s) for f in files for s in f.suppressions.values()]
         assert sups, "the port carries suppressions"
         for rel, sup in sups:
@@ -620,16 +624,18 @@ class TestRaceSanitizer:
 # ---------------------------------------------------------------------------
 class TestCli:
     def test_port_is_lint_clean(self, capsys):
-        assert cli.main(["src", "tests", "chip_smoke.py",
+        assert cli.main(["src", "tests", "chip_smoke.py", *EXAMPLE_TWINS,
                          "--root", str(ROOT), "-q"]) == 0
 
     def test_gate_as_a_module(self):
-        """``python -m repro_torch.lint src tests chip_smoke.py``: exit 0,
-        no finding, the 16 suppressions used, every block transition
-        extracted and the model explored in full."""
+        """``python -m repro_torch.lint src tests chip_smoke.py
+        examples/torch_*.py``: exit 0, no finding, the 16 suppressions
+        used, every block transition extracted and the model explored in
+        full."""
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.lint", "src", "tests",
-             "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True,
+             "chip_smoke.py", *EXAMPLE_TWINS], cwd=ROOT, capture_output=True,
+            text=True,
             timeout=120, env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
         assert r.returncode == 0, r.stdout + r.stderr

@@ -20,6 +20,13 @@ the cache's ``page_table`` and ``lengths`` exactly.  The pools are compared
 after the step twice: with the cache laid out as ``cache_shardings`` says
 (the paged region's placements) and replicated (the region redistributes a
 copy, and the write must reach the caller's pools all the same).
+
+Two more train steps take the flash region's sequence split: reduced
+Qwen3 and a reduced H2O-Danube (window 6 over 16 tokens), each with 6
+query and 2 KV heads, which do not divide ``model`` = 4, so each model
+rank attends with its quarter of the query rows at its offset over the
+whole K/V (``SPLIT``), against the reference's and the port's unsharded
+steps at the same tolerances.
 """
 
 from __future__ import annotations
@@ -45,6 +52,12 @@ REF_TOL = {"logits": dict(atol=2e-4, rtol=2e-3), "pool": dict(atol=1e-5),
            "loss": dict(atol=1e-4, rtol=1e-4), "params": dict(atol=5e-3)}
 PORT_TOL = dict(atol=2e-5, rtol=2e-5)
 LR = 1e-3
+#: heads that do not divide ``model`` = 4: the flash region splits the
+#: query sequence (4 rows a rank of the 16) and passes each rank's offset
+SPLIT = {"qwen3_14b": dict(n_layers=2, n_heads=6, n_kv_heads=2, head_dim=16,
+                           d_model=64),
+         "h2o_danube_1_8b": dict(n_layers=2, n_heads=6, n_kv_heads=2,
+                                 head_dim=16, d_model=64, sliding_window=6)}
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +86,10 @@ def load_tree(d: Path, name: str) -> dict:
     return out
 
 
-def _port_cfg():
+def _port_cfg(arch: str = "codeqwen15_7b"):
     from repro_torch.configs import all_configs
     from repro_torch.models.config import reduced
-    return reduced(all_configs()["codeqwen15_7b"], **SMALL)
+    return reduced(all_configs()[arch], **SPLIT.get(arch, SMALL))
 
 
 def _train_cfg():
@@ -99,9 +112,9 @@ def port_decode(params, cache, tokens):
     return model_for(cfg).decode_step(params, cfg, cache, tokens)
 
 
-def port_train(params, tokens, labels):
-    """The port's train step -> (params, loss, the gradients it handed to
-    AdamW)."""
+def port_train(params, tokens, labels, arch: str = "codeqwen15_7b"):
+    """The port's train step of ``arch``'s reduced config -> (params,
+    loss, the gradients it handed to AdamW)."""
     from repro_torch.optim import adamw
     from repro_torch.training.trainer import make_train_step
     tcfg = _train_cfg()
@@ -115,7 +128,7 @@ def port_train(params, tokens, labels):
 
     adamw.update = recording_update
     try:
-        params, _, metrics = make_train_step(_port_cfg(), tcfg)(
+        params, _, metrics = make_train_step(_port_cfg(arch), tcfg)(
             params, opt, tokens, labels)
     finally:
         adamw.update = update
@@ -179,6 +192,24 @@ def single(tmp_path_factory):
                                  torch.from_numpy(tk), torch.from_numpy(lb))
     save_tree(d, "port_train", _to_numpy({"loss": loss, "params": p1,
                                           "grads": grads}))
+
+    # the sequence split's configs: the same batch, their own weights
+    for arch, over in SPLIT.items():
+        cfg = ref_reduced(ref_configs()[arch], **over)
+        params = jax.tree_util.tree_map(
+            np.asarray, ref_model_for(cfg).init_params(
+                cfg, jax.random.PRNGKey(2)))
+        save_tree(d, f"params_{arch}", params)
+        p1, _, m1 = jax.jit(ref_train_step(cfg, tcfg))(
+            jax.tree_util.tree_map(jnp.asarray, params),
+            ref_adamw.init(tcfg.optimizer, params), jnp.asarray(tk),
+            jnp.asarray(lb))
+        save_tree(d, f"ref_train_{arch}", {"loss": m1["loss"], "params": p1})
+        p1, loss, grads = port_train(from_jax_params(params, device="cpu"),
+                                     torch.from_numpy(tk),
+                                     torch.from_numpy(lb), arch)
+        save_tree(d, f"port_train_{arch}", _to_numpy(
+            {"loss": loss, "params": p1, "grads": grads}))
     return d
 
 
@@ -197,8 +228,16 @@ class TestUnshardedPort:
             np.testing.assert_array_equal(port[k], ref[k])
 
     def test_train_step(self, single):
-        ref, port = load_tree(single, "ref_train"), \
-            load_tree(single, "port_train")
+        self._train_step(single, "")
+
+    @pytest.mark.parametrize("arch", sorted(SPLIT))
+    def test_train_step_of_the_split_configs(self, single, arch):
+        self._train_step(single, f"_{arch}")
+
+    @staticmethod
+    def _train_step(single, name: str):
+        ref, port = load_tree(single, f"ref_train{name}"), \
+            load_tree(single, f"port_train{name}")
         np.testing.assert_allclose(port["loss"], ref["loss"],
                                    **REF_TOL["loss"])
         for key, want in _flat(ref["params"]).items():
@@ -255,6 +294,10 @@ class TestShardedExec:
     def test_train_step(self, ranks):
         _check(ranks, "train")
 
+    @pytest.mark.parametrize("arch", sorted(SPLIT))
+    def test_train_step_with_the_query_sequence_split(self, ranks, arch):
+        _check(ranks, f"train_split_{arch}")
+
 
 def test_chip_phase_runs_on_the_cpu_at_reduced_width(capsys):
     """``chip_smoke.py``'s ``dist_step`` phase at reduced width over a
@@ -279,7 +322,7 @@ def test_chip_phase_runs_on_the_cpu_at_reduced_width(capsys):
 
 # ---- the rank process ------------------------------------------------------
 CHECKS = ("constrain_partial", "decode_region_layout", "decode_other_layout",
-          "ring_decode", "train")
+          "ring_decode", "train") + tuple(f"train_split_{a}" for a in SPLIT)
 
 
 def _rank_checks(rank: int, d: Path) -> dict:
@@ -298,7 +341,10 @@ def _rank_checks(rank: int, d: Path) -> dict:
         out = dict.fromkeys(CHECKS, "not run: an earlier check failed")
         for name in CHECKS:
             try:
-                globals()[f"_{name}"](mesh, d)
+                if name.startswith("train_split_"):
+                    _train_split(mesh, d, name[len("train_split_"):])
+                else:
+                    globals()[f"_{name}"](mesh, d)
                 out[name] = ""
             except Exception:       # reported; the peers' collectives fail
                 out[name] = traceback.format_exc()[-2500:]
@@ -514,6 +560,63 @@ def _train(mesh, d) -> None:
     for key, t in zip(names, tree_leaves(dp)):
         _close(t.full_tensor().numpy(), want[key], PORT_TOL,
                f"AdamW {key} vs port")
+
+
+
+def _train_split(mesh, d, arch: str) -> None:
+    """``arch``'s reduced config, whose 6 query heads do not divide
+    ``model`` = 4: the flash region splits the query sequence, and every
+    call it makes takes this rank's rows at offset ``model rank x S / 4``
+    (recorded), forward and remat recompute.  The step's loss and every
+    gradient against the unsharded port at f32, the loss and the updated
+    parameters against the reference at its test's bounds."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.compat import from_jax_params
+    from repro_torch.distributed.logical import logical_rules
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models import attention
+    from repro_torch.tree import tree_leaves, tree_names
+    params = from_jax_params(load_tree(d, f"params_{arch}"), device="cpu")
+    p_sh = param_shardings(params, mesh)
+    dp = _distribute(params, p_sh)
+
+    def batch(name):
+        return DTensor.from_local(
+            torch.from_numpy(np.load(d / f"{name}.npy")), mesh,
+            [Replicate(), Replicate()], run_check=False).redistribute(
+            mesh, [Shard(0), Replicate()])
+
+    seen = []
+    flash = attention.flash_attention
+
+    def recording(q, k, v, **kw):
+        seen.append((kw.get("q_offset"), q.shape[1], k.shape[1]))
+        return flash(q, k, v, **kw)
+
+    attention.flash_attention = recording
+    try:
+        with logical_rules(mesh, RULES):
+            p1, loss, grads = port_train(dp, batch("train_tokens"),
+                                         batch("train_labels"), arch)
+    finally:
+        attention.flash_attention = flash
+    S = TRAIN_SHAPE[1]
+    rows = S // MESH[1]
+    offset = mesh.get_local_rank("model") * rows
+    assert seen and set(seen) == {(offset, rows, S)}, seen
+    ref, port = load_tree(d, f"ref_train_{arch}"), \
+        load_tree(d, f"port_train_{arch}")
+    _close(float(loss), ref["loss"], REF_TOL["loss"], "loss vs ref")
+    _close(float(loss), port["loss"], PORT_TOL, "loss vs port")
+    names = [n.replace("/", ".") for n in tree_names(p1)]
+    want = _flat(port["grads"])
+    for key, t in zip(names, tree_leaves(grads)):
+        _close(t.full_tensor().numpy(), want[key], PORT_TOL,
+               f"grads {key} vs port")
+    got = dict(zip(names, (p.full_tensor().numpy() for p in tree_leaves(p1))))
+    for key, w in _flat(ref["params"]).items():
+        _close(got[key], w, REF_TOL["params"], f"{key} vs ref")
 
 
 if __name__ == "__main__":
