@@ -12,8 +12,8 @@ Phases, one JSON line each:
                      paged-attention instance apart), tensor-core
                      instructions counted in its SASS (``cuobjdump``; every
                      bf16 flash kernel must have some, head_dim 192's
-                     included, and the head_dim 192 flash kernels no
-                     spills);
+                     included, and neither the head_dim 192 flash
+                     kernels nor the 31 decode-kernel instances spill);
 3. ``kernels``       every CUDA kernel against its plain PyTorch version on
                      the card (small shapes incl. window masking, unmapped
                      pages, rows with no valid position, splits that see
@@ -36,8 +36,15 @@ Phases, one JSON line each:
                      Sk 1-1,500, Sq > Sk, G 1 and 4, D 64 and 128, views;
                      a causal or windowed call at Sq != Sk must raise
                      ValueError) and at Whisper-medium's decode (Sq = 1
-                     over 1,500 frames), cross (448 over 1,500) and
-                     encoder (S = 1,500) shapes beside SDPA;
+                     over 1,500 frames, B 4 and 1: the few-row decode
+                     kernel, beside the tile kernel and SDPA), cross (448
+                     over 1,500) and encoder (S = 1,500) shapes beside
+                     SDPA; the decode kernel at masked few-row shapes with
+                     a query offset, every cluster size, lse, two calls
+                     bit-identical, and its forward followed by the
+                     backward kernels; the f32 route at the training shape
+                     and the training example's call beside SDPA, the
+                     backward's two calls bit-identical;
                      ``flash_attention_kernel`` in the reference's
                      signature and (B, H, S, D) layout; the copies at
                      the Qwen3, the latent and the Zamba2 KV rows against
@@ -145,8 +152,10 @@ Phases, one JSON line each:
                      engine decodes over the zero cross K/V, as the
                      reference's; counters zeroed just before and read just
                      after (paged attention and flash = 24 x decode_step
-                     calls); paged self-KV against pinned cross K/V bytes a
-                     step; a batch-1 step profiled; then a decode over
+                     calls, every flash call on the decode kernel);
+                     paged self-KV against pinned cross K/V bytes a step;
+                     a batch-1 step profiled (``flash_decode_kernel``
+                     among its kernels); then a decode over
                      ``cross_kv(encode(frames))`` of random frames: f32
                      greedy tokens kernel = plain path on the card, every
                      bf16 flash call (encoder, cross) against its plain
@@ -517,18 +526,21 @@ FLASH_TC_KERNELS = ("flash_tc_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_tc_fwd<128>``, ``flash_tc_bwd_dkdv<192,1>`` (head dim, pass)
-    or ``paged_attention_kernel<bf16,128,5>`` (dtype, head dim, query heads
-    a block) from the mangled name of a kernel template instance
+    """``flash_tc_fwd<128>``, ``flash_tc_bwd_dkdv<192,1>`` (head dim, pass),
+    ``paged_attention_kernel<bf16,128,5>`` (dtype, head dim, query heads
+    a block), ``flash_decode_kernel<bf16,64,1>`` (dtype, head dim, query
+    rows a block) or ``flash_bwd_dkdv_sum_kernel`` from the mangled name of
+    a kernel
     (``..._GLOBAL__N_112flash_tc_fwdILi128EEEv...``)."""
-    m = re.search(r"\d+(paged_attention_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
-                  r"Li(\d+)E", mangled)
+    m = re.search(r"\d+(paged_attention_kernel|flash_decode_kernel)"
+                  r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
     if m:
         dt = "f32" if m.group(2) == "f" else "bf16"
         return f"{m.group(1)}<{dt},{m.group(3)},{m.group(4)}>"
     m = re.search(r"\d+(flash_\w+?)ILi(\d+)E(?:Li(\d+)E)?", mangled)
     if not m:
-        return mangled
+        m = re.search(r"\d+(flash_\w+?_kernel)E", mangled)   # no template
+        return m.group(1) if m else mangled
     args = ",".join(a for a in m.group(2, 3) if a is not None)
     return f"{m.group(1)}<{args}>"
 
@@ -589,7 +601,11 @@ def _build_fields() -> dict:
         wide = [n for n in resources
                 if n.startswith("flash_") and "<192" in n]
         require(len(wide) == 7, f"head_dim 192 flash kernels: {wide}")
-        for n in wide:
+        decode = [n for n in resources if n.startswith("flash_decode")]
+        # bf16: kR 1, 2, 4 at D 16 / 32 / 64 and 1, 2 at 128 / 192; f32:
+        # 1, 2, 4, 8 and 1, 2, 4
+        require(len(decode) == 31, f"flash_decode kernels: {decode}")
+        for n in wide + decode:
             r = resources[n]
             require(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0,
                     f"{n} spills: {r.get('ptxas')}")
@@ -707,7 +723,7 @@ def _flash_close(a, b, grad: bool, what: str) -> tuple:
 
 
 def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
-                fused=False, Sk=None):
+                fused=False, Sk=None, q_offset=None):
     """Forward and gradients of the kernels against the plain version on
     the card.  ``fused``: q, k and v are strided views of one
     (B, S, H + 2 KVH, D) tensor, as a fused QKV projection gives them (with
@@ -718,12 +734,15 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
     rounded output (the backward's rowsum(dO * O) takes O in bf16, which
     moves dq by up to 2^-8 of its terms: where the softmax is peaked that
     is more than 2e-2 of dq's row), and against autograd within 2e-2 x
-    max|ref|.  Returns (fwd, grad) x (max abs err, max row relative err)."""
+    max|ref|.  ``q_offset``: q's rows at that absolute position (a causal
+    mask or a window at Sq != Sk).  Returns (fwd, grad) x (max abs err,
+    max row relative err)."""
     import torch
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
     Sk = Sk or S
+    off = dict(q_offset=q_offset or 0)
     if fused and Sk == S:
         qkv = _rand(gen, (B, S, H + 2 * KVH, D), dtype, dev)
         q, k, v = qkv.requires_grad_(True).split([H, KVH, KVH], dim=2)
@@ -737,24 +756,26 @@ def _flash_case(gen, dev, B, S, H, KVH, D, dtype, causal, window,
         k = _rand(gen, (B, Sk, KVH, D), dtype, dev).requires_grad_(True)
         v = _rand(gen, (B, Sk, KVH, D), dtype, dev).requires_grad_(True)
     dout = _rand(gen, (B, S, H, D), dtype, dev)
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
     got = torch.autograd.grad(out, (q, k, v), dout)
     sync(dev)
     t = [x.detach().transpose(1, 2) for x in (q, k, v, out, dout)]
     ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              window=window).transpose(1, 2)
+                              window=window, **off).transpose(1, 2)
     want = torch.autograd.grad(ref, (q, k, v), dout)
     name = str(dtype).split(".")[-1]
     what = (f"flash_attention B{B} Sq{S} Sk{Sk} H{H} KVH{KVH} D{D} {name} "
-            f"causal={causal} window={window} fused={fused}")
+            f"causal={causal} window={window} fused={fused} "
+            f"q_offset={q_offset}")
     e_fwd = _flash_close(out, ref, False, what)
     if dtype == torch.float32:
         e_grad = [_flash_close(a, b, True, f"{what} d{n}")
                   for a, b, n in zip(got, want, "qkv")]
         return e_fwd, tuple(max(e[i] for e in e_grad) for i in range(2))
     plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
-        *t, causal=causal, window=window)]
+        *t, causal=causal, window=window, **off)]
     rel = max(_flash_close(a, b, True, f"{what} d{n}, plain backward")[1]
               for a, b, n in zip(got, plain, "qkv"))
     err = max(_close_max(a, b, f"{what} d{n}")
@@ -774,12 +795,15 @@ def _close_max(a, b, what: str) -> float:
     return err
 
 
-def _flash_train_shape_f32(gen, dev, B, S, H, KVH, D):
-    """The training shape in f32, held element by element (atol = rtol =
-    2e-5 forward, 1e-4 gradients): every q and k tile of the 64-tile loops
-    of the three kernels.  Returns (fwd, grad) x (max abs err, max row
-    relative err)."""
+def _flash_f32_shape(gen, dev, name: str, B, S, H, KVH, D, it: int) -> dict:
+    """One f32 causal shape on the CUDA-core route: forward and gradients
+    held element by element against the plain version (atol = rtol = 2e-5
+    forward, 1e-4 gradients: every q and k tile of the three kernels' 64-row
+    loops), the backward's two calls bit-identical (the per-head dK/dV
+    terms summed in one order), and kernel / plain / SDPA device ms beside
+    the bound at the f32 CUDA-core rate."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -791,15 +815,174 @@ def _flash_train_shape_f32(gen, dev, B, S, H, KVH, D):
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v)
         got = flash_attention_bwd(q, k, v, o, lse, dout)
+        again = flash_attention_bwd(q, k, v, o, lse, dout)
     sync(dev)
-    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2)).transpose(1, 2)
-    want = torch.autograd.grad(ref, (q, k, v), dout)
-    what = "flash_attention, training shape in float32"
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    require(same, f"flash_attention_bwd {name} f32: two calls differ")
+    del again
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = flash_attention_ref(qt, kt, vt).transpose(1, 2)
+    want = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
+    what = f"flash_attention {name} B{B} S{S} H{H} KVH{KVH} D{D} float32"
     e_fwd = _flash_close(o, ref.detach(), False, what)
     e_grad = [_flash_close(a, b, True, f"{what} d{n}")
               for a, b, n in zip(got, want, "qkv")]
-    return e_fwd, tuple(max(e[i] for e in e_grad) for i in range(2))
+    del got, want
+    pairs = B * S * (S + 1) // 2
+    fwd_flops, bwd_flops = 4 * H * D * pairs, 10 * H * D * pairs
+    fwd_bytes = 4 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
+    bwd_bytes = 4 * (6 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * H * S
+
+    def bound(flops, nbytes):
+        t_ops = flops / PEAK_FLOPS["float32"]
+        t_mem = nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(t_ops, t_mem) * 1e3,
+                "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                "flops": flops, "bytes": nbytes}
+
+    plain_it = max(2, it // 3)
+    with torch.no_grad():
+        fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(q, k, v)], it)
+        bwd_ms = time_ms(dev, [lambda: flash_attention_bwd(
+            q, k, v, o, lse, dout)], it)
+        plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
+            qt, kt, vt)], plain_it)
+        sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)], it)
+    plain_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        ref, (q, k, v), dout, retain_graph=True)], plain_it)
+    del ref
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    sdpa_bwd_ms = time_ms(dev, [lambda: torch.autograd.grad(
+        lib, (q, k, v), dout.transpose(1, 2), retain_graph=True)], it)
+    del lib, q, k, v, o, lse, dout, qt, kt, vt
+    sync(dev)
+    torch.cuda.empty_cache()
+    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
+                      "dtype": "float32", "causal": True},
+            "errs": e_fwd + tuple(max(e[i] for e in e_grad)
+                                  for i in range(2)),
+            "backward_bit_identical_over_two_calls": same,
+            "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                    "library_ms": sdpa_fwd_ms, "max_abs_err": e_fwd[0],
+                    **bound(fwd_flops, fwd_bytes)},
+            "bwd": {"ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                    "library_ms": sdpa_bwd_ms,
+                    "max_abs_err": max(e[0] for e in e_grad),
+                    **bound(bwd_flops, bwd_bytes)}}
+
+
+def _tile_fwd(q, k, v, causal: bool = False):
+    """The dtype's tile-kernel forward (``flash_attention_tc.cu`` in bf16,
+    ``flash_attention.cu`` in f32) at any Sq, the decode route bypassed:
+    the yardstick of the route's gain at a few-row shape.  Not counted."""
+    import torch
+    from repro_torch.kernels._build import check_launch, load_library
+    from repro_torch.kernels.flash_attention.flash_attention import route
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    code = getattr(load_library(), route(q.dtype, D).fwd)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Sq, Sk, H, KVH, D, *q.stride()[:3],
+        *k.stride()[:3], int(causal), 0, 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(code, "tile forward")
+    return o, lse
+
+
+def _decode_fwd(q, k, v, causal: bool, window: int, q_offset, n: int):
+    """The decode kernel's C entry at a cluster of ``n`` blocks, the plan
+    and the route bypassed (any Sq): the checks' and sweeps' way to reach
+    every cluster size.  Not counted."""
+    import torch
+    from repro_torch.kernels._build import check_launch, load_library
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    code = load_library().repro_flash_decode_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Sq, Sk, H, KVH, D, *q.stride()[:3],
+        *k.stride()[:3], int(causal), int(window), int(q_offset or 0), n,
+        fa._DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(code, "decode forward")
+    return o, lse
+
+
+def _decode_check(gen, dev, B, Sq, Sk, H, KVH, D, dtype, causal, window,
+                  q_offset) -> dict:
+    """The decode kernel (``csrc/flash_decode.cu``) at one few-row shape
+    against the plain version, through the binding (its plan's cluster
+    size) and at every cluster size (1, 2, 4, 8, ``_decode_fwd``): o by
+    ``_flash_close``, lse within 1e-4 x max(1, |lse|) of
+    ``flash_attention_split_ref`` at one share; two calls bit-identical at
+    each size."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE, flash_attention_fwd, forward_entry)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, flash_attention_split_ref)
+    require(forward_entry(dtype, D, Sq) == DECODE, f"Sq {Sq}: not decode")
+    q = _rand(gen, (B, Sq, H, D), dtype, dev)
+    k, v = (_rand(gen, (B, Sk, KVH, D), dtype, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = flash_attention_ref(qt, kt, vt, q_offset=q_offset or 0,
+                              **kw).transpose(1, 2)
+    lse_ref = flash_attention_split_ref(qt.float(), kt.float(), vt.float(),
+                                        q_offset=q_offset or 0, **kw)[1]
+    what = (f"flash_decode B{B} Sq{Sq} Sk{Sk} H{H} KVH{KVH} D{D} "
+            f"{str(dtype).split('.')[-1]} causal={causal} window={window} "
+            f"q_offset={q_offset}")
+    errs = {"max_abs_err": 0.0, "row_rel_err": 0.0, "lse_err": 0.0}
+    for n in (None, 1, 2, 4, 8):
+        if n is None:
+            o, lse = flash_attention_fwd(q, k, v, q_offset=q_offset, **kw)
+            o2, lse2 = flash_attention_fwd(q, k, v, q_offset=q_offset, **kw)
+        else:
+            o, lse = _decode_fwd(q, k, v, causal, window, q_offset, n)
+            o2, lse2 = _decode_fwd(q, k, v, causal, window, q_offset, n)
+        sync(dev)
+        e = _flash_close(o, ref, False, f"{what} n_splits={n}")
+        le = float((lse - lse_ref).abs().max())
+        require(le <= 1e-4 * max(1.0, float(lse_ref.abs().max())),
+                f"{what} n_splits={n}: lse err {le}")
+        require(torch.equal(o, o2) and torch.equal(lse, lse2),
+                f"{what} n_splits={n}: two calls differ")
+        errs = {"max_abs_err": max(errs["max_abs_err"], e[0]),
+                "row_rel_err": max(errs["row_rel_err"], e[1]),
+                "lse_err": max(errs["lse_err"], le)}
+    return errs
+
+
+DECODE_CASES = [
+    # B, Sq, Sk, H, KVH, D, causal, window, q_offset: few-row calls, the
+    # masked ones at a query offset (a chunk of decode, a rank's last rows)
+    (2, 3, 700, 16, 4, 128, True, 0, 697),      # G = 4, causal
+    (1, 8, 900, 16, 4, 64, True, 100, 300),     # a window inside the keys
+    (1, 5, 333, 24, 2, 128, True, 40, 200),     # G = 12: 60 rows, 15 groups
+    (2, 2, 65, 4, 4, 16, False, 30, 20),        # non-causal window
+    (1, 4, 400, 8, 2, 192, True, 0, 396),       # MLA's head dim
+    (3, 1, 1500, 32, 8, 80, False, 0, None),    # Danube's heads over frames
+    (2, 1, 257, 8, 8, 112, False, 0, None),     # Zamba2's head dim
+    (1, 7, 5, 4, 1, 32, False, 0, None),        # Sq > Sk
+]
+# the training example's flash call (examples/torch_train_demand_paged.py
+# at its defaults: a batch of 8 in two microbatches, 64 tokens, 8 / 4
+# heads of 64, f32): B, S, H, KVH, D
+EXAMPLE_F32 = (4, 64, 8, 4, 64)
+DECODE_GRAD_CASES = [
+    # B, Sq, Sk, H, KVH, D, causal, window, q_offset: a decode-route
+    # forward, then the backward kernels, against the plain gradients
+    (2, 3, 700, 16, 4, 128, True, 0, 697),
+    (1, 8, 900, 16, 4, 64, True, 100, 300),
+    (2, 2, 65, 4, 4, 16, False, 30, 20),
+]
 
 
 FLASH_CASES = [
@@ -869,7 +1052,9 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int, Sk=None,
     (rows) and autograd of it (2e-2 x max|ref|); kernel / plain / SDPA
     device ms; FLOPs, bytes and the bound.  Seven time_ms calls, in the
     order of ``FLASH_TIMED``; with ``backward=False`` (a decode shape) the
-    forward's three, in the order of ``FLASH_TIMED_FWD``."""
+    forward's four, in the order of ``FLASH_TIMED_FWD`` (the last the tile
+    kernel's, ``_tile_fwd``), with its lse against the plain one, two calls
+    bit-identical, the kernel that ran and its cluster size."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -898,20 +1083,39 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int, Sk=None,
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if not backward:
+        from repro_torch.kernels.flash_attention import \
+            flash_attention as fa
+        from repro_torch.kernels.flash_attention.ref import \
+            flash_attention_split_ref
+        entry = fa.forward_entry(q.dtype, D, S)
         with torch.no_grad():
-            o, _ = flash_attention_fwd(q, k, v, causal=causal)
+            o, lse = flash_attention_fwd(q, k, v, causal=causal)
+            o2, lse2 = flash_attention_fwd(q, k, v, causal=causal)
             sync(dev)
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            require(same, f"{what}: two calls differ")
             ref = flash_attention_ref(qt, kt, vt, causal=causal)
             err_fwd, rel_fwd = _flash_close(o, ref.transpose(1, 2), False,
                                             what)
+            lse_ref = flash_attention_split_ref(
+                qt.float(), kt.float(), vt.float(), causal=causal)[1]
+            lse_err = float((lse - lse_ref).abs().max())
+            require(lse_err <= 1e-4 * max(1.0, float(lse_ref.abs().max())),
+                    f"{what}: lse err {lse_err}")
             fwd_ms = time_ms(dev, [lambda: flash_attention_fwd(
                 q, k, v, causal=causal)], it)
             plain_fwd_ms = time_ms(dev, [lambda: flash_attention_ref(
                 qt, kt, vt, causal=causal)], it)
             sdpa_fwd_ms = time_ms(dev, [lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)], it)
+            tile_ms = time_ms(dev, [lambda: _tile_fwd(q, k, v, causal)], it)
         fb, fby = bound(fwd_flops, fwd_bytes)
-        del q, k, v, o, ref, dout
+        n_splits = fa.plan_decode_splits(
+            dev.index or 0, B, KVH, (H // KVH) * S, D,
+            fa.decode_tiles(S, Sk, causal, 0, None,
+                            fa.DECODE_TILE_ROWS[q.dtype]), q.dtype) \
+            if entry == fa.DECODE else None
+        del q, k, v, o, o2, lse, lse2, ref, dout
         return {"shape": {"B": B, "Sq": S, "Sk": Sk, "H": H, "KVH": KVH,
                           "D": D, "dtype": "bfloat16", "causal": causal},
                 "errs": (err_fwd, rel_fwd),
@@ -919,7 +1123,10 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int, Sk=None,
                         "bound_ms": fb, "bound_by": fby,
                         "library_ms": sdpa_fwd_ms, "flops": fwd_flops,
                         "bytes": fwd_bytes, "bound_share": fb / fwd_ms,
-                        "max_abs_err": err_fwd}}
+                        "max_abs_err": err_fwd, "lse_err": lse_err,
+                        "kernel": entry, "n_splits": n_splits,
+                        "bit_identical_over_two_calls": same,
+                        "tile_kernel_ms": tile_ms}}
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v, causal=causal)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout,
@@ -994,7 +1201,61 @@ def _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it: int, Sk=None,
 FLASH_TIMED = ("flash_attention", "flash_attention_bwd",
                "flash_attention_plain", "flash_attention_plain_bwd", "sdpa",
                "sdpa_bwd", "sdpa_fwd_bwd")
-FLASH_TIMED_FWD = ("flash_attention", "flash_attention_plain", "sdpa")
+FLASH_TIMED_FWD = ("flash_attention", "flash_attention_plain", "sdpa",
+                   "flash_attention_tile_kernel")
+FLASH_TIMED_F32 = ("flash_attention", "flash_attention_bwd",
+                   "flash_attention_plain", "sdpa",
+                   "flash_attention_plain_bwd", "sdpa_bwd")
+
+
+# the bf16 route at q_offset = 0 (B, S, H, KVH, D, causal, window): its
+# outputs' bits did not move when the mask predicate left the source for
+# csrc/flash_mask.cuh
+BF16_BITS_CASES = ((1, 700, 8, 2, 128, True, 0),
+                   (2, 333, 4, 4, 64, True, 100),
+                   (1, 300, 8, 8, 192, False, 0))
+# sha256 of those outputs from the tensor-core kernels as they were before
+# (python3 tools/flash_bits_check.py --parent DIR on the NVIDIA H100 80GB
+# HBM3, torch 2.11.0+cu128, with DIR the previous flash_attention_tc.cu's
+# tree): the same inputs must give the same bits.  A change meant to move
+# the bf16 kernels' bits (or a torch whose CUDA RNG draws differently)
+# fails here until it writes the tool's new digest, taken against its
+# parent tree, into BF16_BITS
+BF16_BITS ="86e020bb31f5f950bcacbcb4e0b3f76891084ac352049cd5aa3b4ba418389034"
+
+
+def bf16_bits(dev, fwd, bwd) -> str:
+    """sha256 over o, lse, dq, dk and dv of ``BF16_BITS_CASES``, inputs
+    drawn on ``dev`` from seed 26; ``fwd(q, k, v, causal, window)`` returns
+    (o, lse), ``bwd(q, k, v, o, lse, dout, causal, window)`` (dq, dk, dv)."""
+    import hashlib
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    h = hashlib.sha256()
+    for (B, S, H, KVH, D, causal, window) in BF16_BITS_CASES:
+        q = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
+        k, v = (_rand(gen, (B, S, KVH, D), torch.bfloat16, dev)
+                for _ in range(2))
+        dout = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
+        o, lse = fwd(q, k, v, causal, window)
+        for t in (o, lse, *bwd(q, k, v, o, lse, dout, causal, window)):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bf16_bits_unchanged(dev) -> str:
+    """The bf16 route's bits at q_offset = 0 against ``BF16_BITS``."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    got = bf16_bits(
+        dev, lambda q, k, v, c, w: flash_attention_fwd(
+            q, k, v, causal=c, window=w, q_offset=0),
+        lambda q, k, v, o, lse, do, c, w: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=c, window=w, q_offset=0))
+    require(got == BF16_BITS, f"bf16 flash outputs at q_offset = 0 changed "
+            f"their bits: sha256 {got}, before {BF16_BITS}")
+    return got
 
 
 def _reference_signature(gen, dev) -> dict:
@@ -1304,9 +1565,15 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     f32 at a shorter one; then cross-attention (Sq != Sk, non-causal: the
     cases of ``CROSS_CASES`` in both dtypes, the refused masks) and
     Whisper-medium's three shapes in bf16: the decode call (Sq = 1 over
-    the 1,500 frames; forward only), the training cross shape and the
-    encoder's (S = 1,500, non-causal): errors against the plain version,
-    kernel / plain / SDPA times, FLOP bounds; and
+    the 1,500 frames, B = 4 and 1; forward only, the decode kernel of
+    ``csrc/flash_decode.cu`` beside the tile kernel it replaces there),
+    the training cross shape and the encoder's (S = 1,500, non-causal):
+    errors against the plain version, kernel / plain / SDPA times, FLOP
+    bounds; the decode kernel at masked few-row shapes with a query offset
+    (``DECODE_CASES``, every cluster size, lse too, two calls
+    bit-identical) and its forward followed by the backward kernels
+    (``DECODE_GRAD_CASES``); the f32 route at the training shape and the
+    training example's call, timed beside SDPA; and
     ``flash_attention_kernel`` in the reference's signature."""
     import torch
     from repro_torch.configs import get_config
@@ -1323,14 +1590,22 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
             errs[n] = {k: max(errs[n][k], x)
                        for k, x in zip(keys, e[0] + e[1])}
 
-    # the training shape: one layer of one microbatch of the train phase
+    # the training shape: one layer of one microbatch of the train phase;
+    # in f32 (the CUDA-core route) also the training example's call (its
+    # batch of 8 in two microbatches, 8 / 4 heads of 64 over 64 tokens)
     B, S, H, KVH, D = 1, sz.train_seq, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim
-    e = _flash_train_shape_f32(gen, dev, B, S, H, KVH, D)
-    errs["float32_training_shape"] = dict(zip(keys, e[0] + e[1]))
+    it = sz.flash_iters
+    f32_train = _flash_f32_shape(gen, dev, "training shape", B, S, H, KVH, D,
+                                 it)
+    errs["float32_training_shape"] = dict(zip(keys, f32_train["errs"]))
+    names += [f"{n}_f32_training" for n in FLASH_TIMED_F32]
+    f32_example = _flash_f32_shape(gen, dev, "training example", *EXAMPLE_F32,
+                                   it)
+    errs["float32_training_example"] = dict(zip(keys, f32_example["errs"]))
+    names += [f"{n}_f32_example" for n in FLASH_TIMED_F32]
     sync(dev)
     torch.cuda.empty_cache()
-    it = sz.flash_iters
     main = _flash_bf16_shape(gen, dev, B, S, H, KVH, D, it)
     errs["bfloat16_training_shape"] = dict(zip(keys, main["errs"]))
     names += list(FLASH_TIMED)
@@ -1369,6 +1644,7 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
                              for k, x in zip(keys, e[0] + e[1])}
     errs["cross_attention"] = cross_errs
     errs["reference_signature"] = _reference_signature(gen, dev)
+    bits = _bf16_bits_unchanged(dev)
     refused = _cross_refused(gen, dev)
     wcfg = get_config(sz.whisper_arch)
     Hw, Dw, T = wcfg.n_heads, wcfg.head_dim, wcfg.max_source_positions
@@ -1377,6 +1653,27 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     w_dec = _flash_bf16_shape(gen, dev, sz.max_batch, 1, Hw, Hw, Dw, it,
                               Sk=T, causal=False, backward=False)
     names += [f"{n}_whisper_decode" for n in FLASH_TIMED_FWD]
+    w_dec1 = _flash_bf16_shape(gen, dev, 1, 1, Hw, Hw, Dw, it, Sk=T,
+                               causal=False, backward=False)
+    names += [f"{n}_whisper_decode_batch1" for n in FLASH_TIMED_FWD]
+    # the decode kernel at masked few-row shapes with a query offset, and
+    # its forward followed by the backward kernels
+    dec_errs = {}
+    for case in DECODE_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            e = _decode_check(gen, dev, *case[:6], dt, *case[6:])
+            n = str(dt).split(".")[-1]
+            dec_errs[n] = {k: max(dec_errs.get(n, {}).get(k, 0.0), x)
+                           for k, x in e.items()}
+    for case in DECODE_GRAD_CASES:
+        B5, Sq5, Sk5, H5, KVH5, D5, c5, w5, off5 = case
+        for dt in (torch.float32, torch.bfloat16):
+            e = _flash_case(gen, dev, B5, Sq5, H5, KVH5, D5, dt, c5, w5,
+                            Sk=Sk5, q_offset=off5)
+            n = f"{str(dt).split('.')[-1]}_decode_forward_then_backward"
+            dec_errs[n] = {k: max(dec_errs.get(n, {}).get(k, 0.0), x)
+                           for k, x in zip(keys, e[0] + e[1])}
+    errs["flash_decode"] = dec_errs
     w_cross = _flash_bf16_shape(gen, dev, sz.whisper_train_batch,
                                 wcfg.max_target_positions, Hw, Hw, Dw, it,
                                 Sk=T, causal=False)
@@ -1386,6 +1683,7 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     names += [f"{n}_whisper_encoder" for n in FLASH_TIMED]
     errs["bfloat16_whisper_shapes"] = {
         "decode": dict(zip(keys[:2], w_dec["errs"])),
+        "decode_batch1": dict(zip(keys[:2], w_dec1["errs"])),
         "cross": dict(zip(keys, w_cross["errs"])),
         "encoder": dict(zip(keys, w_enc["errs"]))}
     whisper = {"arch": wcfg.name, "decode_shape": w_dec["shape"],
@@ -1403,6 +1701,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
             "two passes (no spills)"}
     d112 = {"arch": zcfg.name, "shape": z["shape"]}
     f, b = main["fwd"], main["bwd"]
+    dec = w_dec["fwd"]
+    f32_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     rows = [
         {"name": "flash_attention", "route": "cuda", "source": src,
          "replaces": tpu, "launches": 0, "max_abs_err": f["max_abs_err"],
@@ -1413,8 +1713,40 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "tflops_per_s": f["tflops_per_s"], "shape": main["shape"],
          "head_dim_192": {**d192, **wide["fwd"]},
          f"head_dim_{D3}": {**d112, **z["fwd"]},
+         "bf16_q_offset0_sha256_unchanged": bits,
          "whisper": {**whisper, "decode": w_dec["fwd"],
-                     "cross": w_cross["fwd"], "encoder": w_enc["fwd"]}},
+                     "decode_batch1": w_dec1["fwd"],
+                     "cross": w_cross["fwd"], "encoder": w_enc["fwd"]},
+         "float32_route": {"source": f32_src,
+                           "training_shape": {"shape": f32_train["shape"],
+                                              **f32_train["fwd"]},
+                           "training_example": {
+                               "shape": f32_example["shape"],
+                               **f32_example["fwd"]}},
+         "note": "launches count every forward, the decode kernel's too "
+         "(its own row below)"},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": tpu, "note": "the forward of calls of at most "
+         "DECODE_MAX_ROWS query rows, in bf16 and f32 (forward_entry); "
+         "each launch also counts under flash_attention",
+         "launches": 0, "max_abs_err": dec["max_abs_err"], "ms": dec["ms"],
+         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+         "library": "F.scaled_dot_product_attention",
+         "tile_kernel_ms": dec["tile_kernel_ms"],
+         "n_splits": dec["n_splits"], "shape": w_dec["shape"],
+         "batch1": {"shape": w_dec1["shape"], **w_dec1["fwd"]},
+         "lse_err": dec["lse_err"],
+         "bit_identical_over_two_calls": dec[
+             "bit_identical_over_two_calls"],
+         "design": "split-KV over a thread-block cluster (DSMEM combine in "
+         "rank order), one producer lane's cp.async.bulk.tensor copies of "
+         "whole stages through 2-D tensor maps of k and v in the model "
+         "layout into an mbarrier ring, consumer warps split the keys, "
+         "every query row of a KV head in one block, f32 on the CUDA cores",
+         "masked_cases_checked": len(DECODE_CASES) * 2 * 5,
+         "max_abs_err_masked": dec_errs},
         {"name": "flash_attention_bwd", "route": "cuda", "source": src,
          "replaces": tpu, "note": "the TPU kernel has no backward: the "
          "reference differentiates src/repro/models/attention_ops.py:77 "
@@ -1429,10 +1761,23 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "head_dim_192": {**d192, **wide["bwd"]},
          f"head_dim_{D3}": {**d112, **z["bwd"]},
          "whisper": {**whisper, "cross": w_cross["bwd"],
-                     "encoder": w_enc["bwd"]}},
+                     "encoder": w_enc["bwd"]},
+         "float32_route": {
+             "source": f32_src, "design": "dK/dV one block a query head "
+             "and k tile, the heads' terms summed in head order from f32 "
+             "scratch (2 x B x Sk x H x D) by a second kernel",
+             "training_shape": {
+                 "shape": f32_train["shape"], **f32_train["bwd"],
+                 "bit_identical_over_two_calls": f32_train[
+                     "backward_bit_identical_over_two_calls"]},
+             "training_example": {
+                 "shape": f32_example["shape"], **f32_example["bwd"],
+                 "bit_identical_over_two_calls": f32_example[
+                     "backward_bit_identical_over_two_calls"]}}},
     ]
-    cases = 2 * len(FLASH_CASES) + 6 + 2 * len(CROSS_CASES) + refused + 3 \
-        + len(errs["reference_signature"])
+    cases = 2 * len(FLASH_CASES) + 8 + 2 * len(CROSS_CASES) + refused + 4 \
+        + len(errs["reference_signature"]) + 10 * len(DECODE_CASES) \
+        + 2 * len(DECODE_GRAD_CASES)
     return rows, errs, cases
 
 
@@ -2571,7 +2916,8 @@ DIST_FAMILY_KERNELS = {
     "deepseek_v3_671b": ((), ("flash_attention", "flash_attention_bwd")),
     "zamba2_7b": (("paged_attention",),
                   ("flash_attention", "flash_attention_bwd")),
-    "whisper_medium": (("paged_attention", "flash_attention"),
+    "whisper_medium": (("paged_attention", "flash_attention",
+                        "flash_decode"),
                        ("flash_attention", "flash_attention_bwd")),
     "xlstm_125m": ((), ()),
 }
@@ -2733,7 +3079,7 @@ def phase_dist_families(dev, sz: Sizes, table, archs=DIST_PARENT,
         kernels.reset_launch_counts()
         out = fn()
         sync(dev)
-        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        counts = {k: v for k, v in _launches().items() if v}
         return out, counts, time.perf_counter() - t0
 
     backend = "nccl" if on_card else "gloo"
@@ -2800,6 +3146,14 @@ def _prompts(lengths, vocab: int):
     import numpy as np
     rng = np.random.default_rng(0)
     return [rng.integers(0, vocab, size=n) for n in lengths]
+
+
+def _launches() -> dict:
+    """Launches by counter: each binding's (``kernels.launch_counts``) and
+    each route's that shares one of them (``kernels.route_launch_counts``:
+    ``flash_decode``, also counted under ``flash_attention``)."""
+    from repro_torch import kernels
+    return {**kernels.launch_counts(), **kernels.route_launch_counts()}
 
 
 def _add_launches(table, path: str, counts: dict, names) -> None:
@@ -3332,9 +3686,11 @@ def phase_serve_encdec(dev, sz: Sizes, table):
     the reference the engine never encodes, so it decodes over the zero
     cross K/V of ``init_decode_cache`` — ``paged_attention`` (decoder
     self-attention) and ``flash_attention`` (cross-attention, Sq = 1 over
-    1,500 frames) each 24 x decode_step calls.  Then what a step moves
-    per sequence, paged self-attention KV against the pinned cross K/V,
-    and a batch-1 decode step profiled.
+    1,500 frames) each 24 x decode_step calls, every flash call on the
+    decode kernel (``flash_decode``).  Then what a step moves per
+    sequence, paged self-attention KV against the pinned cross K/V, and a
+    batch-1 decode step profiled: ``flash_decode_kernel`` must be among
+    its kernels, and its paged-attention call gets its bound.
 
     Then the encoded decode: a batch of ``max_batch`` random frame
     sequences, ``encode`` and ``cross_kv`` into the cache, 4 prompt tokens
@@ -3369,7 +3725,7 @@ def phase_serve_encdec(dev, sz: Sizes, table):
                              prompts=sz.whisper_prompts,
                              max_len=sz.whisper_max_len,
                              max_new=sz.whisper_max_new)
-    counts = kernels.launch_counts()
+    counts = _launches()
     st = eng.stats
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     step_calls = prompt_tokens + st.decode_steps
@@ -3383,12 +3739,14 @@ def phase_serve_encdec(dev, sz: Sizes, table):
                 and counts["flash_attention_bwd"] == 0,
                 f"launches {counts} != {L} layers x {step_calls} "
                 f"decode_step calls (paged_attention, flash_attention)")
+        require(counts["flash_decode"] == counts["flash_attention"],
+                f"cross-attention at Sq = 1 off the decode kernel: {counts}")
         require(counts["page_gather"] > 0
                 and counts["page_gather"] == counts["page_scatter"],
                 f"page gather/scatter launches: {counts}")
     _add_launches(table, "serve_encdec", counts,
                   ("paged_attention", "page_gather", "page_scatter",
-                   "flash_attention"))
+                   "flash_attention", "flash_decode"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     stats = dataclasses.asdict(st)
     # a decode step reads the decoder's weights and the tied embedding
@@ -3399,6 +3757,19 @@ def phase_serve_encdec(dev, sz: Sizes, table):
     del eng
     profile = _decode_profile(dev, sz, cfg, params, 3,
                               max_len=sz.whisper_max_len)
+    if dev.type == "cuda":
+        named = [k["name"] for k in profile["port_kernels"]]
+        require(any("flash_decode_kernel" in n for n in named),
+                f"no flash_decode_kernel in the batch-1 step's profile: "
+                f"{named}")
+    # the batch-1 step's paged self-attention call: its bound (K and V of
+    # the context read once, q and the output once; bf16)
+    ctx = profile["context"]
+    profile["paged_attention_bound_ms"] = (
+        2 * (2 * ctx * cfg.n_kv_heads * cfg.head_dim
+             + 2 * cfg.n_heads * cfg.head_dim)
+        + 4 * (-(-sz.whisper_max_len // cfg.kv_page_tokens) + 1)) \
+        / HBM_BYTES_PER_S * 1e3
 
     # the encoded decode
     gen = torch.Generator(device=dev)
@@ -3441,7 +3812,7 @@ def phase_serve_encdec(dev, sz: Sizes, table):
     _free(dev)
     kernels.reset_launch_counts()
     tok_f, wall_f = _encoded_decode(dev, sz, fcfg, fparams, frames, prompt)
-    f32_counts = kernels.launch_counts()
+    f32_counts = _launches()
     attn_mod.flash_attention = flash_attention_xla
     attn_mod.paged_attention = paged_attention_ref
     try:
@@ -5498,7 +5869,7 @@ def run_side(dev, sz: Sizes, names) -> None:
     import torch
     from repro_torch import kernels
     torch.zeros(1, device=dev)    # the allocator's state, before _free
-    rows = [{"name": n} for n in kernels.launch_counts()]
+    rows = [{"name": n} for n in _launches()]
     secs = {}
     for name in names:
         t0 = time.perf_counter()

@@ -18,15 +18,24 @@ regions hand the wrappers ``.to_local()`` shards).
 
 LAUNCHES = {"paged_attention": 0, "page_gather": 0, "page_scatter": 0,
             "flash_attention": 0, "flash_attention_bwd": 0}
+#: launches of a kernel that is one route of a binding counted above: the
+#: decode kernel of few-row flash forwards (``csrc/flash_decode.cu``) counts
+#: one under ``LAUNCHES["flash_attention"]`` and one here
+ROUTE_LAUNCHES = {"flash_decode": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def route_launch_counts() -> dict:
+    return dict(ROUTE_LAUNCHES)
 
 
 def require_local(*tensors) -> None:

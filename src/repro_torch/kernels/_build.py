@@ -5,8 +5,9 @@ all sources at once, one compiler process each — and the objects are
 linked into **one** shared library with a plain C interface, which is
 loaded with ``ctypes``.  No PyTorch header is involved, so the build takes
 seconds.  The library goes into ``build/`` at the repository root, under a
-name derived from the sources' contents, so an unchanged tree loads the
-library it built before and a changed source rebuilds.
+name derived from the contents of the sources and of the headers they
+include (``csrc/*.cuh``), so an unchanged tree loads the library it built
+before and a changed source or header rebuilds.
 
 Nothing here runs at import: :func:`load_library` is called by a kernel
 wrapper the first time it launches.  A failing build raises
@@ -54,12 +55,21 @@ SIGNATURES = {
         ("repro_flash_attention_fwd", "repro_flash_attention_tc_fwd"),
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
          _LL, _LL, _I, _I, _I, _P]),
+    # ... the same, then n_splits, dtype_code, stream: few query rows
+    "repro_flash_decode_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I,
+                               _I, _P],
+    # n_splits, D, rows, dtype_code, *count
+    "repro_flash_decode_active_clusters": [_I, _I, _I, _I,
+                                           ctypes.POINTER(_I)],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, D, causal,
     # window, q_off, stream
-    **dict.fromkeys(
-        ("repro_flash_attention_bwd", "repro_flash_attention_tc_bwd"),
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _I, _I, _P]),
+    "repro_flash_attention_tc_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ... the same with the query heads' dK, dV scratch after dv
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P],
 }
 
 
@@ -102,9 +112,14 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

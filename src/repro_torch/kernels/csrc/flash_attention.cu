@@ -17,20 +17,32 @@
 // accumulator, masked scores are -1e30 (finite), the result is divided by
 // max(l, 1e-30).  The reference has no backward kernel (XLA differentiates
 // its chunked scan); here the forward also writes the per-row logsumexp
-// and three more kernels compute the gradients from it:
+// and more kernels compute the gradients from it:
 //   flash_bwd_delta  D = rowsum(dO * O), one warp per row;
-//   flash_bwd_dkdv   one block per (b, kv_head, k_block): loops over the G
-//                    query heads of the group and over the q blocks that
-//                    can see the k block, so the GQA sum over G is taken in
-//                    one block (no atomics, deterministic);
-//   flash_bwd_dq     one block per (b, h, q_block), loops over the kv
-//                    blocks it can see.
+//   flash_bwd_dkdv   one block per (h, b, k_block): one query head's terms
+//                    of dK, dV, from the q blocks of that head that can see
+//                    the k block;
+//   flash_bwd_dkdv_sum  (G > 1) dK, dV = the G heads' terms, summed in head
+//                    order from f32 scratch (no atomics, deterministic);
+//   flash_bwd_dq     one block per (h, b, q_block), latest q blocks
+//                    first, loops over the kv blocks it can see.
+// Calls of a few query rows take flash_decode.cu's forward instead
+// (flash_attention.py's forward_entry); its lse feeds these kernels alike.
 //
 // What bounds it on this card: operations.  At the training shape (S=4096,
 // D=128, causal) there are ~S/2 * D * 4 flops per query row against a few
 // hundred bytes read, far above the ~295 operations per byte at which HBM
 // would become the limit.  In f32 on the CUDA cores the ceiling is the
-// 67 TFLOP/s f32 rate.
+// 67 TFLOP/s f32 rate, and what keeps a kernel from it is first how many
+// SMs have work: one block a tile pair's worth of work runs on one SM.
+// The dK/dV kernel ran one block per (b, kv_head, k_block), which walked all
+// G query heads: at StarCoder2-3B's heads (24 / 2, S = 1,536) 48 blocks on
+// 132 SMs, the first k block walking 12 x 24 q blocks, so the backward took
+// 7.6 ms on an H100 (700 W) against a 0.54 ms bound.  Now each query head is a block of its own
+// (576 blocks there), and the G terms of a (k block, kv_head) are added by
+// a second small kernel: its cost is the scratch, 2 * B * Sk * H * D f32
+// written once and read once (37.7 MB each way at StarCoder2-3B's call),
+// against a cluster reduction that would tie G blocks to one GPC and cap G.
 //
 // What the design does about it, within that:
 //  * q, k, v are read in the model layout (B, S, heads, D) through strides
@@ -49,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -82,15 +96,6 @@ __device__ __forceinline__ bool block_needed(int q0, int k0, int causal,
   if (causal) needed = k0 <= q0 + kBQ - 1;
   if (window > 0) needed = needed && (q0 - (k0 + kBK - 1) < window);
   return needed;
-}
-
-// qp: the row's absolute position
-__device__ __forceinline__ bool pair_valid(int qp, int kp, int Sk, int causal,
-                                           int window) {
-  bool ok = kp < Sk;
-  if (causal) ok = ok && qp >= kp;
-  if (window > 0) ok = ok && (qp - kp) < window;
-  return ok;
 }
 
 // Stage rows s0 .. s0 + kRows - 1 of one head into shared memory, times
@@ -335,19 +340,25 @@ __device__ __forceinline__ void stage_row_stats(
 }
 
 // ------------------------------------------------------- backward: dK, dV
-// grid (ceil(Sk / kBK), KVH, B).  All tensors contiguous: q, dout
-// (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse, delta (B, H, Sq).  A
-// k block that no row of this call sees (past q_off + Sq under a causal
-// mask, before every row's window) writes zeros: dk, dv are not cleared,
-// and under a sequence split each rank's are one term of a sum.
+// grid (H, B, ceil(Sk / kBK)): block (h, b, j) takes query head h alone and
+// the q tiles of it that see k tile j.  The k tile is the slowest grid axis
+// and runs in order: under a causal mask the earliest keys are seen by the
+// most q tiles, so the heaviest blocks start first.  All inputs contiguous:
+// q, dout (B, Sq, H, D); k, v (B, Sk, KVH, D); lse, delta (B, H, Sq).  Head
+// h's terms of dK, dV for the k tile go to rows kp of `pk`, `pv`, laid out
+// (B, Sk, OH, D) at head `oh`: dk and dv themselves when G = 1 (OH = KVH,
+// oh = h), else f32 scratch (OH = H, oh = h) that flash_bwd_dkdv_sum_kernel
+// adds up over the group.  A k tile that no row of this head sees (past
+// q_off + Sq under a causal mask, before every row's window) writes zeros:
+// nothing is cleared beforehand, and under a sequence split each rank's
+// dk, dv are one term of a sum.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
-    int G,
-    int causal, int window, int q_off, float scale) {
+    float* __restrict__ pk, float* __restrict__ pv, int Sq, int Sk, int KVH,
+    int OH, int causal, int window, int q_off, float scale) {
   constexpr int LD = Tile<D>::kLD;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
@@ -360,10 +371,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   float* lse_s = dSs + kBQ * kLDP;            // kBQ
   float* dl_s = lse_s + kBQ;                  // kBQ
 
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int KVH = gridDim.y;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kBK;
+  const int H = gridDim.x;
+  const int kvh = h / (H / KVH);
+  const int oh = OH == H ? h : kvh;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
   const long long kv_off = (long long)b * Sk * KVH * D + (long long)kvh * D;
@@ -377,58 +390,84 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     for (int c = 0; c < kCols; ++c) { dk_acc[i][c] = 0.f; dv_acc[i][c] = 0.f; }
 
   const int nq = (Sq + kBQ - 1) / kBQ;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const long long q_base = (long long)b * Sq * H * D + (long long)h * D;
-    const long long head_off = ((long long)b * H + h) * Sq;
-    for (int qi = 0; qi < nq; ++qi) {
-      const int q0 = qi * kBQ;
-      if (!block_needed(q_off + q0, k0, causal, window)) continue;
-      __syncthreads();               // the previous q tile is consumed
-      stage_rows<D, kBQ>(Qs, LD, q + q_base, (long long)H * D, q0, Sq, scale);
-      stage_rows<D, kBQ>(dOs, LD, dout + q_base, (long long)H * D, q0, Sq, 1.f);
-      stage_row_stats(lse_s, dl_s, lse, delta, head_off, q0, Sq);
-      __syncthreads();
-      bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, q0, k0, Sq, Sk,
-                    causal, window, q_off);
-      __syncthreads();               // P, dS are read by key instead of by row
+  const long long q_base = (long long)b * Sq * H * D + (long long)h * D;
+  const long long head_off = ((long long)b * H + h) * Sq;
+  for (int qi = 0; qi < nq; ++qi) {
+    const int q0 = qi * kBQ;
+    if (!block_needed(q_off + q0, k0, causal, window)) continue;
+    __syncthreads();                 // the previous q tile is consumed
+    stage_rows<D, kBQ>(Qs, LD, q + q_base, (long long)H * D, q0, Sq, scale);
+    stage_rows<D, kBQ>(dOs, LD, dout + q_base, (long long)H * D, q0, Sq, 1.f);
+    stage_row_stats(lse_s, dl_s, lse, delta, head_off, q0, Sq);
+    __syncthreads();
+    bwd_scores<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, q0, k0, Sq, Sk,
+                  causal, window, q_off);
+    __syncthreads();                 // P, dS are read by key instead of by row
 #pragma unroll 2
-      for (int r = 0; r < kBQ; ++r) {
-        float pv[4], dsv[4];
+    for (int r = 0; r < kBQ; ++r) {
+      float pv_[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv_[i] = Ps[r * kLDP + 4 * tr + i];
+        dsv[i] = dSs[r * kLDP + 4 * tr + i];
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float dov = dOs[r * LD + tc + 16 * c];
+        const float qv = Qs[r * LD + tc + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[r * kLDP + 4 * tr + i];
-          dsv[i] = dSs[r * kLDP + 4 * tr + i];
-        }
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float dov = dOs[r * LD + tc + 16 * c];
-          const float qv = Qs[r * LD + tc + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][c] = fmaf(pv[i], dov, dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(dsv[i], qv, dk_acc[i][c]);
-          }
+          dv_acc[i][c] = fmaf(pv_[i], dov, dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(dsv[i], qv, dk_acc[i][c]);
         }
       }
     }
   }
 
+  const long long out_off = (long long)b * Sk * OH * D + (long long)oh * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + 4 * tr + i;
     if (kp >= Sk) continue;
-    const long long row = kv_off + (long long)kp * KVH * D;
+    const long long row = out_off + (long long)kp * OH * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      dk[row + tc + 16 * c] = dk_acc[i][c];
-      dv[row + tc + 16 * c] = dv_acc[i][c];
+      pk[row + tc + 16 * c] = dk_acc[i][c];
+      pv[row + tc + 16 * c] = dv_acc[i][c];
     }
   }
 }
 
+// ---------------------------------------------- backward: dK, dV of a group
+// dk, dv (B, Sk, KVH, D) = the sums of the G query heads' terms in the
+// scratch (B, Sk, KVH * G, D) that flash_bwd_dkdv_kernel wrote, in head
+// order g = 0 .. G - 1: one order, no atomics.  One thread a 16-byte chunk
+// of a row (D is a multiple of 16).
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_sum_kernel(
+    const float* __restrict__ part_k, const float* __restrict__ part_v,
+    float* __restrict__ dk, float* __restrict__ dv, long long n_chunks,
+    int G, int D) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_chunks) return;
+  const long long e = 4 * i;
+  const long long row = e / D;          // (b, kp, kvh), row-major
+  const long long col = e - row * D;
+  const long long src = row * G * D + col;  // head kvh * G of the same (b, kp)
+  float4 ak = make_float4(0.f, 0.f, 0.f, 0.f), av = ak;
+  for (int g = 0; g < G; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(part_k + src + g * D);
+    const float4 y = *reinterpret_cast<const float4*>(part_v + src + g * D);
+    ak.x += x.x; ak.y += x.y; ak.z += x.z; ak.w += x.w;
+    av.x += y.x; av.y += y.y; av.z += y.z; av.w += y.w;
+  }
+  *reinterpret_cast<float4*>(dk + e) = ak;
+  *reinterpret_cast<float4*>(dv + e) = av;
+}
+
 // ------------------------------------------------------------ backward: dQ
-// grid (ceil(Sq / kBQ), H, B); layouts as flash_bwd_dkdv_kernel.
+// grid (H, B, ceil(Sq / kBQ)), the q tile the slowest grid axis and
+// reversed: under a causal mask the latest rows see the most kv blocks, so
+// the heaviest blocks start first.  Layouts as flash_bwd_dkdv_kernel.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -448,10 +487,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   float* lse_s = dSs + kBQ * kLDP;            // kBQ
   float* dl_s = lse_s + kBQ;                  // kBQ
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = gridDim.y;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int H = gridDim.x;
   const int kvh = h / G;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
@@ -542,9 +581,9 @@ cudaError_t fwd_for(const float* q, const float* k, const float* v, float* o,
 template <int D>
 cudaError_t bwd_for(const float* q, const float* k, const float* v,
                     const float* o, const float* dout, const float* lse,
-                    float* delta, float* dq, float* dk, float* dv, int B,
-                    int Sq, int Sk, int H, int KVH, int causal, int window,
-                    int q_off, cudaStream_t stream) {
+                    float* delta, float* dq, float* dk, float* dv,
+                    float* part, int B, int Sq, int Sk, int H, int KVH,
+                    int causal, int window, int q_off, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   const long long n_rows = (long long)B * Sq * H;
   const int rows_per_block = kThreads / 32;
@@ -557,17 +596,28 @@ cudaError_t bwd_for(const float* q, const float* k, const float* v,
   const int smem_kv = dkdv_smem<D>();
   e = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<D><<<dim3((Sk + kBK - 1) / kBK, KVH, B), kThreads,
+  const int G = H / KVH;
+  float* part_k = G == 1 ? dk : part;
+  float* part_v = G == 1 ? dv : part + (long long)B * Sk * H * D;
+  flash_bwd_dkdv_kernel<D><<<dim3(H, B, (Sk + kBK - 1) / kBK), kThreads,
                              smem_kv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, H / KVH, causal, window,
-      q_off, scale);
+      q, k, v, dout, lse, delta, part_k, part_v, Sq, Sk, KVH,
+      G == 1 ? KVH : H, causal, window, q_off, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  if (G > 1) {
+    const long long n_chunks = (long long)B * Sk * KVH * D / 4;
+    const unsigned blocks = (unsigned)((n_chunks + kThreads - 1) / kThreads);
+    flash_bwd_dkdv_sum_kernel<<<blocks, kThreads, 0, stream>>>(
+        part_k, part_v, dk, dv, n_chunks, G, D);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
 
   const int smem_q = dq_smem<D>();
   e = allow_smem(flash_bwd_dq_kernel<D>, smem_q);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads,
+  flash_bwd_dq_kernel<D><<<dim3(H, B, (Sq + kBQ - 1) / kBQ), kThreads,
                            smem_q, stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Sk, KVH, H / KVH, causal, window,
       q_off, scale);
@@ -620,14 +670,19 @@ extern "C" int repro_flash_attention_fwd(
 
 // Gradients of repro_flash_attention_fwd, float32.  Every tensor
 // contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D);
-// lse (the forward's) and delta (scratch) (B, H, Sq).  Three launches on
-// `stream`.  q_off as the forward's.
+// lse (the forward's) and delta (scratch) (B, H, Sq); part: f32 scratch of
+// 2 * B * Sk * H * D elements for the query heads' dK, dV terms where
+// G = H / KVH > 1 (null at G = 1).  Three launches on `stream` at G = 1,
+// four above (the row sums, dK/dV, the group sum, dQ).  q_off as the
+// forward's.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int Sq, int Sk, int H, int KVH, int D, int causal,
-    int window, int q_off, void* stream) {
-  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off))
+    void* dv, void* part, int B, int Sq, int Sk, int H, int KVH, int D,
+    int causal, int window, int q_off, void* stream) {
+  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off)
+      || (H != KVH && part == nullptr) || (Sk + kBK - 1) / kBK > 65535
+      || (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
@@ -635,7 +690,8 @@ extern "C" int repro_flash_attention_bwd(
     case DD: return (int)bwd_for<DD>( \
         (const float*)q, (const float*)k, (const float*)v, (const float*)o, \
         (const float*)dout, (const float*)lse, (float*)delta, (float*)dq, \
-        (float*)dk, (float*)dv, B, Sq, Sk, H, KVH, causal, window, q_off, s);
+        (float*)dk, (float*)dv, (float*)part, B, Sq, Sk, H, KVH, causal, \
+        window, q_off, s);
     REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
 #undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;

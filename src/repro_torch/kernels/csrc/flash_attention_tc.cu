@@ -101,6 +101,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -313,15 +315,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
 }
 
 // qp: the local row (checked against Sq); its absolute position q_off + qp
-// is what the masks compare with the key
-__device__ __forceinline__ bool pair_valid(int qp, int kp, int Sq, int Sk,
-                                           int causal, int window,
-                                           int q_off) {
-  bool ok = qp < Sq && kp < Sk;
-  const int qa = q_off + qp;
-  if (causal) ok = ok && qa >= kp;
-  if (window > 0) ok = ok && (qa - kp) < window;
-  return ok;
+// is what the mask (flash_mask.cuh) compares with the key
+__device__ __forceinline__ bool row_pair_valid(int qp, int kp, int Sq, int Sk,
+                                               int causal, int window,
+                                               int q_off) {
+  return qp < Sq && pair_valid(q_off + qp, kp, Sk, causal, window);
 }
 
 // every (q, k) pair of the tiles [q0, q0 + bq) x [k0, k0 + bk) is valid
@@ -431,9 +429,9 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[mi][i][e] * scale_log2;
-          if (!full && !pair_valid(q0 + r0 + 16 * mi + gq + 8 * (e >> 1),
-                                   k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
-                                   causal, window, q_off))
+          if (!full && !row_pair_valid(q0 + r0 + 16 * mi + gq + 8 * (e >> 1),
+                                       k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
+                                       causal, window, q_off))
             x = kNegInf;
           s[mi][i][e] = x;
         }
@@ -590,9 +588,9 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_tc_bwd_dq(
       for (int e = 0; e < 4; ++e) {
         const int hf = e >> 1;
         float p = exp2_approx(s[0][i][e] * scale_log2 - ls[hf]);
-        if (!full && !pair_valid(q0 + r0 + gq + 8 * hf,
-                                 k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
-                                 causal, window, q_off))
+        if (!full && !row_pair_valid(q0 + r0 + gq + 8 * hf,
+                                     k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
+                                     causal, window, q_off))
           p = 0.f;
         dp[0][i][e] = p * (dp[0][i][e] - dl[hf]);    // dS / scale
       }
@@ -727,9 +725,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
       for (int e = 0; e < 4; ++e) {
         const int c = e & 1;
         float p = exp2_approx(s[0][i][e] * scale_log2 - (c ? lq.y : lq.x));
-        if (!full && !pair_valid(q0 + 8 * i + 2 * tq + c,
-                                 k0 + r0 + gq + 8 * (e >> 1), Sq, Sk,
-                                 causal, window, q_off))
+        if (!full && !row_pair_valid(q0 + 8 * i + 2 * tq + c,
+                                     k0 + r0 + gq + 8 * (e >> 1), Sq, Sk,
+                                     causal, window, q_off))
           p = 0.f;
         s[0][i][e] = p;
       }

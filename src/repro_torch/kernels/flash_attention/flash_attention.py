@@ -20,22 +20,29 @@ Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
 training path's dtype) runs on the tensor cores (``csrc/
 flash_attention_tc.cu``), float32 on the CUDA cores
 (``csrc/flash_attention.cu``).  Each dtype has exactly one route, and there
-is no fallback between them.  CUDA tensors only; :mod:`.ops` routes CPU
+is no fallback between them.  A forward of at most ``DECODE_MAX_ROWS``
+query rows (decode: Whisper's cross-attention at Sq = 1) takes, in either
+dtype, the split-KV decode kernel (``csrc/flash_decode.cu``) instead:
+:func:`forward_entry` decides from the shapes alone, and its ``lse`` feeds
+the dtype's backward unchanged.  CUDA tensors only; :mod:`.ops` routes CPU
 tensors to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import numbers
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels._build import check_launch, load_library
+from repro_torch.kernels import LAUNCHES, ROUTE_LAUNCHES
+from repro_torch.kernels._build import check_launch, load_library, sm_count
 
 NEG_INF = -1e30                # a masked score (the kernels' kNegInf)
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class Route(NamedTuple):
@@ -63,6 +70,91 @@ def route(dtype: torch.dtype, head_dim: int) -> Route:
         return CUDA_CORES
     raise ValueError(f"flash_attention_kernel: dtype {dtype} (float32 or "
                      f"bfloat16 only)")
+
+
+# A forward of at most this many query rows takes the decode kernel: over
+# 1,500 keys at B = 1 and 4 it is no slower than the tile kernels at every
+# Sq up to here with 1, 5 and 12 query heads a KV head in both dtypes
+# (tools/flash_decode_sweep.py, PERF.md); at Sq = 16 it loses in bf16 where
+# G > 1, since each of its row groups re-reads the KV head's keys
+DECODE_MAX_ROWS = 8
+DECODE = "repro_flash_decode_fwd"
+# key rows of a decode stage (flash_decode.cu's Elem<T>::kTile)
+DECODE_TILE_ROWS = {torch.float32: 32, torch.bfloat16: 128}
+MAX_CLUSTER = 8              # the portable cluster size; the kernel's limit
+
+
+def forward_entry(dtype: torch.dtype, head_dim: int, Sq: int) -> str:
+    """The C entry point of a forward call, from shapes alone: the decode
+    kernel for ``Sq <= DECODE_MAX_ROWS`` query rows, else the dtype's
+    route (:func:`route`, which also raises for what no kernel takes)."""
+    r = route(dtype, head_dim)
+    return DECODE if Sq <= DECODE_MAX_ROWS else r.fwd
+
+
+def decode_rows_per_block(rows: int, head_dim: int, dtype) -> int:
+    """Query rows a decode block holds (``flash_decode.cu``'s kR) for the
+    ``G * Sq`` rows of a KV head: 1, 2 or 4 where they fit, at most
+    ``kMaxRows`` (bf16 4 at head dims up to 64, 2 above; f32 8 and 4), the
+    rest in further row groups."""
+    small = head_dim <= 64
+    most = (4 if small else 2) if dtype == torch.bfloat16 else \
+        (8 if small else 4)
+    return next((r for r in (1, 2, 4) if rows <= r <= most), most)
+
+
+def decode_tiles(Sq: int, Sk: int, causal: bool, window: int, q_offset,
+                 tile_rows: int) -> int:
+    """Key tiles a decode block walks over all its cluster's shares: the
+    tiles of ``[first, end)``, the keys that rows at ``q_offset ..
+    q_offset + Sq - 1`` see, from the tile that holds ``first``."""
+    off = q_offset or 0
+    end = min(Sk, off + Sq) if causal else Sk
+    first = max(0, off - window + 1) if window > 0 else 0
+    start = first // tile_rows * tile_rows
+    return max(0, -(-(end - start) // tile_rows))
+
+
+def decode_plan(clusters: int, tiles: int, n_sm: int, *, active_clusters,
+                max_cluster: int = MAX_CLUSTER) -> int:
+    """Blocks a cluster (``N``) of a decode call, from shapes alone: doubled
+    from 1 while the ``clusters`` (B x KVH x row groups) of N blocks leave
+    SMs idle (``clusters * N < n_sm``), 2N is at most ``max_cluster`` and
+    at most the key ``tiles`` (each block a tile or more), and
+    ``active_clusters(2N)`` (clusters of 2N blocks the device holds at once)
+    still holds them all: one wave that fills the card, or the largest
+    cluster."""
+    n = 1
+    while (clusters * n < n_sm and 2 * n <= min(max_cluster, tiles)
+           and clusters <= active_clusters(2 * n)):
+        n *= 2
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def decode_active_clusters(device_index: int, n_splits: int, D: int,
+                           rows: int, dtype) -> int:
+    """Clusters of ``n_splits`` blocks of the decode kernel for (dtype, D,
+    rows of a KV head) that the device holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = load_library().repro_flash_decode_active_clusters(
+            n_splits, D, rows, _DTYPE_CODES[dtype], ctypes.byref(count))
+    check_launch(code, "flash_decode occupancy query")
+    return count.value
+
+
+@functools.lru_cache(maxsize=None)
+def plan_decode_splits(device_index: int, B: int, KVH: int, rows: int,
+                       D: int, tiles: int, dtype) -> int:
+    """:func:`decode_plan` for a call on a device, with the device's own
+    SM count and count of co-resident clusters."""
+    groups = -(-rows // decode_rows_per_block(rows, D, dtype))
+    return decode_plan(
+        B * KVH * groups, tiles, sm_count(device_index),
+        active_clusters=lambda n: decode_active_clusters(device_index, n, D,
+                                                         rows, dtype))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -132,7 +224,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     (B, Sq, H, D) in q's dtype, contiguous; lse (B, H, Sq) f32, the
     logsumexp of each row's scaled, masked scores.  ``q_offset``: the
     absolute position of q's row 0 (:func:`check_shapes`; ``None`` is 0
-    and allows Sq != Sk only without a mask).
+    and allows Sq != Sk only without a mask).  The kernel is
+    :func:`forward_entry`'s, the decode kernel's cluster size
+    :func:`plan_decode_splits`'.
 
     q, k and v are read through their strides as they lie when each has
     unit stride over D and 16-byte aligned rows (what the model path gives:
@@ -141,21 +235,32 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     strides.  Launches on the current stream and does not synchronise.
     """
     B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window, q_offset)
+    entry = forward_entry(q.dtype, D, Sq)
     q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
     if v.stride() != k.stride():
         k, v = k.contiguous(), v.contiguous()
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = load_library()
-    with torch.cuda.device(q.device):
-        code = getattr(lib, r.fwd)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, Sq, Sk, H, KVH, D, *q.stride()[:3],
             *k.stride()[:3], int(bool(causal)), int(window),
-            int(q_offset or 0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(q_offset or 0))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if entry == DECODE:
+            n = plan_decode_splits(
+                q.device.index or 0, B, KVH, (H // KVH) * Sq, D,
+                decode_tiles(Sq, Sk, causal, window, q_offset,
+                             DECODE_TILE_ROWS[q.dtype]), q.dtype)
+            code = lib.repro_flash_decode_fwd(*args, n,
+                                              _DTYPE_CODES[q.dtype], stream)
+        else:
+            code = getattr(lib, entry)(*args, stream)
     check_launch(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    if entry == DECODE:
+        ROUTE_LAUNCHES["flash_decode"] += 1
     return o, lse
 
 
@@ -183,7 +288,9 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     q's dtype, and every key row of dk, dv is written (zeros where no row
     of q sees the key).  On the current stream, no atomics: bf16 two
     launches (dQ, which also forms rowsum(dout * o), then dK/dV), f32
-    three (the row sums, dK/dV, dQ)."""
+    three (the row sums, dK/dV, dQ) and, for G = H / KVH > 1, a fourth
+    after dK/dV that adds up the query heads' terms from f32 scratch
+    (2 x B x Sk x H x D, allocated here)."""
     B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window, q_offset)
     _require(o.shape == q.shape and dout.shape == q.shape
              and lse.shape == (B, H, Sq), "o, dout or lse shape")
@@ -195,13 +302,18 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq, dk, dv)]
+    part = None                 # f32: the query heads' dK, dV terms (G > 1)
+    if r == CUDA_CORES:
+        if H > KVH:
+            part = torch.empty((2, B, Sk, H, D), dtype=torch.float32,
+                               device=q.device)
+        ptrs.append(None if part is None else part.data_ptr())
     lib = load_library()
     with torch.cuda.device(q.device):
         code = getattr(lib, r.bwd)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D,
-            int(bool(causal)), int(window), int(q_offset or 0),
+            *ptrs, B, Sq, Sk, H, KVH, D, int(bool(causal)), int(window),
+            int(q_offset or 0),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
