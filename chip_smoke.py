@@ -42,7 +42,12 @@ Phases, one JSON line each:
                      SDPA; the decode kernel at masked few-row shapes with
                      a query offset, every cluster size, lse, two calls
                      bit-identical, and its forward followed by the
-                     backward kernels; the f32 route at the training shape
+                     backward kernels; the bf16 wgmma forward at every
+                     head dim, Sq 9, Mixtral's window at S 4,500, Whisper's
+                     cross shape, query offsets on and off the tiles and
+                     KVH 1, forward and gradients, two calls
+                     bit-identical at each instance; the f32 route at the
+                     training shape
                      and the training example's call beside SDPA, the
                      backward's two calls bit-identical;
                      ``flash_attention_kernel`` in the reference's
@@ -348,10 +353,10 @@ class Sizes:
     # serve_danube: H2O-Danube-1.8B at published width and depth, the
     # serve settings above (prompts, batch, context, undersized pool); its
     # ring path at the first danube_ring_layers layers (at 24 it took 61.3
-    # s of a 978.3 s run that passed 1,200 s on a slower host, H100 80GB
-    # HBM3, 700 W)
+    # s of a 978.3 s run that passed 1,200 s on a slower host; at 12, 48.6
+    # s of a 1,049.4 s run, H100 80GB HBM3, 700 W)
     danube_arch: str = "h2o_danube_1_8b"
-    danube_ring_layers: int = 12
+    danube_ring_layers: int = 6
     # kernels: paged attention at D=80 with Danube's heads and a window
     # shorter than the context, at D=112 with Zamba2-7B's heads
     danube_kernel_window: int = 300
@@ -365,8 +370,11 @@ class Sizes:
     mla_parity_seq: int = 1024
     # serve_hybrid: Zamba2-7B (zamba_arch) at published width and depth,
     # the serve settings above; the kernel-vs-plain comparison at its
-    # first hybrid_plain_layers layers
-    hybrid_plain_layers: int = 15
+    # first hybrid_plain_layers layers (one group of 6 and a 3-layer tail:
+    # one shared-attention site; at 15 layers, two, the side process took
+    # 432.4 s of a 1,049.4 s run, as long as the parent's branch beside it,
+    # H100 80GB HBM3, 700 W)
+    hybrid_plain_layers: int = 9
     # train_hybrid: Zamba2-7B at published width cut to 15 layers (2
     # groups of 6 and a 3-layer tail); seq, batch and microbatches as
     # train; its parity at one group, one sequence of hybrid_parity_seq,
@@ -522,16 +530,16 @@ def phase_device(dev):
 
 
 # --------------------------------------------------------------- phase: build
-FLASH_TC_KERNELS = ("flash_tc_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
+FLASH_TC_KERNELS = ("flash_wgmma_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_tc_fwd<128>``, ``flash_tc_bwd_dkdv<192,1>`` (head dim, pass),
+    """``flash_wgmma_fwd<128>``, ``flash_tc_bwd_dkdv<192,1>`` (head dim, pass),
     ``paged_attention_kernel<bf16,128,5>`` (dtype, head dim, query heads
     a block), ``flash_decode_kernel<bf16,64,1>`` (dtype, head dim, query
     rows a block) or ``flash_bwd_dkdv_sum_kernel`` from the mangled name of
     a kernel
-    (``..._GLOBAL__N_112flash_tc_fwdILi128EEEv...``)."""
+    (``..._GLOBAL__N_115flash_wgmma_fwdILi128EEEv...``)."""
     m = re.search(r"\d+(paged_attention_kernel|flash_decode_kernel)"
                   r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
     if m:
@@ -592,6 +600,8 @@ def _build_fields() -> dict:
     """Build (or load) the kernels' library and check what nvcc made: the
     ``build`` line's fields."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        WGMMA_INSTANCES
     _build.load_library()
     info = _build.BuildInfo
     spills = sum(int(n) for n in
@@ -605,7 +615,11 @@ def _build_fields() -> dict:
         # bf16: kR 1, 2, 4 at D 16 / 32 / 64 and 1, 2 at 128 / 192; f32:
         # 1, 2, 4, 8 and 1, 2, 4
         require(len(decode) == 31, f"flash_decode kernels: {decode}")
-        for n in wide + decode:
+        fwd = [n for n in resources if n.startswith("flash_wgmma_fwd<")]
+        require(sorted(fwd) == sorted(f"flash_wgmma_fwd<{d}>"
+                                      for d in WGMMA_INSTANCES),
+                f"bf16 flash forward instances: {fwd}")
+        for n in wide + decode + fwd:
             r = resources[n]
             require(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0,
                     f"{n} spills: {r.get('ptxas')}")
@@ -614,12 +628,17 @@ def _build_fields() -> dict:
         for name, c in mma.items():
             resources.setdefault(name, {})["sass_tensor_core_instructions"] = c
         tc = [n for n in mma if n.split("<")[0] in FLASH_TC_KERNELS]
-        # nine head dims, three kernels each; dK/dV at 192 in two passes
-        require(len(tc) == 3 * 9 + 1, f"bf16 flash kernels in the SASS: "
-                f"{tc}")
+        # the forward's three instances; the backward's two kernels at nine
+        # head dims, dK/dV at 192 in two passes
+        require(len(tc) == len(WGMMA_INSTANCES) + 2 * 9 + 1,
+                f"bf16 flash kernels in the SASS: {tc}")
         for n in tc:
             require(mma[n]["HGMMA"] + mma[n]["HMMA"] > 0,
                     f"{n}: no tensor-core instruction in its SASS")
+            # the forward is wgmma (HGMMA) alone: no mma.sync (HMMA) left
+            require(not n.startswith("flash_wgmma_fwd<")
+                    or (mma[n]["HGMMA"] > 0 and mma[n]["HMMA"] == 0),
+                    f"{n}: HGMMA {mma[n]['HGMMA']}, HMMA {mma[n]['HMMA']}")
     paged = {n: r for n, r in resources.items()
              if n.startswith("paged_attention_kernel<")}
     require(len(paged) == 40, "paged_attention kernels in the build: "
@@ -874,8 +893,8 @@ def _flash_f32_shape(gen, dev, name: str, B, S, H, KVH, D, it: int) -> dict:
 
 
 def _tile_fwd(q, k, v, causal: bool = False):
-    """The dtype's tile-kernel forward (``flash_attention_tc.cu`` in bf16,
-    ``flash_attention.cu`` in f32) at any Sq, the decode route bypassed:
+    """The dtype's tile-kernel forward (``flash_attention_wgmma.cu`` in
+    bf16, ``flash_attention.cu`` in f32) at any Sq, the decode route bypassed:
     the yardstick of the route's gain at a few-row shape.  Not counted."""
     import torch
     from repro_torch.kernels._build import check_launch, load_library
@@ -1018,6 +1037,60 @@ CROSS_CASES = [
     (3, 1, 130, 8, 8, 128, False),      # decode at D = 128
     (1, 7, 1500, 16, 4, 64, False),     # G = 4 over the frames
 ]
+
+
+# the bf16 forward (csrc/flash_attention_wgmma.cu) at every supported head
+# dim and at its edges, forward and gradients through ops.flash_attention
+# against the plain version (``_flash_case``: the unchanged backward kernels
+# take the forward's o and lse): B, Sq, Sk, H, KVH, D, causal, window,
+# q_offset, fused (q, k, v views of one projection)
+WGMMA_CASES = [
+    *[(1, 333, None, 4, 2, D, True, 0, None, False)     # Sq, Sk no multiple
+      for D in (16, 32, 48, 64, 80, 96, 112, 128, 192)],   # of 64 or 128
+    (1, 9, None, 8, 2, 64, True, 0, None, False),       # just past decode
+    (1, 4500, None, 32, 8, 128, True, 4096, None, False),   # Mixtral's heads,
+                                                        # its window biting
+    (2, 448, 1500, 16, 16, 64, False, 0, None, True),   # Whisper's cross
+    (1, 256, 4096, 40, 8, 128, True, 0, 2048, False),   # a rank's rows, an
+                                                        # offset on a tile
+    (1, 300, 1000, 8, 2, 128, True, 0, 517, False),     # an offset off the
+    (2, 200, 777, 8, 2, 80, True, 300, 333, False),     # tiles, a window
+    (1, 150, 700, 4, 4, 192, True, 0, 550, False),      # D = 192's 64-key
+    (1, 333, None, 8, 1, 112, False, 0, None, True),    # tiles; KVH = 1
+]
+# two calls of the bf16 forward at each instance (B, S, H, KVH, D, window)
+WGMMA_REPEAT = [(2, 700, 8, 2, 48, 0), (1, 1000, 8, 2, 112, 300),
+                (1, 600, 4, 4, 192, 0)]
+
+
+def _wgmma_checks(gen, dev) -> dict:
+    """The bf16 forward at ``WGMMA_CASES`` (``_flash_case``: forward and
+    gradients against the plain version, bf16 rows within 2e-2) and
+    ``WGMMA_REPEAT`` (two calls give identical o and lse bits).  Returns the
+    largest errors and the count of cases."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_fwd
+    keys = ("fwd_abs", "fwd_row_rel", "grad_abs", "grad_row_rel")
+    errs = dict.fromkeys(keys, 0.0)
+    for (B, Sq, Sk, H, KVH, D, causal, window, off, fused) in WGMMA_CASES:
+        e = _flash_case(gen, dev, B, Sq, H, KVH, D, torch.bfloat16, causal,
+                        window, fused=fused, Sk=Sk, q_offset=off)
+        errs = {k: max(errs[k], x) for k, x in zip(keys, e[0] + e[1])}
+        sync(dev)
+        torch.cuda.empty_cache()
+    for (B, S, H, KVH, D, window) in WGMMA_REPEAT:
+        q = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
+        k, v = (_rand(gen, (B, S, KVH, D), torch.bfloat16, dev)
+                for _ in range(2))
+        o, lse = flash_attention_fwd(q, k, v, window=window)
+        o2, lse2 = flash_attention_fwd(q, k, v, window=window)
+        sync(dev)
+        require(torch.equal(o, o2) and torch.equal(lse, lse2),
+                f"flash_wgmma_fwd B{B} S{S} H{H} KVH{KVH} D{D} "
+                f"window={window}: two calls differ")
+    return {"max_abs_err": errs, "cases": len(WGMMA_CASES),
+            "bit_identical_over_two_calls": len(WGMMA_REPEAT)}
 
 
 def _cross_refused(gen, dev) -> int:
@@ -1208,36 +1281,38 @@ FLASH_TIMED_F32 = ("flash_attention", "flash_attention_bwd",
                    "flash_attention_plain_bwd", "sdpa_bwd")
 
 
-# the bf16 route at q_offset = 0 (B, S, H, KVH, D, causal, window): its
-# outputs' bits did not move when the mask predicate left the source for
-# csrc/flash_mask.cuh
+# the bf16 route at q_offset = 0 (B, S, H, KVH, D, causal, window); in f32
+# the same cases hold the CUDA-core route's bits (tools/flash_bits_check.py)
 BF16_BITS_CASES = ((1, 700, 8, 2, 128, True, 0),
                    (2, 333, 4, 4, 64, True, 100),
                    (1, 300, 8, 8, 192, False, 0))
-# sha256 of those outputs from the tensor-core kernels as they were before
-# (python3 tools/flash_bits_check.py --parent DIR on the NVIDIA H100 80GB
-# HBM3, torch 2.11.0+cu128, with DIR the previous flash_attention_tc.cu's
-# tree): the same inputs must give the same bits.  A change meant to move
-# the bf16 kernels' bits (or a torch whose CUDA RNG draws differently)
-# fails here until it writes the tool's new digest, taken against its
-# parent tree, into BF16_BITS
-BF16_BITS ="86e020bb31f5f950bcacbcb4e0b3f76891084ac352049cd5aa3b4ba418389034"
+# sha256 of those outputs from the bf16 kernels (the wgmma forward of
+# flash_attention_wgmma.cu, the backward of flash_attention_tc.cu;
+# python3 tools/flash_bits_check.py --parent DIR on the NVIDIA H100 80GB
+# HBM3, torch 2.11.0+cu128, with DIR the tree before the wgmma forward,
+# whose f32 bits and backward bits at its (o, lse) this tree keeps): the
+# same inputs must give the same bits.  A change meant to move the bf16
+# kernels' bits (or a torch whose CUDA RNG draws differently) fails here
+# until it writes the tool's new digest, taken against its parent tree,
+# into BF16_BITS
+BF16_BITS = "32dee89c2f798cb148561cd737c1b5dd545b1094596ce7c4da91514ba28d5352"
 
 
-def bf16_bits(dev, fwd, bwd) -> str:
+def bf16_bits(dev, fwd, bwd, dtype=None) -> str:
     """sha256 over o, lse, dq, dk and dv of ``BF16_BITS_CASES``, inputs
-    drawn on ``dev`` from seed 26; ``fwd(q, k, v, causal, window)`` returns
-    (o, lse), ``bwd(q, k, v, o, lse, dout, causal, window)`` (dq, dk, dv)."""
+    drawn on ``dev`` from seed 26 in ``dtype`` (bf16 unless given);
+    ``fwd(q, k, v, causal, window)`` returns (o, lse), ``bwd(q, k, v, o,
+    lse, dout, causal, window)`` (dq, dk, dv)."""
     import hashlib
     import torch
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(26)
     h = hashlib.sha256()
     for (B, S, H, KVH, D, causal, window) in BF16_BITS_CASES:
-        q = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
-        k, v = (_rand(gen, (B, S, KVH, D), torch.bfloat16, dev)
-                for _ in range(2))
-        dout = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
+        q = _rand(gen, (B, S, H, D), dtype, dev)
+        k, v = (_rand(gen, (B, S, KVH, D), dtype, dev) for _ in range(2))
+        dout = _rand(gen, (B, S, H, D), dtype, dev)
         o, lse = fwd(q, k, v, causal, window)
         for t in (o, lse, *bwd(q, k, v, o, lse, dout, causal, window)):
             h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
@@ -1346,10 +1421,13 @@ def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
             o, (qs[r], k, v), dout[:, r * rows:(r + 1) * rows]))
         outs.append(o.detach())
     sync(dev)
-    counts = kernels.launch_counts()
+    counts = _launches()
     ranks_s = time.perf_counter() - t0
-    require(dev.type != "cuda" or (counts["flash_attention"] == m
-                                   and counts["flash_attention_bwd"] == m),
+    # bf16 ranks of more than DECODE_MAX_ROWS rows: the wgmma forward
+    require(dev.type != "cuda" or (
+        counts["flash_attention"] == m and counts["flash_attention_bwd"] == m
+        and counts["flash_wgmma_fwd"] == (m if dtype == torch.bfloat16
+                                          else 0)),
             f"{what}: launches {counts}")
 
     # (a) each rank against the plain version at its offset
@@ -1476,7 +1554,8 @@ def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
                       "dtype": str(dtype).split(".")[-1], "causal": causal,
                       "window": window, "ranks": m, "rows_per_rank": rows},
             "launches": {n: counts[n] for n in ("flash_attention",
-                                                 "flash_attention_bwd")},
+                                                 "flash_attention_bwd",
+                                                 "flash_wgmma_fwd")},
             "ranks_seconds": ranks_s,
             "max_abs_err": {"rank_fwd": e_fwd[0], "rank_fwd_row_rel": e_fwd[1],
                             "rank_grad": e_grad[0],
@@ -1507,7 +1586,8 @@ def phase_seq_split(dev, sz: Sizes, table) -> dict:
     gen.manual_seed(25)
     m, it = sz.seq_split_ranks, sz.seq_split_iters
     cases = {}
-    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    total = {"flash_attention": 0, "flash_attention_bwd": 0,
+             "flash_wgmma_fwd": 0}
     for name, arch, S, dtype, window in (
             ("qwen3_train", sz.arch, sz.train_seq, torch.bfloat16, 0),
             ("mixtral_window", sz.moe_arch, 2 * sz.train_seq,
@@ -1572,7 +1652,9 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     bounds; the decode kernel at masked few-row shapes with a query offset
     (``DECODE_CASES``, every cluster size, lse too, two calls
     bit-identical) and its forward followed by the backward kernels
-    (``DECODE_GRAD_CASES``); the f32 route at the training shape and the
+    (``DECODE_GRAD_CASES``); the bf16 forward of
+    ``csrc/flash_attention_wgmma.cu`` at its edges (``WGMMA_CASES``,
+    ``WGMMA_REPEAT``); the f32 route at the training shape and the
     training example's call, timed beside SDPA; and
     ``flash_attention_kernel`` in the reference's signature."""
     import torch
@@ -1644,6 +1726,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
                              for k, x in zip(keys, e[0] + e[1])}
     errs["cross_attention"] = cross_errs
     errs["reference_signature"] = _reference_signature(gen, dev)
+    wgmma = _wgmma_checks(gen, dev)
+    errs["bfloat16_wgmma_forward"] = wgmma["max_abs_err"]
     bits = _bf16_bits_unchanged(dev)
     refused = _cross_refused(gen, dev)
     wcfg = get_config(sz.whisper_arch)
@@ -1693,8 +1777,23 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
                "masked_sq_ne_sk_refused": refused}
 
     src = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
+    fwd_src = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
     design = {"instruction": "mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, "
               "operands by ldmatrix", "loads": "cp.async, 2 stages"}
+    fwd_design = {
+        "instruction": "wgmma.mma_async m64nNk16 bf16 x bf16 -> f32: S = Q "
+        "K^T from shared memory (K-major), O += P V with P in registers and "
+        "V MN-major in shared memory", "loads": "cp.async.bulk.tensor over "
+        "three 4-d tensor maps (128-byte swizzle), Q once, K and V through "
+        "a ring of 3 stages (4 at D 64) under full / empty mbarriers",
+        "threads": "two consumer warpgroups of 64 query rows and a producer "
+        "warpgroup (one issuing thread); setmaxnreg 24 / 240",
+        "schedule": "tile j's QK^T issued before tile j-1's PV, its "
+        "softmax under both; the two warpgroups take turns to issue "
+        "(ping-pong); (batch, head) pairs in groups whose K/V fit 32 MB of "
+        "L2, latest q tiles first",
+        "instances": "D 64, 128, 192 (16-48 on 64, 80-112 on 128); 128, 112 "
+        "and 64 keys a tile"}
     tpu = "src/repro/kernels/flash_attention/flash_attention.py:79"
     d192 = {"arch": mcfg.name, "shape": wide["shape"],
             "design": "forward 64-key tiles, dQ 32-key tiles, dK and dV in "
@@ -1709,7 +1808,7 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
          "bound_by": f["bound_by"], "library_ms": f["library_ms"],
          "library": "F.scaled_dot_product_attention (enable_gqa)",
-         **design, "flops": f["flops"], "bytes": f["bytes"],
+         **fwd_design, "flops": f["flops"], "bytes": f["bytes"],
          "tflops_per_s": f["tflops_per_s"], "shape": main["shape"],
          "head_dim_192": {**d192, **wide["fwd"]},
          f"head_dim_{D3}": {**d112, **z["fwd"]},
@@ -1723,8 +1822,25 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
                            "training_example": {
                                "shape": f32_example["shape"],
                                **f32_example["fwd"]}},
-         "note": "launches count every forward, the decode kernel's too "
-         "(its own row below)"},
+         "note": "launches count every forward, the decode kernel's and "
+         "the wgmma kernel's too (their own rows below)"},
+        {"name": "flash_wgmma_fwd", "route": "cuda", "source": fwd_src,
+         "replaces": tpu, "note": "the bf16 forward of calls of more than "
+         "DECODE_MAX_ROWS query rows (forward_entry); each launch also "
+         "counts under flash_attention", "launches": 0,
+         "max_abs_err": max(f["max_abs_err"],
+                            wgmma["max_abs_err"]["fwd_abs"]),
+         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+         "library": "F.scaled_dot_product_attention (enable_gqa)",
+         **fwd_design, "shape": main["shape"],
+         "tflops_per_s": f["tflops_per_s"],
+         "head_dim_192": {"arch": mcfg.name, "shape": wide["shape"],
+                          **wide["fwd"]},
+         f"head_dim_{D3}": {**d112, **z["fwd"]},
+         "whisper": {"cross": {"shape": w_cross["shape"], **w_cross["fwd"]},
+                     "encoder": {"shape": w_enc["shape"], **w_enc["fwd"]}},
+         "checks": wgmma},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": tpu, "note": "the forward of calls of at most "
@@ -1777,7 +1893,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     ]
     cases = 2 * len(FLASH_CASES) + 8 + 2 * len(CROSS_CASES) + refused + 4 \
         + len(errs["reference_signature"]) + 10 * len(DECODE_CASES) \
-        + 2 * len(DECODE_GRAD_CASES)
+        + 2 * len(DECODE_GRAD_CASES) + wgmma["cases"] \
+        + wgmma["bit_identical_over_two_calls"]
     return rows, errs, cases
 
 
@@ -2829,7 +2946,7 @@ def phase_dist_step(dev, sz: Sizes, table):
         kernels.reset_launch_counts()
         out = fn()
         sync(dev)
-        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        counts = {k: v for k, v in _launches().items() if v}
         return out, counts, time.perf_counter() - t0
 
     def decode(p, c, tokens):
@@ -2874,7 +2991,8 @@ def phase_dist_step(dev, sz: Sizes, table):
 
     on_card = dev.type == "cuda"
     want = {"decode": ("paged_attention",),
-            "train": ("flash_attention", "flash_attention_bwd")}
+            "train": ("flash_attention", "flash_attention_bwd",
+                      "flash_wgmma_fwd")}
     for path, names in want.items():
         plain, dt = runs[f"{path}_plain"][1], runs[f"{path}_dtensor"][1]
         require(plain == dt, f"dist_step {path}: launches {plain} plain, "
@@ -2910,15 +3028,13 @@ def phase_dist_step(dev, sz: Sizes, table):
 
 # ------------------------------------------------ phase: dist_families (A3c)
 #: arch -> (decode, train) kernels its plain steps launch on the card
+FLASH_TRAIN = ("flash_attention", "flash_attention_bwd", "flash_wgmma_fwd")
 DIST_FAMILY_KERNELS = {
-    "mixtral_8x7b": (("paged_attention",),
-                     ("flash_attention", "flash_attention_bwd")),
-    "deepseek_v3_671b": ((), ("flash_attention", "flash_attention_bwd")),
-    "zamba2_7b": (("paged_attention",),
-                  ("flash_attention", "flash_attention_bwd")),
+    "mixtral_8x7b": (("paged_attention",), FLASH_TRAIN),
+    "deepseek_v3_671b": ((), FLASH_TRAIN),
+    "zamba2_7b": (("paged_attention",), FLASH_TRAIN),
     "whisper_medium": (("paged_attention", "flash_attention",
-                        "flash_decode"),
-                       ("flash_attention", "flash_attention_bwd")),
+                        "flash_decode"), FLASH_TRAIN),
     "xlstm_125m": ((), ()),
 }
 #: the parent's share and the side process's, the two branches even (with
@@ -4650,7 +4766,7 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
             t0 = time.perf_counter()
             ck.save(ckdir, tr.params, tr.opt_state, tr.step)
             save_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = _launches()
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     profile = _profiled(dev, lambda: tr.run(1, log_every=0), 1) \
         if with_profile else None
@@ -4659,7 +4775,8 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
     per_step = sz.train_microbatches * sz.train_layers
     require(not on_card or (
         counts["flash_attention"] == 2 * per_step * sz.train_steps
-        and counts["flash_attention_bwd"] == per_step * sz.train_steps),
+        and counts["flash_attention_bwd"] == per_step * sz.train_steps
+        and counts["flash_wgmma_fwd"] == counts["flash_attention"]),
         f"flash launches on the train path: {counts}")
     after_ckpt = steps[sz.checkpoint_step]          # the step after the save
     del tr
@@ -4688,7 +4805,7 @@ def phase_train(dev, sz: Sizes, cfg, table, with_profile: bool = False):
         torch.cuda.empty_cache()
 
     _add_launches(table, "train", counts,
-                  ("flash_attention", "flash_attention_bwd"))
+                  FLASH_TRAIN)
     emit("train", arch=cfg.name, layers=sz.train_layers, d_model=cfg.d_model,
          params=n_params, dtype=cfg.dtype, moment_dtype="float32",
          seq=sz.train_seq, global_batch=sz.train_batch,
@@ -4817,17 +4934,18 @@ def phase_train_mla(dev, sz: Sizes, table):
         wall = time.perf_counter() - t0
         steps.append(dict(tr.history[-1], wall_s=wall,
                           tokens_per_s=tokens_per_step / wall))
-    counts = kernels.launch_counts()
+    counts = _launches()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in steps), f"train_mla: non-finite loss: {steps}")
     per_step = sz.train_microbatches * cfg.n_layers
     require(dev.type != "cuda" or (
         counts["flash_attention"] == 2 * per_step * sz.mla_train_steps
-        and counts["flash_attention_bwd"] == per_step * sz.mla_train_steps),
+        and counts["flash_attention_bwd"] == per_step * sz.mla_train_steps
+        and counts["flash_wgmma_fwd"] == counts["flash_attention"]),
         f"flash launches on the train_mla path: {counts}")
     _add_launches(table, "train_mla", counts,
-                  ("flash_attention", "flash_attention_bwd"))
+                  FLASH_TRAIN)
     emit("train_mla", arch=cfg.name, layers=cfg.n_layers,
          first_k_dense=cfg.first_k_dense, d_model=cfg.d_model,
          heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
@@ -4973,7 +5091,7 @@ def phase_train_hybrid(dev, sz: Sizes, table):
         wall = time.perf_counter() - t0
         steps.append(dict(tr.history[-1], wall_s=wall,
                           tokens_per_s=tokens_per_step / wall))
-    counts = kernels.launch_counts()
+    counts = _launches()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in steps), f"train_hybrid: non-finite loss or "
@@ -4982,10 +5100,11 @@ def phase_train_hybrid(dev, sz: Sizes, table):
     require(dev.type != "cuda" or (
         counts["flash_attention"] == 2 * per_step * sz.hybrid_train_steps
         and counts["flash_attention_bwd"] == per_step
-        * sz.hybrid_train_steps),
+        * sz.hybrid_train_steps
+        and counts["flash_wgmma_fwd"] == counts["flash_attention"]),
         f"flash launches on the train_hybrid path: {counts}")
     _add_launches(table, "train_hybrid", counts,
-                  ("flash_attention", "flash_attention_bwd"))
+                  FLASH_TRAIN)
     emit("train_hybrid", arch=cfg.name, layers=cfg.n_layers, groups=G,
          group_size=k, tail=tail, d_model=cfg.d_model, heads=cfg.n_heads,
          head_dim=cfg.head_dim, vocab=cfg.vocab_size, params=n_params,
@@ -5124,7 +5243,7 @@ def phase_train_encdec(dev, sz: Sizes, table, with_profile: bool = False):
         wall = time.perf_counter() - t0
         steps.append(dict(tr.history[-1], wall_s=wall,
                           tokens_per_s=tokens_per_step / wall))
-    counts = kernels.launch_counts()
+    counts = _launches()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in steps), f"train_encdec: non-finite loss or "
@@ -5133,10 +5252,11 @@ def phase_train_encdec(dev, sz: Sizes, table, with_profile: bool = False):
     require(dev.type != "cuda" or (
         counts["flash_attention"] == 2 * per_step * sz.whisper_train_steps
         and counts["flash_attention_bwd"] == per_step
-        * sz.whisper_train_steps),
+        * sz.whisper_train_steps
+        and counts["flash_wgmma_fwd"] == counts["flash_attention"]),
         f"flash launches on the train_encdec path: {counts}")
     _add_launches(table, "train_encdec", counts,
-                  ("flash_attention", "flash_attention_bwd"))
+                  FLASH_TRAIN)
     profile = _profiled(dev, lambda: tr.run(1, log_every=0), 1) \
         if with_profile else None
     emit("train_encdec", arch=cfg.name, layers=cfg.n_layers,
@@ -5535,7 +5655,7 @@ def phase_train_moe(dev, sz: Sizes, table, with_profile: bool = False):
                                         pin_memory=dev.type == "cuda")
                             .copy_(t) for t in state()]
                 snap_s = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        counts = _launches()
         peak = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
         profile = _profiled(dev, lambda: tr.run(1, log_every=0), 1) \
@@ -5557,7 +5677,8 @@ def phase_train_moe(dev, sz: Sizes, table, with_profile: bool = False):
     per_step = sz.train_microbatches * sz.moe_layers
     require(dev.type != "cuda" or (
         counts["flash_attention"] == 2 * per_step * sz.train_steps
-        and counts["flash_attention_bwd"] == per_step * sz.train_steps),
+        and counts["flash_attention_bwd"] == per_step * sz.train_steps
+        and counts["flash_wgmma_fwd"] == counts["flash_attention"]),
         f"flash launches on the train_moe path: {counts}")
     after_snap = steps[sz.checkpoint_step]
     diff = abs(again["loss"] - after_snap["loss"])
@@ -5565,7 +5686,7 @@ def phase_train_moe(dev, sz: Sizes, table, with_profile: bool = False):
             f"loss after restore {again['loss']} != {after_snap['loss']}")
     breakdown = _moe_layer_breakdown(dev, sz, cfg, tr.params, 5)
     _add_launches(table, "train_moe", counts,
-                  ("flash_attention", "flash_attention_bwd"))
+                  FLASH_TRAIN)
     emit("train_moe", arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
          head_dim=cfg.head_dim, experts=cfg.n_experts,

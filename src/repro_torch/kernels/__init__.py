@@ -19,9 +19,10 @@ regions hand the wrappers ``.to_local()`` shards).
 LAUNCHES = {"paged_attention": 0, "page_gather": 0, "page_scatter": 0,
             "flash_attention": 0, "flash_attention_bwd": 0}
 #: launches of a kernel that is one route of a binding counted above: the
-#: decode kernel of few-row flash forwards (``csrc/flash_decode.cu``) counts
-#: one under ``LAUNCHES["flash_attention"]`` and one here
-ROUTE_LAUNCHES = {"flash_decode": 0}
+#: decode kernel of few-row flash forwards (``csrc/flash_decode.cu``) and
+#: the bf16 forward of the other calls (``csrc/flash_attention_wgmma.cu``)
+#: each count one under ``LAUNCHES["flash_attention"]`` and one here
+ROUTE_LAUNCHES = {"flash_decode": 0, "flash_wgmma_fwd": 0}
 
 
 def reset_launch_counts() -> None:

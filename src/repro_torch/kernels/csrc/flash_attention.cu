@@ -56,7 +56,8 @@
 //    shared loads — and the same 4 rows of the output, columns tc + 16c;
 //    a row's max and sum are reduced over its 16 lanes by shuffles;
 //  * whole kv (forward, dQ) or q (dK/dV) blocks outside the causal /
-//    window band are skipped by the same predicate as the TPU kernel's.
+//    window band are skipped by the same predicate as the TPU kernel's
+//    (flash_mask.cuh's `tile_needed`, shared with the bf16 kernels).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,16 +87,6 @@ __device__ __forceinline__ float row_sum(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// the TPU kernel's block predicate: is any (q, k) pair of the two tiles
-// inside the causal / window band?  q0 is the q tile's absolute position.
-__device__ __forceinline__ bool block_needed(int q0, int k0, int causal,
-                                             int window) {
-  bool needed = true;
-  if (causal) needed = k0 <= q0 + kBQ - 1;
-  if (window > 0) needed = needed && (q0 - (k0 + kBK - 1) < window);
-  return needed;
 }
 
 // Stage rows s0 .. s0 + kRows - 1 of one head into shared memory, times
@@ -175,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int nk = (Sk + kBK - 1) / kBK;
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBK;
-    if (!block_needed(q_off + q0, k0, causal, window)) continue;
+    if (!tile_needed(q_off + q0, kBQ, k0, kBK, causal, window)) continue;
     __syncthreads();                 // the previous tile is consumed
     stage_rows<D, kBK>(Ks, LD, kbase, sk_s, k0, Sk, 1.f);
     stage_rows<D, kBK>(Vs, D, vbase, sk_s, k0, Sk, 1.f);
@@ -394,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const long long head_off = ((long long)b * H + h) * Sq;
   for (int qi = 0; qi < nq; ++qi) {
     const int q0 = qi * kBQ;
-    if (!block_needed(q_off + q0, k0, causal, window)) continue;
+    if (!tile_needed(q_off + q0, kBQ, k0, kBK, causal, window)) continue;
     __syncthreads();                 // the previous q tile is consumed
     stage_rows<D, kBQ>(Qs, LD, q + q_base, (long long)H * D, q0, Sq, scale);
     stage_rows<D, kBQ>(dOs, LD, dout + q_base, (long long)H * D, q0, Sq, 1.f);
@@ -510,7 +501,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int nk = (Sk + kBK - 1) / kBK;
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBK;
-    if (!block_needed(q_off + q0, k0, causal, window)) continue;
+    if (!tile_needed(q_off + q0, kBQ, k0, kBK, causal, window)) continue;
     __syncthreads();                 // the previous k tile is consumed
     stage_rows<D, kBK>(Ks, LD, k + kv_off, (long long)KVH * D, k0, Sk, 1.f);
     stage_rows<D, kBK>(Vs, LD, v + kv_off, (long long)KVH * D, k0, Sk, 1.f);

@@ -1,28 +1,26 @@
-// Blocked causal / sliding-window / non-causal attention in bf16 on the
-// tensor cores of NVIDIA Hopper (sm_90a), forward and backward: the route
-// of every bf16 tensor (flash_attention.cu keeps the f32 route on the CUDA
-// cores).
+// The backward of blocked causal / sliding-window / non-causal attention in
+// bf16 on the tensor cores of NVIDIA Hopper (sm_90a): the gradient route of
+// every bf16 tensor (flash_attention.cu keeps the f32 route on the CUDA
+// cores).  The bf16 forward is flash_attention_wgmma.cu's (more than
+// DECODE_MAX_ROWS query rows) or flash_decode.cu's (fewer); both write the
+// per-row logsumexp lse (B, H, Sq) that these kernels take.
 //
-// Replaces the TPU kernel `flash_attention_kernel` / `_kernel` of
-// src/repro/kernels/flash_attention/flash_attention.py: q (B, Sq, H, D)
-// attends to k, v (B, Sk, KVH, D), query head h reading KV head h / G, tiles
-// wholly above the causal diagonal or outside the window skipped by the TPU
-// kernel's block predicate (here for the forward's 128 x 128, dQ's 128 x 64
-// and dK/dV's 64 x 128 (q x k) tiles), the tails masked by q_pos < Sq and
-// k_pos < Sk.  Same arithmetic: f32 running max / sum /
-// accumulator, masked scores are -1e30 (finite), the result is divided by
-// max(l, 1e-30); the forward also writes the per-row logsumexp (B, H, Sq).
-// The TPU kernel takes one S; here Sq may differ from Sk: without a causal
-// mask or a window (cross-attention: 448 or 1 decoder rows over 1,500
-// encoder frames, every query row sees all Sk keys), or as one rank's rows
-// of a sequence split: q row i sits at absolute position q_off + i, with
-// q_off + Sq <= Sk (shapes_ok refuses the rest).  Every mask, tile
-// predicate and tile range compares the row's absolute position with the
-// key's; o, lse and delta stay indexed by the local row; an offset that is
-// not a tile multiple is masked element by element on the straddling
-// tiles.  Sq = Sk at q_off = 0 runs exactly as before.
-// The reference has no backward kernel (XLA differentiates its chunked
-// scan); here two kernels compute the gradients from the logsumexp:
+// Replaces the gradient of the TPU kernel `flash_attention_kernel` /
+// `_kernel` of src/repro/kernels/flash_attention/flash_attention.py: the
+// reference has no backward kernel (XLA differentiates its chunked scan of
+// src/repro/models/attention_ops.py).  q (B, Sq, H, D) attends to k, v
+// (B, Sk, KVH, D), query head h reading KV head h / G, tiles wholly above
+// the causal diagonal or outside the window skipped by the TPU kernel's
+// block predicate (here for dQ's 128 x 64 and dK/dV's 64 x 128 (q x k)
+// tiles; flash_mask.cuh holds the predicates), the tails masked by
+// q_pos < Sq and k_pos < Sk.  Sq may differ from Sk: without a causal mask
+// or a window (cross-attention), or as one rank's rows of a sequence split:
+// q row i sits at absolute position q_off + i, with q_off + Sq <= Sk
+// (shapes_ok refuses the rest).  Every mask, tile predicate and tile range
+// compares the row's absolute position with the key's; lse and delta stay
+// indexed by the local row; an offset that is not a tile multiple is
+// masked element by element on the straddling tiles.  Two kernels compute
+// the gradients from the logsumexp:
 //   flash_tc_bwd_dq    one block per (b, h, 128-row q tile): first
 //                      delta = rowsum(dO * O) of its rows (written out for
 //                      the next kernel), then dQ over the k tiles it sees;
@@ -35,55 +33,46 @@
 // that is the price of the atomic-free split.
 //
 // What bounds it on this card: operations.  At the training shape (B=1,
-// S=4096, H=40, KVH=8, D=128, causal) the forward does about 1.72e11 FLOP
-// and the backward about 4.30e11 (counted: QK^T, PV; S, dP, dV, dK, dQ)
-// against ~0.1 GB of inputs and outputs, far above the ~295 FLOP per byte
-// at which HBM would become the limit; the bound is the 989 TFLOP/s bf16
-// tensor-core rate.
+// S=4096, H=40, KVH=8, D=128, causal) the backward does about 4.30e11 FLOP
+// (counted: S, dP, dV, dK, dQ) against ~0.2 GB of inputs and outputs, far
+// above the ~295 FLOP per byte at which HBM would become the limit; the
+// bound is the 989 TFLOP/s bf16 tensor-core rate.
 //
 // What the design does about it:
 //  * every product on the tensor cores: mma.sync.m16n8k16 with bf16
 //    operands and f32 accumulators, operands fetched with ldmatrix
-//    (.trans where the operand is stored k-major: V in P.V, dO in dV, Q in
-//    dK, K in dQ).  mma.sync rather than wgmma: its fragments are per warp,
-//    so P and dS go from the accumulators of one product straight into the
-//    A operand of the next (the m16n8 f32 C layout of two n8 tiles is the
-//    m16k16 bf16 A layout) and never touch shared memory, and each warp
-//    owns 16 rows (or keys) outright; wgmma with TMA and a producer warp is
-//    the next step (ROADMAP queue B);
+//    (.trans where the operand is stored k-major: dO in dV, Q in dK, K in
+//    dQ).  Its fragments are per warp, so P and dS go from the accumulators
+//    of one product straight into the A operand of the next (the m16n8 f32
+//    C layout of two n8 tiles is the m16k16 bf16 A layout) and never touch
+//    shared memory, and each warp owns 16 rows (or keys) outright.  The
+//    next step is the forward's design (flash_attention_wgmma.cu: wgmma
+//    from shared memory that TMA fills, a producer warp and consumer
+//    warpgroups) for these five products a tile;
 //  * bf16 tiles in shared memory, never widened, rows padded by 16 bytes:
 //    the 8 row addresses of an ldmatrix then fall into 8 disjoint groups of
 //    4 banks for every head dim, so all ldmatrix reads are conflict-free;
 //  * loads by cp.async (16 bytes a thread, rows past S zero-filled) into
-//    two stages: the next K/V tile (forward, dQ) or Q/dO tile (dK/dV) is in
-//    flight while the current one is multiplied;
-//  * 8 warps of 16 rows each: 128 query rows per forward / dQ block and
-//    128 keys per dK/dV block, one block an SM (forward 219 registers, dQ
-//    214, dK/dV 255 at D=128, no spills; in dK/dV P^T is rounded to bf16
-//    fragments and used for dV before dP^T is formed, so the two f32 tiles
-//    are never live together); softmax max / sum reduced over the 4 lanes
-//    of a row with two shuffles, the row sum only once at the end.  Two m16
-//    tiles a warp (kFwdM = 2, FlashAttention-2's layout) halve the shared
-//    memory read per product but spill at 255 registers
-//    (tools/flash_tc_sweep.py measures the variants);
+//    two stages: the next K/V tile (dQ) or Q/dO tile (dK/dV) is in flight
+//    while the current one is multiplied;
+//  * 8 warps of 16 rows each: 128 query rows per dQ block and 128 keys per
+//    dK/dV block, one block an SM (dQ 214 registers, dK/dV 255 at D=128, no
+//    spills; in dK/dV P^T is rounded to bf16 fragments and used for dV
+//    before dP^T is formed, so the two f32 tiles are never live together);
 //  * exp2 with log2(e) / sqrt(D) folded into one multiply;
 //  * the element mask is applied only on tiles that straddle the causal
 //    diagonal, the window edge or the end of the sequence;
-//  * forward and dQ launch their heaviest (latest) q tiles first, dK/dV
-//    its heaviest (earliest) k tiles first: the q / k tile is the slowest
-//    grid axis.
+//  * dQ launches its heaviest (latest) q tiles first, dK/dV its heaviest
+//    (earliest) k tiles first: the q / k tile is the slowest grid axis.
 //
 // Head dim 192 (DeepSeek-V3's MLA: nope 128 + rope 64, V zero-padded to
 // 192 as the reference does).  The tiles above stop fitting there, in
-// shared memory (the forward's 128 q rows and two stages of 128 keys are
-// 256,000 B at 200 elements a row, over the 232,448 a block may have) and
-// in registers (an accumulator row of 192 columns is 96 f32 a lane).  So
-// at D > 128 the instances change their shapes, not their structure:
-//  * the forward takes 64-key tiles (153,600 B): the O accumulator grows
-//    from 64 to 96 registers a lane while the score tile shrinks from 64
-//    to 32, so the live set stays that of D = 128;
-//  * dQ takes 32-key tiles (153,600 B), for the same trade (96 + 16 + 16
-//    against 64 + 32 + 32);
+// shared memory and in registers (an accumulator row of 192 columns is 96
+// f32 a lane).  So at D > 128 the instances change their shapes, not their
+// structure:
+//  * dQ takes 32-key tiles (153,600 B): the accumulator grows from 64 to
+//    96 registers a lane while the S and dP tiles shrink from 32 to 16
+//    each;
 //  * dK/dV, which at D = 128 already holds 128 accumulator registers a
 //    lane (255 registers in all), would need 192: it runs as two passes
 //    of the same kernel instead (template kPass), a dV pass (S^T -> P^T,
@@ -93,8 +82,7 @@
 //    (counted with dQ's: S, dP, dQ; S, dV; S, dP, dK), for no spills.
 //    Separate passes keep every sum in one order: no atomics at D = 192
 //    either.
-// D <= 128 keeps the tiles, the single fused dK/dV kernel and the timings
-// of the design above.
+// D <= 128 keeps the tiles and the single fused dK/dV kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,29 +95,20 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 16;                 // the m16 of mma.sync
-constexpr int kFwdWarps = 8;                     // forward: 8 warps,
-constexpr int kFwdM = 1;                         //   1 m16 tile each,
-constexpr int kFwdBQ = kFwdWarps * kRowsPerWarp * kFwdM;  // 128 q rows
-constexpr int kFwdBK = 128;                      //   per 128-key tile,
-constexpr int kFwdMinBlocks = 1;                 //   1 block an SM
 constexpr int kDqBQ = kWarps * kRowsPerWarp;     // dQ: 128 q rows
 constexpr int kDqBK = 64;                        //   per 64-key tile,
 constexpr int kDqMinBlocks = 1;                  //   1 block an SM
 constexpr int kKvBK = kWarps * kRowsPerWarp;     // dK/dV: 128 keys
 constexpr int kKvBQ = 64;                        //   per 64-row q tile
-constexpr int kWideD = 128;                      // head dims above: the
-constexpr int kFwdBKWide = 64;                   //   forward's keys a tile,
+constexpr int kWideD = 128;                      // head dims above:
 constexpr int kDqBKWide = 32;                    //   dQ's keys a tile
 
-// keys a tile of the forward and of dQ at head dim D
+// keys a tile of dQ at head dim D
 template <int D> struct KeyTile {
-  static constexpr int kFwd = D > kWideD ? kFwdBKWide : kFwdBK;
   static constexpr int kDq = D > kWideD ? kDqBKWide : kDqBK;
 };
 
@@ -203,7 +182,7 @@ __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
 // b0, b1 of n tile 0, b0, b1 of n tile 1.
 __device__ __forceinline__ int bn_row(int lane) { return (lane & 7) + (lane >> 4) * 8; }
 __device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) * 8; }
-// B operand stored k-major (rows k, n contiguous: V in P.V), read with
+// B operand stored k-major (rows k, n contiguous: dO, Q, K), read with
 // .trans: matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15),
 // (k 8-15, n 8-15) -> the same b0, b1, b0, b1; the offsets are a_row/a_col.
 
@@ -312,178 +291,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
     const bf16* src = ok ? base + (long long)s * stride_s + ch * 8 : base;
     cp_async16(smem_u32(dst + r * LD + ch * 8), src, ok);
   }
-}
-
-// qp: the local row (checked against Sq); its absolute position q_off + qp
-// is what the mask (flash_mask.cuh) compares with the key
-__device__ __forceinline__ bool row_pair_valid(int qp, int kp, int Sq, int Sk,
-                                               int causal, int window,
-                                               int q_off) {
-  return qp < Sq && pair_valid(q_off + qp, kp, Sk, causal, window);
-}
-
-// every (q, k) pair of the tiles [q0, q0 + bq) x [k0, k0 + bk) is valid
-// (q0 local, at absolute position q_off + q0)
-__device__ __forceinline__ bool tile_full(int q0, int bq, int k0, int bk,
-                                          int Sq, int Sk, int causal,
-                                          int window, int q_off) {
-  bool full = q0 + bq <= Sq && k0 + bk <= Sk;
-  const int qa = q_off + q0;
-  if (causal) full = full && k0 + bk - 1 <= qa;
-  if (window > 0) full = full && (qa + bq - 1) - k0 < window;
-  return full;
-}
-
-// floor(a / b) for b > 0 and any a
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((b - 1 - a) / b);
-}
-
-// The k tiles [lo, hi) of size bk that the TPU kernel's block predicate
-// keeps for the q tile at absolute position qa .. qa + bq - 1, over Sk keys.
-__device__ __forceinline__ void k_range(int qa, int bq, int bk, int Sk,
-                                        int causal, int window, int& lo,
-                                        int& hi) {
-  lo = 0;
-  hi = (Sk + bk - 1) / bk;
-  if (causal) hi = min(hi, (qa + bq - 1) / bk + 1);      // k0 <= qa + bq - 1
-  if (window > 0) {                          // qa - (k0 + bk - 1) < window
-    const int kmin = qa - window - bk + 2;
-    if (kmin > 0) lo = (kmin + bk - 1) / bk;
-  }
-}
-
-// ------------------------------------------------------------------ forward
-// grid (H, B, ceil(Sq / kFwdBQ)), q tile reversed.  q (B, Sq, H, D) with
-// element strides (sq_b, sq_s, sq_h); k, v (B, Sk, KVH, D) with (sk_b, sk_s,
-// sk_h); o contiguous (B, Sq, H, D); lse contiguous (B, H, Sq), f32.  Warp w
-// owns rows [16 kFwdM w, 16 kFwdM (w + 1)) of the q tile.
-template <int D>
-__global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) flash_tc_fwd(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o,
-    float* __restrict__ lse, int Sq, int Sk, int G, long long sq_b, long long sq_s,
-    long long sq_h, long long sk_b, long long sk_s, long long sk_h,
-    int causal, int window, int q_off, float scale_log2) {
-  constexpr int LD = Smem<D>::kLD;
-  constexpr int kBQ = kFwdBQ, kBK = KeyTile<D>::kFwd, kM = kFwdM;
-  constexpr int kNT = kFwdWarps * 32;
-  constexpr int kND = D / 8, kNK = kBK / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);       // kBQ x LD
-  bf16* Ks = Qs + kBQ * LD;                        // 2 stages of kBK x LD
-  bf16* Vs = Ks + 2 * kBK * LD;                    // 2 stages of kBK x LD
-
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
-  const int kvh = h / G;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int r0 = warp * kRowsPerWarp * kM;
-  const bf16* kb = k + b * sk_b + kvh * sk_h;
-  const bf16* vb = v + b * sk_b + kvh * sk_h;
-
-  int j_lo, j_hi;
-  k_range(q_off + q0, kBQ, kBK, Sk, causal, window, j_lo, j_hi);
-  load_tile<D, kBQ, kNT>(Qs, q + b * sq_b + h * sq_h, sq_s, q0, Sq);
-  if (j_lo < j_hi) {
-    load_tile<D, kBK, kNT>(Ks, kb, sk_s, j_lo * kBK, Sk);
-    load_tile<D, kBK, kNT>(Vs, vb, sk_s, j_lo * kBK, Sk);
-  }
-  cp_async_commit();
-
-  // row (mi, hf) of this thread: r0 + 16 mi + gq + 8 hf
-  float acc[kM][kND][4];
-  zero(acc);
-  float m[kM][2], l[kM][2];
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) { m[mi][hf] = kNegInf; l[mi][hf] = 0.f; }
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int st = (j - j_lo) & 1;
-    cp_async_wait_all();
-    __syncthreads();           // tile j is in; tile j - 1's stage is free
-    if (j + 1 < j_hi) {
-      load_tile<D, kBK, kNT>(Ks + (st ^ 1) * kBK * LD, kb, sk_s,
-                             (j + 1) * kBK, Sk);
-      load_tile<D, kBK, kNT>(Vs + (st ^ 1) * kBK * LD, vb, sk_s,
-                             (j + 1) * kBK, Sk);
-    }
-    cp_async_commit();
-    const bf16* Kt = Ks + st * kBK * LD;
-    const bf16* Vt = Vs + st * kBK * LD;
-    const int k0 = j * kBK;
-
-    float s[kM][kNK][4];
-    zero(s);
-    mma_abt<D, kM, kBK>(s, Qs, r0, Kt, lane);
-
-    const bool full = tile_full(q0, kBQ, k0, kBK, Sq, Sk, causal, window,
-                                q_off);
-#pragma unroll
-    for (int mi = 0; mi < kM; ++mi) {
-#pragma unroll
-      for (int i = 0; i < kNK; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[mi][i][e] * scale_log2;
-          if (!full && !row_pair_valid(q0 + r0 + 16 * mi + gq + 8 * (e >> 1),
-                                       k0 + 8 * i + 2 * tq + (e & 1), Sq, Sk,
-                                       causal, window, q_off))
-            x = kNegInf;
-          s[mi][i][e] = x;
-        }
-      float mx[2] = {m[mi][0], m[mi][1]};
-#pragma unroll
-      for (int i = 0; i < kNK; ++i) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[mi][i][0], s[mi][i][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[mi][i][2], s[mi][i][3]));
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-        const float corr = exp2_approx(m[mi][hf] - mx[hf]);
-        m[mi][hf] = mx[hf];
-        l[mi][hf] *= corr;
-#pragma unroll
-        for (int i = 0; i < kND; ++i) {
-          acc[mi][i][2 * hf] *= corr;
-          acc[mi][i][2 * hf + 1] *= corr;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kNK; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2_approx(s[mi][i][e] - m[mi][e >> 1]);
-          s[mi][i][e] = p;
-          l[mi][e >> 1] += p;
-        }
-    }
-    mma_pb<D, kM, kBK>(acc, s, Vt, lane);
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float lr = l[mi][hf];
-      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      const int qp = q0 + r0 + 16 * mi + gq + 8 * hf;
-      if (qp >= Sq) continue;
-      const float denom = fmaxf(lr, 1e-30f);
-      bf16* orow = o + (((long long)b * Sq + qp) * H + h) * D + 2 * tq;
-#pragma unroll
-      for (int i = 0; i < kND; ++i)
-        *reinterpret_cast<uint32_t*>(orow + 8 * i) = pack_bf16(
-            acc[mi][i][2 * hf] / denom, acc[mi][i][2 * hf + 1] / denom);
-      if (tq == 0)
-        lse[((long long)b * H + h) * Sq + qp] = (m[mi][hf] + log2f(lr)) * kLn2;
-    }
 }
 
 // ------------------------------------------------------------ backward: dQ
@@ -774,9 +581,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_bwd_dkdv(
 }
 
 // ------------------------------------------------------------------ launch
-template <int D> constexpr int fwd_smem() {
-  return (kFwdBQ + 4 * KeyTile<D>::kFwd) * Smem<D>::kLD * 2;
-}
 template <int D> constexpr int dq_smem() {
   return (2 * kDqBQ + 4 * KeyTile<D>::kDq) * Smem<D>::kLD * 2;
 }
@@ -791,22 +595,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 float scale_log2_of(int D) { return kLog2e / sqrtf((float)D); }
-
-template <int D>
-cudaError_t fwd_for(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int Sq, int Sk, int H, int KVH,
-                    const long long* sq, const long long* sk, int causal,
-                    int window, int q_off, cudaStream_t stream) {
-  const int smem = fwd_smem<D>();
-  cudaError_t e = allow_smem(flash_tc_fwd<D>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(H, B, (Sq + kFwdBQ - 1) / kFwdBQ);
-  flash_tc_fwd<D><<<grid, kFwdWarps * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, Sq, Sk,
-      H / KVH, sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], causal, window,
-      q_off, scale_log2_of(D));
-  return cudaGetLastError();
-}
 
 template <int D, int kPass>
 cudaError_t dkdv_for(const void* q, const void* k, const void* v,
@@ -860,7 +648,7 @@ cudaError_t bwd_for(const void* q, const void* k, const void* v,
 bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window,
                int q_off) {
   return B > 0 && B <= 65535 && Sq > 0 && Sk > 0
-         && (Sq + kFwdBQ - 1) / kFwdBQ <= 65535
+         && (Sq + kDqBQ - 1) / kDqBQ <= 65535
          && (Sk + kKvBK - 1) / kKvBK <= 65535 && q_off >= 0
          && ((!causal && window <= 0) || (long long)q_off + Sq <= Sk)
          && H > 0 && KVH > 0 && H % KVH == 0;
@@ -871,37 +659,11 @@ bool shapes_ok(int B, int Sq, int Sk, int H, int KVH, int causal, int window,
 
 }  // namespace
 
-// bf16 only.  q (B, Sq, H, D) and k, v (B, Sk, KVH, D) are read through
-// their element strides (batch, seq, head; unit stride over D, 16-byte
-// aligned rows); q row i is at absolute position q_off + i; o (B, Sq, H, D)
-// and lse (B, H, Sq, f32) are contiguous.  Returns the cudaError_t of the
-// launch (0 on success); nothing is synchronised.
-extern "C" int repro_flash_attention_tc_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    int B, int Sq, int Sk, int H, int KVH, int D,
-    long long sq_b, long long sq_s, long long sq_h,
-    long long sk_b, long long sk_s, long long sk_h,
-    int causal, int window, int q_off, void* stream) {
-  if (!shapes_ok(B, Sq, Sk, H, KVH, causal, window, q_off))
-    return (int)cudaErrorInvalidValue;
-  const long long sq[3] = {sq_b, sq_s, sq_h};
-  const long long sk[3] = {sk_b, sk_s, sk_h};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-#define REPRO_CASE(DD) \
-    case DD: return (int)fwd_for<DD>(q, k, v, o, (float*)lse, B, Sq, Sk, H, \
-                                     KVH, sq, sk, causal, window, q_off, s);
-    REPRO_FOR_EACH_HEAD_DIM(REPRO_CASE)
-#undef REPRO_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Gradients of repro_flash_attention_tc_fwd, bf16.  Every tensor
-// contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D);
-// lse (the forward's) and delta (scratch) (B, H, Sq) f32.  Two launches on
-// `stream`: dQ (which also writes delta), then dK/dV.  q_off as the
-// forward's.
+// Gradients of repro_flash_attention_tc_fwd (flash_attention_wgmma.cu) and
+// of repro_flash_decode_fwd, bf16.  Every tensor contiguous: q, o, dout, dq
+// (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse (the forward's) and
+// delta (scratch) (B, H, Sq) f32.  Two launches on `stream`: dQ (which
+// also writes delta), then dK/dV.  q_off as the forward's.
 extern "C" int repro_flash_attention_tc_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,

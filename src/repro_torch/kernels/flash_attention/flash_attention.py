@@ -17,8 +17,10 @@ too: row i of q sits at absolute position ``q_offset + i`` of the keys
 ``flash_attention_xla``.
 
 Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
-training path's dtype) runs on the tensor cores (``csrc/
-flash_attention_tc.cu``), float32 on the CUDA cores
+training path's dtype) runs on the tensor cores (the forward in ``csrc/
+flash_attention_wgmma.cu``: wgmma on tiles that TMA copies into shared
+memory, a producer warp and two consumer warpgroups; the backward in
+``csrc/flash_attention_tc.cu``), float32 on the CUDA cores
 (``csrc/flash_attention.cu``).  Each dtype has exactly one route, and there
 is no fallback between them.  A forward of at most ``DECODE_MAX_ROWS``
 query rows (decode: Whisper's cross-attention at Sq = 1) takes, in either
@@ -211,11 +213,66 @@ def _check(q, k, v, causal: bool, window: int, q_offset):
     return shapes + (route(q.dtype, shapes[-1]),)
 
 
+# The bf16 forward's instance of each head dim: its own at 64, 128 and
+# 192, the next one up elsewhere (flash_attention_wgmma.cu's dispatch).
+# The tensor maps carry the true head dim, so the copy zero-fills the
+# columns past it, and o has only the true head dim's columns.
+WGMMA_INSTANCES = (64, 128, 192)
+WGMMA_ATOM = 64              # bf16 columns of a 128-byte swizzle atom: a box
+WGMMA_ROWS = 128             # query rows a block (two warpgroups of 64)
+
+
+def fwd_instance(head_dim: int) -> int:
+    """The head dim of the bf16 forward's instance that serves
+    ``head_dim``: the smallest of ``WGMMA_INSTANCES`` at or above it."""
+    if head_dim not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_kernel: head_dim {head_dim} not "
+                         f"in {SUPPORTED_HEAD_DIMS}")
+    return next(d for d in WGMMA_INSTANCES if d >= head_dim)
+
+
+def fwd_key_tile(head_dim: int) -> int:
+    """Keys a tile of the bf16 forward (``Tiles<D>::kBK``): 128 at the 64
+    instance, 112 at 128, 64 at 192 (registers and shared memory)."""
+    return {64: 128, 128: 112, 192: 64}[fwd_instance(head_dim)]
+
+
+class TensorMap(NamedTuple):
+    """A 4-d tensor map as ``flash_attention_wgmma.cu``'s ``tile_map``
+    encodes it (innermost first): ``dims`` (head_dim, heads, S, B),
+    ``strides`` in bytes of heads, S and B, ``box`` one 64-column atom of
+    ``rows`` rows of one head."""
+    dims: tuple
+    strides: tuple
+    box: tuple
+
+
+def tensor_map(t, rows: int) -> TensorMap:
+    """The map of a (B, S, heads, head_dim) bf16 tensor ``t`` (q, k or v
+    in the model layout) whose box is ``rows`` rows: a dim of one never
+    steps its stride, so it gets a valid one (heads: head_dim, B: S times
+    the row stride)."""
+    B, S, heads, head_dim = t.shape
+    sb, ss, sh = t.stride()[:3]
+    if heads == 1:
+        sh = head_dim
+    if B == 1:
+        sb = S * ss
+    el = t.element_size()
+    return TensorMap((head_dim, heads, S, B), (sh * el, ss * el, sb * el),
+                     (WGMMA_ATOM, 1, rows, 1))
+
+
 def _rows_aligned(t) -> bool:
-    """Unit stride over D and 16-byte aligned rows: read as it lies."""
-    vec = 16 // t.element_size()
+    """Read as it lies: unit stride over D, a 16-byte aligned base and
+    batch, sequence and head strides that are multiples of 16 bytes (the
+    f32 kernels' 16-byte row copies, and every global stride of the bf16
+    kernels' tensor maps, :func:`tensor_map`, which also takes no stride
+    at or above 2^40 bytes)."""
+    el = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in t.stride()[:3]))
+            and all(s * el % 16 == 0 and 0 <= s * el < 2 ** 40
+                    for s in t.stride()[:3]))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -261,6 +318,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     LAUNCHES["flash_attention"] += 1
     if entry == DECODE:
         ROUTE_LAUNCHES["flash_decode"] += 1
+    elif entry == TENSOR_CORES.fwd:
+        ROUTE_LAUNCHES["flash_wgmma_fwd"] += 1
     return o, lse
 
 

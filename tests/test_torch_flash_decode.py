@@ -247,10 +247,11 @@ class TestDecodePlan:
 
 def test_plain_route_counts_no_decode_launch():
     """A CPU call takes the plain version: no counter moves, the decode
-    route's included."""
+    route's and the bf16 forward route's included."""
     tk.reset_launch_counts()
     q = torch.zeros((2, 1, 4, 64), requires_grad=True)
     kv = torch.zeros((2, 30, 4, 64))
     flash_attention(q, kv, kv, causal=False).sum().backward()
-    assert tk.route_launch_counts() == {"flash_decode": 0}
+    assert tk.route_launch_counts() == {"flash_decode": 0,
+                                        "flash_wgmma_fwd": 0}
     assert not any(tk.launch_counts().values())

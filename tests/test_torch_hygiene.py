@@ -289,6 +289,7 @@ def test_no_build_or_device_decision_at_import():
     assert _build._LIB is None or _build.BuildInfo.path is not None
     assert [s.name for s in _build.sources()] == ["flash_attention.cu",
                                                   "flash_attention_tc.cu",
+                                                  "flash_attention_wgmma.cu",
                                                   "flash_decode.cu",
                                                   "page_pack.cu",
                                                   "paged_attention.cu"]
