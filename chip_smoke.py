@@ -11,9 +11,10 @@ Phases, one JSON line each:
                      of each kernel (registers and spills of every
                      paged-attention instance apart), tensor-core
                      instructions counted in its SASS (``cuobjdump``; every
-                     bf16 flash kernel must have some, head_dim 192's
-                     included, and neither the head_dim 192 flash
-                     kernels nor the 31 decode-kernel instances spill);
+                     bf16 flash kernel, forward and backward, must be
+                     wgmma alone: HGMMA > 0, HMMA 0; neither they, the
+                     head_dim 192 flash kernels nor the 31 decode-kernel
+                     instances spill);
 3. ``kernels``       every CUDA kernel against its plain PyTorch version on
                      the card (small shapes incl. window masking, unmapped
                      pages, rows with no valid position, splits that see
@@ -42,11 +43,13 @@ Phases, one JSON line each:
                      SDPA; the decode kernel at masked few-row shapes with
                      a query offset, every cluster size, lse, two calls
                      bit-identical, and its forward followed by the
-                     backward kernels; the bf16 wgmma forward at every
-                     head dim, Sq 9, Mixtral's window at S 4,500, Whisper's
-                     cross shape, query offsets on and off the tiles and
-                     KVH 1, forward and gradients, two calls
-                     bit-identical at each instance; the f32 route at the
+                     backward kernels; the bf16 wgmma forward and
+                     backward at every head dim, Sq 9, Mixtral's window at
+                     S 4,500, Whisper's cross shape, query offsets on and
+                     off the tiles and KVH 1, forward and gradients, two
+                     calls of each bit-identical at each instance, the
+                     backward given the reference signature's views equal
+                     to it given contiguous tensors; the f32 route at the
                      training shape
                      and the training example's call beside SDPA, the
                      backward's two calls bit-identical;
@@ -530,15 +533,28 @@ def phase_device(dev):
 
 
 # --------------------------------------------------------------- phase: build
-FLASH_TC_KERNELS = ("flash_wgmma_fwd", "flash_tc_bwd_dq", "flash_tc_bwd_dkdv")
+FLASH_TC_KERNELS = ("flash_wgmma_fwd", "flash_wgmma_bwd_dq",
+                    "flash_wgmma_bwd_dkdv")
+
+
+def bwd_instance_kernels(instances) -> list:
+    """The bf16 backward's kernels at the instances' head dims: dQ, and
+    dK/dV in one pass (template pass 0) or, at 192, a dV pass (1) and a dK
+    pass (2)."""
+    names = [f"flash_wgmma_bwd_dq<{d}>" for d in instances]
+    for d in instances:
+        names += ([f"flash_wgmma_bwd_dkdv<{d},1>",
+                   f"flash_wgmma_bwd_dkdv<{d},2>"] if d == 192
+                  else [f"flash_wgmma_bwd_dkdv<{d},0>"])
+    return names
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_wgmma_fwd<128>``, ``flash_tc_bwd_dkdv<192,1>`` (head dim, pass),
-    ``paged_attention_kernel<bf16,128,5>`` (dtype, head dim, query heads
-    a block), ``flash_decode_kernel<bf16,64,1>`` (dtype, head dim, query
-    rows a block) or ``flash_bwd_dkdv_sum_kernel`` from the mangled name of
-    a kernel
+    """``flash_wgmma_fwd<128>``, ``flash_wgmma_bwd_dkdv<192,1>`` (head dim,
+    pass), ``paged_attention_kernel<bf16,128,5>`` (dtype, head dim, query
+    heads a block), ``flash_decode_kernel<bf16,64,1>`` (dtype, head dim,
+    query rows a block) or ``flash_bwd_dkdv_sum_kernel`` from the mangled
+    name of a kernel
     (``..._GLOBAL__N_115flash_wgmma_fwdILi128EEEv...``)."""
     m = re.search(r"\d+(paged_attention_kernel|flash_decode_kernel)"
                   r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
@@ -619,7 +635,10 @@ def _build_fields() -> dict:
         require(sorted(fwd) == sorted(f"flash_wgmma_fwd<{d}>"
                                       for d in WGMMA_INSTANCES),
                 f"bf16 flash forward instances: {fwd}")
-        for n in wide + decode + fwd:
+        bwd = [n for n in resources if n.startswith("flash_wgmma_bwd_")]
+        require(sorted(bwd) == sorted(bwd_instance_kernels(WGMMA_INSTANCES)),
+                f"bf16 flash backward instances: {bwd}")
+        for n in wide + decode + fwd + bwd:
             r = resources[n]
             require(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0,
                     f"{n} spills: {r.get('ptxas')}")
@@ -628,16 +647,16 @@ def _build_fields() -> dict:
         for name, c in mma.items():
             resources.setdefault(name, {})["sass_tensor_core_instructions"] = c
         tc = [n for n in mma if n.split("<")[0] in FLASH_TC_KERNELS]
-        # the forward's three instances; the backward's two kernels at nine
-        # head dims, dK/dV at 192 in two passes
-        require(len(tc) == len(WGMMA_INSTANCES) + 2 * 9 + 1,
+        # the forward's three instances; the backward's dQ at the same
+        # three, dK/dV at 64 and 128 and in two passes at 192
+        require(sorted(tc) == sorted(
+            [f"flash_wgmma_fwd<{d}>" for d in WGMMA_INSTANCES]
+            + bwd_instance_kernels(WGMMA_INSTANCES)),
                 f"bf16 flash kernels in the SASS: {tc}")
         for n in tc:
-            require(mma[n]["HGMMA"] + mma[n]["HMMA"] > 0,
-                    f"{n}: no tensor-core instruction in its SASS")
-            # the forward is wgmma (HGMMA) alone: no mma.sync (HMMA) left
-            require(not n.startswith("flash_wgmma_fwd<")
-                    or (mma[n]["HGMMA"] > 0 and mma[n]["HMMA"] == 0),
+            # every bf16 flash kernel is wgmma (HGMMA) alone: no mma.sync
+            # (HMMA) left
+            require(mma[n]["HGMMA"] > 0 and mma[n]["HMMA"] == 0,
                     f"{n}: HGMMA {mma[n]['HGMMA']}, HMMA {mma[n]['HMMA']}")
     paged = {n: r for n, r in resources.items()
              if n.startswith("paged_attention_kernel<")}
@@ -1039,11 +1058,11 @@ CROSS_CASES = [
 ]
 
 
-# the bf16 forward (csrc/flash_attention_wgmma.cu) at every supported head
-# dim and at its edges, forward and gradients through ops.flash_attention
-# against the plain version (``_flash_case``: the unchanged backward kernels
-# take the forward's o and lse): B, Sq, Sk, H, KVH, D, causal, window,
-# q_offset, fused (q, k, v views of one projection)
+# the bf16 kernels (csrc/flash_attention_wgmma.cu forward and
+# csrc/flash_attention_wgmma_bwd.cu backward) at every supported head dim
+# and at their edges, forward and gradients through ops.flash_attention
+# against the plain version (``_flash_case``): B, Sq, Sk, H, KVH, D,
+# causal, window, q_offset, fused (q, k, v views of one projection)
 WGMMA_CASES = [
     *[(1, 333, None, 4, 2, D, True, 0, None, False)     # Sq, Sk no multiple
       for D in (16, 32, 48, 64, 80, 96, 112, 128, 192)],   # of 64 or 128
@@ -1058,19 +1077,22 @@ WGMMA_CASES = [
     (1, 150, 700, 4, 4, 192, True, 0, 550, False),      # D = 192's 64-key
     (1, 333, None, 8, 1, 112, False, 0, None, True),    # tiles; KVH = 1
 ]
-# two calls of the bf16 forward at each instance (B, S, H, KVH, D, window)
+# two calls of the bf16 forward and of its backward at each instance (B, S,
+# H, KVH, D, window)
 WGMMA_REPEAT = [(2, 700, 8, 2, 48, 0), (1, 1000, 8, 2, 112, 300),
                 (1, 600, 4, 4, 192, 0)]
 
 
 def _wgmma_checks(gen, dev) -> dict:
-    """The bf16 forward at ``WGMMA_CASES`` (``_flash_case``: forward and
-    gradients against the plain version, bf16 rows within 2e-2) and
-    ``WGMMA_REPEAT`` (two calls give identical o and lse bits).  Returns the
-    largest errors and the count of cases."""
+    """The bf16 forward and backward at ``WGMMA_CASES`` (``_flash_case``:
+    forward and gradients against the plain version, bf16 rows within
+    2e-2), ``WGMMA_REPEAT`` (two calls give identical o and lse bits, and
+    two backward calls identical dq, dk and dv) and ``_bwd_views`` (the
+    backward reads the reference signature's views as it reads contiguous
+    tensors).  Returns the largest errors and the count of cases."""
     import torch
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention_fwd
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
     keys = ("fwd_abs", "fwd_row_rel", "grad_abs", "grad_row_rel")
     errs = dict.fromkeys(keys, 0.0)
     for (B, Sq, Sk, H, KVH, D, causal, window, off, fused) in WGMMA_CASES:
@@ -1089,8 +1111,55 @@ def _wgmma_checks(gen, dev) -> dict:
         require(torch.equal(o, o2) and torch.equal(lse, lse2),
                 f"flash_wgmma_fwd B{B} S{S} H{H} KVH{KVH} D{D} "
                 f"window={window}: two calls differ")
+        dout = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
+        g = flash_attention_bwd(q, k, v, o, lse, dout, window=window)
+        g2 = flash_attention_bwd(q, k, v, o, lse, dout, window=window)
+        sync(dev)
+        require(all(torch.equal(a, b) for a, b in zip(g, g2)),
+                f"flash_wgmma_bwd B{B} S{S} H{H} KVH{KVH} D{D} "
+                f"window={window}: two calls differ")
+    views = _bwd_views(gen, dev)
     return {"max_abs_err": errs, "cases": len(WGMMA_CASES),
-            "bit_identical_over_two_calls": len(WGMMA_REPEAT)}
+            "bit_identical_over_two_calls": len(WGMMA_REPEAT),
+            "backward_bit_identical_over_two_calls": len(WGMMA_REPEAT),
+            "backward_reference_signature_views": views}
+
+
+def _bwd_views(gen, dev) -> dict:
+    """The bf16 backward given q, k, v, o and dout as the reference
+    signature's (B, H, S, D) tensors viewed in the model layout (read
+    through their strides) against the same values made contiguous: the
+    same bits, and within the plain version's rows (``_flash_close``)."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _rows_aligned, flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    B, H, KVH, S, D = 2, 8, 2, 300, 64
+    bf16 = torch.bfloat16
+    q = _rand(gen, (B, H, S, D), bf16, dev).transpose(1, 2)
+    k, v = (_rand(gen, (B, KVH, S, D), bf16, dev).transpose(1, 2)
+            for _ in range(2))
+    dout = _rand(gen, (B, H, S, D), bf16, dev).transpose(1, 2)
+    o, lse = flash_attention_fwd(q, k, v, window=100)
+    o = o.transpose(1, 2).contiguous().transpose(1, 2)
+    views = (q, k, v, o, dout)
+    require(all(map(_rows_aligned, views))
+            and not any(t.is_contiguous() for t in views),
+            "flash_attention_bwd views: not the reference signature's")
+    got = flash_attention_bwd(q, k, v, o, lse, dout, window=100)
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(),
+                               v.contiguous(), o.contiguous(), lse,
+                               dout.contiguous(), window=100)
+    sync(dev)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    require(same, "flash_attention_bwd: strided views give other bits than "
+            "contiguous tensors")
+    plain = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+        *(t.transpose(1, 2) for t in (q, k, v, o, dout)), window=100)]
+    rel = max(_flash_close(a, b, True, f"flash_attention_bwd views d{n}")[1]
+              for a, b, n in zip(got, plain, "qkv"))
+    return {"bit_identical_to_contiguous": same, "row_rel_err": rel}
 
 
 def _cross_refused(gen, dev) -> int:
@@ -1287,47 +1356,58 @@ BF16_BITS_CASES = ((1, 700, 8, 2, 128, True, 0),
                    (2, 333, 4, 4, 64, True, 100),
                    (1, 300, 8, 8, 192, False, 0))
 # sha256 of those outputs from the bf16 kernels (the wgmma forward of
-# flash_attention_wgmma.cu, the backward of flash_attention_tc.cu;
-# python3 tools/flash_bits_check.py --parent DIR on the NVIDIA H100 80GB
-# HBM3, torch 2.11.0+cu128, with DIR the tree before the wgmma forward,
-# whose f32 bits and backward bits at its (o, lse) this tree keeps): the
-# same inputs must give the same bits.  A change meant to move the bf16
-# kernels' bits (or a torch whose CUDA RNG draws differently) fails here
-# until it writes the tool's new digest, taken against its parent tree,
-# into BF16_BITS
-BF16_BITS = "32dee89c2f798cb148561cd737c1b5dd545b1094596ce7c4da91514ba28d5352"
+# flash_attention_wgmma.cu, the wgmma backward of
+# flash_attention_wgmma_bwd.cu; python3 tools/flash_bits_check.py
+# --parent DIR on the NVIDIA H100 80GB HBM3, torch 2.11.0+cu128, with DIR
+# the tree before the wgmma backward, whose f32 bits and forward bits this
+# tree keeps): the same inputs must give the same bits.  BF16_FWD_BITS
+# covers o and lse alone, BF16_BITS o, lse, dq, dk and dv.  A change meant
+# to move the bf16 kernels' bits (or a torch whose CUDA RNG draws
+# differently) fails here until it writes the tool's new digests, taken
+# against its parent tree, into them
+BF16_FWD_BITS = \
+    "fb81f71b568976470c9cd2860dc2089b3f9128edcf7b0e7f5ff1440b0fb2d927"
+BF16_BITS = "b8e7a9c8fd9f302f768c05ce50d5533f7f63824c043abc6bc5a7b84e26f85d3a"
 
 
-def bf16_bits(dev, fwd, bwd, dtype=None) -> str:
-    """sha256 over o, lse, dq, dk and dv of ``BF16_BITS_CASES``, inputs
-    drawn on ``dev`` from seed 26 in ``dtype`` (bf16 unless given);
-    ``fwd(q, k, v, causal, window)`` returns (o, lse), ``bwd(q, k, v, o,
-    lse, dout, causal, window)`` (dq, dk, dv)."""
+def bf16_bits(dev, fwd, bwd, dtype=None) -> tuple:
+    """sha256 over o and lse, and over o, lse, dq, dk and dv, of
+    ``BF16_BITS_CASES``, inputs drawn on ``dev`` from seed 26 in ``dtype``
+    (bf16 unless given); ``fwd(q, k, v, causal, window)`` returns (o,
+    lse), ``bwd(q, k, v, o, lse, dout, causal, window)`` (dq, dk, dv).
+    Returns the two hex digests (forward, all)."""
     import hashlib
     import torch
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(26)
-    h = hashlib.sha256()
+    h_fwd, h = hashlib.sha256(), hashlib.sha256()
     for (B, S, H, KVH, D, causal, window) in BF16_BITS_CASES:
         q = _rand(gen, (B, S, H, D), dtype, dev)
         k, v = (_rand(gen, (B, S, KVH, D), dtype, dev) for _ in range(2))
         dout = _rand(gen, (B, S, H, D), dtype, dev)
         o, lse = fwd(q, k, v, causal, window)
-        for t in (o, lse, *bwd(q, k, v, o, lse, dout, causal, window)):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()
+        for i, t in enumerate((o, lse, *bwd(q, k, v, o, lse, dout, causal,
+                                            window))):
+            b = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            h.update(b)
+            if i < 2:
+                h_fwd.update(b)
+    return h_fwd.hexdigest(), h.hexdigest()
 
 
 def _bf16_bits_unchanged(dev) -> str:
-    """The bf16 route's bits at q_offset = 0 against ``BF16_BITS``."""
+    """The bf16 route's bits at q_offset = 0 against ``BF16_FWD_BITS``
+    (the forward's) and ``BF16_BITS`` (with the backward's)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
-    got = bf16_bits(
+    got_fwd, got = bf16_bits(
         dev, lambda q, k, v, c, w: flash_attention_fwd(
             q, k, v, causal=c, window=w, q_offset=0),
         lambda q, k, v, o, lse, do, c, w: flash_attention_bwd(
             q, k, v, o, lse, do, causal=c, window=w, q_offset=0))
+    require(got_fwd == BF16_FWD_BITS, f"bf16 flash forward at q_offset = 0 "
+            f"changed its bits: sha256 {got_fwd}, before {BF16_FWD_BITS}")
     require(got == BF16_BITS, f"bf16 flash outputs at q_offset = 0 changed "
             f"their bits: sha256 {got}, before {BF16_BITS}")
     return got
@@ -1653,9 +1733,11 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     (``DECODE_CASES``, every cluster size, lse too, two calls
     bit-identical) and its forward followed by the backward kernels
     (``DECODE_GRAD_CASES``); the bf16 forward of
-    ``csrc/flash_attention_wgmma.cu`` at its edges (``WGMMA_CASES``,
-    ``WGMMA_REPEAT``); the f32 route at the training shape and the
-    training example's call, timed beside SDPA; and
+    ``csrc/flash_attention_wgmma.cu`` and backward of
+    ``csrc/flash_attention_wgmma_bwd.cu`` at their edges
+    (``WGMMA_CASES``, ``WGMMA_REPEAT``, ``_bwd_views``); the f32 route at
+    the training shape and the training example's call, timed beside SDPA;
+    and
     ``flash_attention_kernel`` in the reference's signature."""
     import torch
     from repro_torch.configs import get_config
@@ -1776,10 +1858,31 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
                "cross_cases_checked": 2 * len(CROSS_CASES),
                "masked_sq_ne_sk_refused": refused}
 
-    src = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
+    src = "src/repro_torch/kernels/csrc/flash_attention_wgmma_bwd.cu"
     fwd_src = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
-    design = {"instruction": "mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, "
-              "operands by ldmatrix", "loads": "cp.async, 2 stages"}
+    design = {
+        "instruction": "wgmma.mma_async m64nNk16 bf16 x bf16 -> f32: S, dP "
+        "(dQ) and S^T, dP^T (dK/dV) from shared memory, both operands "
+        "K-major; dQ += dS K, dV += P^T dO, dK += dS^T Q with the A operand "
+        "in registers and B MN-major in shared memory",
+        "loads": "cp.async.bulk.tensor over 4-d tensor maps of q, k, v, o "
+        "and dout (128-byte swizzle) and 1-d maps of lse and delta; dQ: Q, "
+        "dO, O once, K and V through a ring of 4 stages (2 at D 192); "
+        "dK/dV: K and V once, Q, dO, lse, delta through a ring of 4 stages "
+        "(2 at D 192), full / empty mbarriers",
+        "threads": "two consumer warpgroups of 64 rows (dQ: query rows, "
+        "dK/dV: keys) and a producer warpgroup (one issuing thread); "
+        "setmaxnreg 24 / 240",
+        "schedule": "dQ: tile j's S and dP issued before tile j-1's dQ "
+        "product, its dS formed under it; the two warpgroups take turns to "
+        "issue S and dP (ping-pong); dQ walks (batch, head) pairs in groups "
+        "whose K/V fit 32 MB of L2, latest q tiles first, dK/dV (batch, kv "
+        "head) pairs in groups whose Q/dO fit, earliest k tiles first",
+        "split": "dQ and dK/dV in separate kernels (S and dP computed in "
+        "both), no atomics: two calls give identical bits",
+        "instances": "D 64, 128, 192 (16-48 on 64, 80-112 on 128); dQ 64 "
+        "keys a tile, dK/dV 64 query rows a tile; dK/dV at 192 in two "
+        "passes"}
     fwd_design = {
         "instruction": "wgmma.mma_async m64nNk16 bf16 x bf16 -> f32: S = Q "
         "K^T from shared memory (K-major), O += P V with P in registers and "
@@ -1796,14 +1899,14 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
         "and 64 keys a tile"}
     tpu = "src/repro/kernels/flash_attention/flash_attention.py:79"
     d192 = {"arch": mcfg.name, "shape": wide["shape"],
-            "design": "forward 64-key tiles, dQ 32-key tiles, dK and dV in "
-            "two passes (no spills)"}
+            "design": "forward 64-key tiles; backward dQ 64-key tiles, dK "
+            "and dV in two passes of 64-row q tiles (no spills)"}
     d112 = {"arch": zcfg.name, "shape": z["shape"]}
     f, b = main["fwd"], main["bwd"]
     dec = w_dec["fwd"]
     f32_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     rows = [
-        {"name": "flash_attention", "route": "cuda", "source": src,
+        {"name": "flash_attention", "route": "cuda", "source": fwd_src,
          "replaces": tpu, "launches": 0, "max_abs_err": f["max_abs_err"],
          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
          "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -1872,6 +1975,14 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "bound_by": b["bound_by"], "library_ms": b["library_ms"],
          "library": "autograd of F.scaled_dot_product_attention",
          "library_fwd_bwd_ms": b["library_fwd_bwd_ms"], **design,
+         "checks": {
+             "edge_cases": wgmma["cases"],
+             "edge_max_err": {k: wgmma["max_abs_err"][k]
+                              for k in ("grad_abs", "grad_row_rel")},
+             "bit_identical_over_two_calls": wgmma[
+                 "backward_bit_identical_over_two_calls"],
+             "reference_signature_views": wgmma[
+                 "backward_reference_signature_views"]},
          "flops": b["flops"], "bytes": b["bytes"],
          "tflops_per_s": b["tflops_per_s"], "shape": main["shape"],
          "head_dim_192": {**d192, **wide["bwd"]},
@@ -1894,7 +2005,8 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     cases = 2 * len(FLASH_CASES) + 8 + 2 * len(CROSS_CASES) + refused + 4 \
         + len(errs["reference_signature"]) + 10 * len(DECODE_CASES) \
         + 2 * len(DECODE_GRAD_CASES) + wgmma["cases"] \
-        + wgmma["bit_identical_over_two_calls"]
+        + wgmma["bit_identical_over_two_calls"] \
+        + wgmma["backward_bit_identical_over_two_calls"] + 1
     return rows, errs, cases
 
 

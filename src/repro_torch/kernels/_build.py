@@ -62,11 +62,14 @@ SIGNATURES = {
     # n_splits, D, rows, dtype_code, *count
     "repro_flash_decode_active_clusters": [_I, _I, _I, _I,
                                            ctypes.POINTER(_I)],
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, D, causal,
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, D, the
+    # (batch, seq, head) strides of q, k (and v), o and dout, causal,
     # window, q_off, stream
     "repro_flash_attention_tc_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # ... the same with the query heads' dK, dV scratch after dv
+                                     _I, _I, _I, _I, _I, _I, *[_LL] * 12,
+                                     _I, _I, _I, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, the query heads' dK, dV
+    # scratch, B, Sq, Sk, H, KVH, D, causal, window, q_off, stream
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _P],

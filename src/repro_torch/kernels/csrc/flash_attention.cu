@@ -1,7 +1,7 @@
 // Blocked causal / sliding-window / non-causal attention for prefill and
 // training, forward and backward, in f32 on the CUDA cores of NVIDIA Hopper
 // (sm_90a).  This is the route of float32 tensors only: bf16 tensors take
-// the tensor-core kernels of flash_attention_tc.cu (TF32 products would
+// the tensor-core kernels of flash_attention_wgmma*.cu (TF32 products would
 // keep about three decimal digits, too few for the f32 checks).
 //
 // Replaces the TPU kernel `flash_attention_kernel` / `_kernel` of

@@ -3,7 +3,7 @@
 // shared memory, one producer warp and two consumer warpgroups.  The
 // forward of every bf16 call of more than DECODE_MAX_ROWS query rows
 // (flash_attention.py's `forward_entry`; flash_decode.cu takes the few-row
-// calls, flash_attention_tc.cu holds the bf16 backward).
+// calls, flash_attention_wgmma_bwd.cu holds the bf16 backward).
 //
 // Replaces the TPU kernel `flash_attention_kernel` / `_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py:79: q (B, Sq, H, D)
@@ -17,7 +17,8 @@
 // q_off + Sq <= Sk.  Same arithmetic as the TPU kernel: f32 running max,
 // sum and accumulator, masked scores -1e30 (finite), the result divided by
 // max(l, 1e-30); it also writes the per-row logsumexp lse (B, H, Sq) in
-// natural log, which the backward kernels of flash_attention_tc.cu take.
+// natural log, which the backward kernels of flash_attention_wgmma_bwd.cu
+// take.
 //
 // What bounds it on this card: operations.  At the training shape (B=1,
 // S=4096, H=40, KVH=8, D=128, causal) it does about 1.72e11 FLOP (QK^T and
@@ -79,13 +80,10 @@
 // of K and V, 168 KB).  At D = 192, O is 96 f32 and Q 48 KB; 64 keys a
 // tile, three stages of 144 KB.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include "flash_mask.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -96,15 +94,8 @@ constexpr int kConsumers = 2;                 // consumer warpgroups
 constexpr int kWGRows = 64;                   // query rows a warpgroup
 constexpr int kBQ = kConsumers * kWGRows;     // query rows a block
 constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer's
-constexpr int kAtom = 64;                     // bf16 columns of an atom
-constexpr int kAtomRow = 128;                 // its bytes a row
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kMaxSharedBytes = 232448;
-// the K and V bytes a group of (batch, head) pairs may read while its
-// blocks run together: well inside the 50 MB L2, so that each q tile of a
-// head finds the head's K and V there
-constexpr long long kL2Budget = 32ll << 20;
 
 // Byte offsets into the block's dynamic shared memory (from a 1024-byte
 // aligned base: the swizzle repeats every 8 rows of 128 bytes).  A tile of
@@ -128,319 +119,6 @@ template <int D> struct Tiles {
   static_assert(D % kAtom == 0, "an instance is whole atoms");
   static_assert(kBytes <= kMaxSharedBytes, "shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one box {64, 1, rows, 1} of a map (columns d0 .. d0 + 63 of rows
-// s0 .. s0 + rows - 1 of head `head` of sequence b) -> shared memory,
-// completion on `bar`; coordinates innermost first
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int d0, int head, int s0, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(head),
-         "r"(s0), "r"(b), "r"(bar)
-      : "memory");
-}
-
-// A wgmma operand in shared memory with the 128-byte swizzle: start
-// address, leading and stride byte offsets (bits 0-13, 16-29, 32-45, each
-// in 16-byte units), layout 1 = 128-byte swizzle (bits 62-63).  K-major
-// (Q, K): rows 128 bytes apart, 8-row groups `sbo` = 1024 apart, `lbo`
-// unused.  MN-major (V): 64-column atoms `lbo` apart, 8-key groups `sbo`
-// apart.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4)
-         | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
-// named barrier `id` over `n` threads: wait, or arrive and go on
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most kPending committed groups of products are in flight
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
-               : "memory");
-}
-
-// keeps the compiler from moving reads or writes of registers that an
-// asynchronous product owns (its accumulator, its A fragments) across it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
-}
-
-// d (m64 x N f32, N / 2 a thread) (+)= A B, bf16, k16.  wgmma_ss: A and B
-// K-major in shared memory.  wgmma_rs: A in registers (the m16k16 fragment
-// of each warp's 16 rows), B MN-major in shared memory.  scale_d 0
-// overwrites d.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int scale_d);
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d);
-
-template <> __device__ __forceinline__ void wgmma_ss<64>(
-    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_ss<128>(
-    float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_ss<112>(
-    float (&d)[56], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %58, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55"
-      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<64>(
-    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<128>(
-    float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<192>(
-    float (&d)[96], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = Q K^T of a warpgroup's 64 rows over one K stage, issued: D / 16 steps
-// of k16, 32 bytes along an atom's rows, then the next atom
-template <int D, int kBK>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_wg,
-                                         uint32_t k_st) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kBK>(
-        sc,
-        desc_sw128(q_wg + (kk / 4) * kBQ * kAtomRow + (kk % 4) * 32, 16,
-                   1024),
-        desc_sw128(k_st + (kk / 4) * kBK * kAtomRow + (kk % 4) * 32, 16,
-                   1024),
-        kk > 0);
-}
-
-// O += P V over one V stage, issued: kBK / 16 steps of 16 keys (2 KB of
-// each atom); V's atoms are kBK rows of 128 bytes apart
-template <int D, int kBK>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[kBK / 16][4],
-                                         uint32_t v_st) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs<D>(acc, pa[kk],
-                desc_sw128(v_st + kk * 16 * kAtomRow, kBK * kAtomRow, 1024),
-                1);
-}
 
 // The online softmax of one tile's scores, in place: sc becomes p, the
 // row's max m (of raw scores: scale_log2 > 0 keeps their order) and sum l
@@ -508,17 +186,6 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// P in bf16: the m16k16 A fragments of k step kk are the n8 column groups
-// 2 kk and 2 kk + 1 of S
-template <int kBK>
-__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
-                                       uint32_t (&pa)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-}
 
 // grid B H ceil(Sq / kBQ) (1-d, see `group`); block kThreads: consumer
 // warpgroups 0 .. kConsumers - 1, the producer last.  D is the instance's
@@ -590,8 +257,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(kProducerRegs));
+    setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumers * 128) {
       mbar_arrive_expect_tx(q_full, T::kQBytes);   // the whole box counts
       for (int a = 0; a < T::kAtoms; ++a)
@@ -611,8 +277,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(kConsumerRegs));
+    setmaxnreg_inc<kConsumerRegs>();
     const int lane = threadIdx.x & 31;
     const int tq = lane & 3;
     const int q0w = q0 + wg * kWGRows;                 // the warpgroup's
@@ -620,14 +285,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
     const uint32_t q_wg = s_q + wg * kWGRows * kAtomRow;
     // both warpgroups compute on every tile of the block's (a row that
     // sees no key of a tile takes p = 0 there), and take turns to issue
-    // their products: one's softmax runs while the other's products do
-    // (FlashAttention-3's ping-pong), on named barriers 1 and 2
-    auto my_turn = [&]() { named_sync(1 + wg, 2 * 128); };
-    auto your_turn = [&]() { named_arrive(2 - wg, 2 * 128); };
+    // their products (my_turn / your_turn): one's softmax runs while the
+    // other's products do
     auto release = [&](int j) {
       if (lane == 0) mbar_arrive(bar(2, j));
     };
-    if (wg == 1) your_turn();
+    if (wg == 1) your_turn(wg);
     auto softmax = [&](float (&sc)[kBK / 2], float (&m)[2], float (&l)[2],
                        float (&corr)[2], int j) {
       softmax_tile<kBK>(sc, m, l, corr,
@@ -650,11 +313,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
       uint32_t pa[kBK / 16][4];
       mbar_wait(bar(0, j_lo), parity(j_lo));
       fence_regs(sc);
-      my_turn();
+      my_turn(wg);
       wgmma_fence();
-      issue_qk<D, kBK>(sc, q_wg, k_tile(j_lo));
+      issue_ss<D, kBK, kBQ>(sc, q_wg, k_tile(j_lo));
       wgmma_commit();
-      your_turn();
+      your_turn(wg);
       wgmma_wait<0>();
       fence_regs(sc);
       softmax(sc, m, l, corr, j_lo);            // acc is 0: nothing to scale
@@ -664,14 +327,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
         fence_regs(sc);
         fence_regs(pa);
         fence_regs(acc);
-        my_turn();
+        my_turn(wg);
         wgmma_fence();
-        issue_qk<D, kBK>(sc, q_wg, k_tile(j));
+        issue_ss<D, kBK, kBQ>(sc, q_wg, k_tile(j));
         wgmma_commit();
         mbar_wait(bar(1, j - 1), parity(j - 1));
-        issue_pv<D, kBK>(acc, pa, v_tile(j - 1));
+        issue_rs<D, kBK>(acc, pa, v_tile(j - 1));
         wgmma_commit();
-        your_turn();
+        your_turn(wg);
         wgmma_wait<1>();                         // S of tile j is in
         fence_regs(sc);
         softmax(sc, m, l, corr, j);
@@ -686,11 +349,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
       mbar_wait(bar(1, j_hi - 1), parity(j_hi - 1));
       fence_regs(pa);
       fence_regs(acc);
-      my_turn();
+      my_turn(wg);
       wgmma_fence();
-      issue_pv<D, kBK>(acc, pa, v_tile(j_hi - 1));
+      issue_rs<D, kBK>(acc, pa, v_tile(j_hi - 1));
       wgmma_commit();
-      your_turn();
+      your_turn(wg);
       wgmma_wait<0>();
       fence_regs(acc);
       release(j_hi - 1);
@@ -718,52 +381,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_fwd(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
-// entry-point query (no link against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess
-        && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a bf16 tensor (B, S, heads, head_dim) with element strides (sb, ss, sh, 1)
-// as a 4-d map (innermost first) whose box is one 64-column atom of `rows`
-// rows of one head, 128-byte swizzled; the rows past S and the columns past
-// head_dim are out of bounds, and the copy writes zeros there.  A dim of
-// one never steps its stride: it gets a valid one.  flash_attention.py's
-// `tensor_map` states the same rule.
-bool tile_map(CUtensorMap* map, const void* t, int B, int S, int heads,
-              int head_dim, int rows, long long sb, long long ss,
-              long long sh) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  if (heads == 1) sh = head_dim;
-  if (B == 1) sb = (long long)S * ss;
-  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1u, (cuuint32_t)rows, 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 struct FwdArgs {
   const void* q;
@@ -781,16 +398,9 @@ template <int D>
 cudaError_t fwd_launch(const FwdArgs& a) {
   typedef Tiles<D> T;
   static unsigned int configured = 0u;        // one bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(flash_wgmma_fwd<D>, T::kBytes,
+                                     configured);
   if (err != cudaSuccess) return err;
-  if (dev >= 32 || !((configured >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(flash_wgmma_fwd<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::kBytes);
-    if (err != cudaSuccess) return err;
-    if (dev < 32) configured |= 1u << dev;
-  }
   CUtensorMap q_map = {}, k_map = {}, v_map = {};
   if (!tile_map(&q_map, a.q, a.B, a.Sq, a.H, a.head_dim, kBQ, a.sq_b,
                 a.sq_s, a.sq_h)

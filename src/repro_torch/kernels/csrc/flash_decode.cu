@@ -9,7 +9,7 @@
 // attends to k, v (B, Sk, KVH, D), query head h reading KV head h / G, the
 // rows at absolute positions q_off .. q_off + Sq - 1, masked by
 // flash_mask.cuh's predicate (causal, window, k_pos < Sk).  Same function
-// and outputs as flash_attention.cu and flash_attention_tc.cu: o in q's
+// and outputs as flash_attention.cu and flash_attention_wgmma.cu: o in q's
 // dtype and the per-row logsumexp lse (B, H, Sq) in f32, which the backward
 // kernels of either route take unchanged.  Same arithmetic: f32 online
 // softmax (in base 2: log2(e) / sqrt(D) is folded into q's scale), masked
@@ -21,10 +21,11 @@
 // at Whisper's decode (G = 1, Sq = 1) two orders of magnitude below the
 // ~295 operations per byte where the tensor cores would become the limit.
 // So the products stay on the CUDA cores in f32, and the design keeps bytes
-// in flight on every SM.  flash_attention_tc.cu tiles 128 query rows by 128
-// keys with a grid (H, B, ceil(Sq / 128)): at Sq = 1 that is one block per
-// query head (64 blocks on 132 SMs at Whisper's B = 4), each streaming all
-// of its head's keys, 127 of its 128 mma rows padding: 0.041 ms there on an
+// in flight on every SM.  The mma.sync tile kernel before it tiled 128
+// query rows by 128 keys with a grid (H, B, ceil(Sq / 128)): at Sq = 1 that
+// is one block per query head (64 blocks on 132 SMs at Whisper's B = 4),
+// each streaming all of its head's keys, 127 of its 128 mma rows padding:
+// 0.041 ms there on an
 // H100 at 700 W against a 0.00734 ms bound (24.6 MB of K and V), where this
 // kernel takes 0.0089 ms.
 //

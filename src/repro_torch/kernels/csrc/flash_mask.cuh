@@ -1,5 +1,5 @@
 // The mask and tile ranges of the flash-attention kernels
-// (flash_attention.cu, flash_attention_tc.cu, flash_attention_wgmma.cu,
+// (flash_attention.cu, flash_attention_wgmma.cu, flash_attention_wgmma_bwd.cu,
 // flash_decode.cu), in one place.  `pair_valid`: whether the query row at
 // absolute position qa sees the key at position kp of Sk keys under a
 // causal mask and a sliding window.  The reference's predicate

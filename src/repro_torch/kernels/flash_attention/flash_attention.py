@@ -18,9 +18,10 @@ too: row i of q sits at absolute position ``q_offset + i`` of the keys
 
 Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
 training path's dtype) runs on the tensor cores (the forward in ``csrc/
-flash_attention_wgmma.cu``: wgmma on tiles that TMA copies into shared
-memory, a producer warp and two consumer warpgroups; the backward in
-``csrc/flash_attention_tc.cu``), float32 on the CUDA cores
+flash_attention_wgmma.cu``, the backward in ``csrc/
+flash_attention_wgmma_bwd.cu``: wgmma on tiles that TMA copies into shared
+memory, a producer warp and two consumer warpgroups), float32 on the CUDA
+cores
 (``csrc/flash_attention.cu``).  Each dtype has exactly one route, and there
 is no fallback between them.  A forward of at most ``DECODE_MAX_ROWS``
 query rows (decode: Whisper's cross-attention at Sq = 1) takes, in either
@@ -237,6 +238,26 @@ def fwd_key_tile(head_dim: int) -> int:
     return {64: 128, 128: 112, 192: 64}[fwd_instance(head_dim)]
 
 
+# The bf16 backward (flash_attention_wgmma_bwd.cu) takes the forward's
+# instances.  dQ: a block is WGMMA_ROWS query rows over key tiles of
+# :func:`bwd_dq_keys`; dK/dV: a block is WGMMA_ROWS keys over query tiles
+# of BWD_DKDV_ROWS.  At the 192 instance dK/dV runs as two passes (dV,
+# then dK), each with one accumulator.
+BWD_DKDV_ROWS = 64
+
+
+def bwd_instance(head_dim: int) -> int:
+    """The head dim of the bf16 backward's instance that serves
+    ``head_dim``: the forward's (:func:`fwd_instance`)."""
+    return fwd_instance(head_dim)
+
+
+def bwd_dq_keys(head_dim: int) -> int:
+    """Keys a tile of the bf16 backward's dQ (``DqTiles<D>::kBK``): 64, or
+    32 at the 192 instance (registers)."""
+    return 32 if bwd_instance(head_dim) == 192 else 64
+
+
 class TensorMap(NamedTuple):
     """A 4-d tensor map as ``flash_attention_wgmma.cu``'s ``tile_map``
     encodes it (innermost first): ``dims`` (head_dim, heads, S, B),
@@ -338,29 +359,56 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     return o.transpose(1, 2)
 
 
+def bwd_operands(q, k, v, o, lse, dout, r: Route):
+    """What a backward launch of route ``r`` reads: ``(q, k, v, o, lse,
+    dout, strides)``.  bf16 (:data:`TENSOR_CORES`): q, k, v, o and dout as
+    they lie where :func:`_rows_aligned` takes them, else a contiguous
+    copy (k and v both copied if their strides differ), lse contiguous
+    with a 16-byte aligned base (its 1-d tensor map's), and ``strides``
+    the (batch, seq, head) element strides of q, k (and v), o and dout in
+    the C entry's order.  f32: every operand contiguous, no strides."""
+    lse = lse.contiguous()
+    if r != TENSOR_CORES:
+        q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
+        return q, k, v, o, lse, dout, ()
+    q, k, v, o, dout = (t if _rows_aligned(t) else t.contiguous()
+                        for t in (q, k, v, o, dout))
+    if v.stride() != k.stride():
+        k, v = k.contiguous(), v.contiguous()
+    if lse.data_ptr() % 16:
+        lse = lse.clone()
+    strides = (*q.stride()[:3], *k.stride()[:3], *o.stride()[:3],
+               *dout.stride()[:3])
+    return q, k, v, o, lse, dout, strides
+
+
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
                         window: int = 0, q_offset=None):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the
     output gradient ``dout`` (B, Sq, H, D), from the forward's ``o`` and
-    ``lse``, at the forward's ``q_offset``.  Every operand is made
-    contiguous (a no-op on the model path); the results are contiguous, in
-    q's dtype, and every key row of dk, dv is written (zeros where no row
-    of q sees the key).  On the current stream, no atomics: bf16 two
-    launches (dQ, which also forms rowsum(dout * o), then dK/dV), f32
-    three (the row sums, dK/dV, dQ) and, for G = H / KVH > 1, a fourth
-    after dK/dV that adds up the query heads' terms from f32 scratch
-    (2 x B x Sk x H x D, allocated here)."""
+    ``lse``, at the forward's ``q_offset``.  bf16 reads q, k, v, o and
+    dout through their strides as they lie where :func:`_rows_aligned`
+    takes them (the forward's rule: the model path's views and the
+    reference signature's transposed ones) and copies the rest once; f32
+    makes every operand contiguous.  The results are contiguous, in q's
+    dtype, and every key row of dk, dv is written (zeros where no row of q
+    sees the key).  On the current stream, no atomics: bf16 two launches
+    (dQ, which also forms rowsum(dout * o), then dK/dV; three at the 192
+    instance, dK/dV in two passes), f32 three (the row
+    sums, dK/dV, dQ) and, for G = H / KVH > 1, a fourth after dK/dV that
+    adds up the query heads' terms from f32 scratch (2 x B x Sk x H x D,
+    allocated here)."""
     B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window, q_offset)
     _require(o.shape == q.shape and dout.shape == q.shape
              and lse.shape == (B, H, Sq), "o, dout or lse shape")
     _require(o.dtype == q.dtype and lse.dtype == torch.float32,
              "o must have q's dtype and lse float32")
-    dout = dout.to(q.dtype)
-    q, k, v, o, lse, dout = (t.contiguous() for t in (q, k, v, o, lse, dout))
+    q, k, v, o, lse, dout, strides = bwd_operands(q, k, v, o, lse,
+                                                  dout.to(q.dtype), r)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KVH, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     ptrs = [t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq, dk, dv)]
     part = None                 # f32: the query heads' dK, dV terms (G > 1)
     if r == CUDA_CORES:
@@ -371,8 +419,8 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     lib = load_library()
     with torch.cuda.device(q.device):
         code = getattr(lib, r.bwd)(
-            *ptrs, B, Sq, Sk, H, KVH, D, int(bool(causal)), int(window),
-            int(q_offset or 0),
+            *ptrs, B, Sq, Sk, H, KVH, D, *strides, int(bool(causal)),
+            int(window), int(q_offset or 0),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1

@@ -14,8 +14,9 @@ plain version.
   at or below it the decode kernel; ``route`` still raises for other
   dtypes and head dims;
 * the sources: the forward issues ``wgmma`` on operands that
-  ``cp.async.bulk.tensor`` brought in, and no ``mma.sync`` forward is
-  left; the tile predicates have one home (``flash_mask.cuh``).
+  ``cp.async.bulk.tensor`` brought in (its helpers in ``hopper.cuh``), and
+  no ``mma.sync`` forward is left; the tile predicates have one home
+  (``flash_mask.cuh``).
 """
 
 from __future__ import annotations
@@ -29,13 +30,20 @@ from repro_torch.kernels._build import CSRC, SIGNATURES
 from repro_torch.kernels.flash_attention import flash_attention as fa
 
 WGMMA = CSRC / "flash_attention_wgmma.cu"
-TC = CSRC / "flash_attention_tc.cu"
+BWD = CSRC / "flash_attention_wgmma_bwd.cu"
+HOPPER = CSRC / "hopper.cuh"
 BF16 = torch.bfloat16
 
 
 def _code(path) -> str:
     """A source without its // comments."""
     return re.sub(r"//[^\n]*", "", path.read_text())
+
+
+def _code_with_header(path) -> str:
+    """A source and the Hopper helpers it includes, without comments."""
+    assert '#include "hopper.cuh"' in path.read_text()
+    return _code(path) + _code(HOPPER)
 
 
 # ---------------------------------------------------------------- instances
@@ -215,7 +223,7 @@ class TestEntry:
                           if f'extern "C" int {name}(' in p.read_text()]
                    for name in SIGNATURES}
         assert defined["repro_flash_attention_tc_fwd"] == [WGMMA.name]
-        assert defined["repro_flash_attention_tc_bwd"] == [TC.name]
+        assert defined["repro_flash_attention_tc_bwd"] == [BWD.name]
 
     @pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
                                        torch.int8])
@@ -237,7 +245,7 @@ class TestEntry:
 # ------------------------------------------------------------------ sources
 class TestSources:
     def test_the_forward_is_wgmma_fed_by_tma(self):
-        code = _code(WGMMA)
+        code = _code_with_header(WGMMA)
         for needle in ("wgmma.mma_async.sync.aligned.m64n", "wgmma.fence",
                        "wgmma.commit_group", "wgmma.wait_group",
                        "cp.async.bulk.tensor.4d", "mbarrier.try_wait",
@@ -251,12 +259,13 @@ class TestSources:
                          code)
 
     def test_no_mma_sync_forward_is_left(self):
-        assert "mma.sync" not in _code(WGMMA)
-        assert "ldmatrix" not in _code(WGMMA)
-        tc = _code(TC)
-        assert "flash_tc_fwd" not in tc
-        assert "repro_flash_attention_tc_fwd(" not in tc
-        assert "kFwd" not in tc
+        for path in (WGMMA, BWD, HOPPER):
+            assert "mma.sync" not in _code(path)
+            assert "ldmatrix" not in _code(path)
+        bwd = _code(BWD)
+        assert "flash_tc_fwd" not in bwd
+        assert "repro_flash_attention_tc_fwd(" not in bwd
+        assert not (CSRC / "flash_attention_tc.cu").exists()
 
     @pytest.mark.parametrize("helper", ["tile_full", "k_range", "floor_div",
                                         "tile_needed", "row_pair_valid",
@@ -268,7 +277,7 @@ class TestSources:
         assert homes == ["flash_mask.cuh"]
 
     @pytest.mark.parametrize("src", ["flash_attention.cu",
-                                     "flash_attention_tc.cu",
+                                     "flash_attention_wgmma_bwd.cu",
                                      "flash_attention_wgmma.cu",
                                      "flash_decode.cu"])
     def test_every_flash_source_includes_the_mask_header(self, src):

@@ -287,12 +287,10 @@ def test_no_build_or_device_decision_at_import():
     ``build/``-like state."""
     from repro_torch.kernels import _build
     assert _build._LIB is None or _build.BuildInfo.path is not None
-    assert [s.name for s in _build.sources()] == ["flash_attention.cu",
-                                                  "flash_attention_tc.cu",
-                                                  "flash_attention_wgmma.cu",
-                                                  "flash_decode.cu",
-                                                  "page_pack.cu",
-                                                  "paged_attention.cu"]
+    assert [s.name for s in _build.sources()] == [
+        "flash_attention.cu", "flash_attention_wgmma.cu",
+        "flash_attention_wgmma_bwd.cu", "flash_decode.cu", "page_pack.cu",
+        "paged_attention.cu"]
     for s in _build.sources():
         text = s.read_text()
         assert "torch/extension.h" not in text

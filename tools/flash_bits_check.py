@@ -8,15 +8,21 @@ Builds, for the tree at ``DIR`` (an earlier checkout, for example
 ``repro_flash_attention_tc_fwd`` / ``_bwd`` and the f32 route's
 ``repro_flash_attention_fwd`` / ``_bwd``, wherever each tree keeps them)
 into ``build/flash_bits/parent.so`` and ``current.so``, all ``nvcc`` at
-once with the port's flags.  Then, on ``chip_smoke.BF16_BITS_CASES`` from
-one seed (``chip_smoke.bf16_bits``), prints the sha256 of
+once with the port's flags (a tree whose bf16 backward entry takes the
+operands' strides is called with them, an older one without).  Then, on
+``chip_smoke.BF16_BITS_CASES`` from one seed (``chip_smoke.bf16_bits``),
+prints the sha256 of
 
+* ``bf16_forward``: o and lse of each tree's bf16 forward and of this
+  tree's binding (``flash_attention_fwd`` at ``q_offset = 0``), which
+  ``chip_smoke.BF16_FWD_BITS`` holds;
 * ``bf16``: o, lse, dq, dk and dv of each tree's kernels and of this
-  tree's bindings (``flash_attention_fwd`` / ``flash_attention_bwd`` at
-  ``q_offset = 0``).  ``chip_smoke.BF16_BITS`` holds this tree's digest;
+  tree's bindings (``flash_attention_bwd`` too).  ``chip_smoke.BF16_BITS``
+  holds this tree's digest;
 * ``bf16_backward_at_parent_forward``: dq, dk and dv of each tree's
   backward given the parent's forward's o and lse, so a change to the
-  forward alone leaves them equal;
+  forward alone leaves them equal and a change to the backward moves
+  them;
 * ``float32``: the same cases in f32 through each tree's CUDA-core route,
   forward and backward;
 
@@ -46,6 +52,21 @@ def entry_sources(tree: Path) -> list:
     pat = re.compile(r'extern "C" int (%s)\(' % "|".join(ENTRIES))
     return [p for p in sorted((tree / CSRC).glob("*.cu"))
             if pat.search(p.read_text())]
+
+
+def bwd_argtypes(sources: list) -> list:
+    """The ctypes argtypes of the bf16 backward entry that ``sources``
+    define: with the operands' strides (the wgmma backward) or, for an
+    older tree whose entry takes them contiguous, without."""
+    from repro_torch.kernels import _build
+    sig = _build.SIGNATURES["repro_flash_attention_tc_bwd"]
+    for src in sources:
+        head = src.read_text().partition(
+            'extern "C" int repro_flash_attention_tc_bwd(')
+        if head[1]:
+            strided = "long long" in head[2].split(")", 1)[0]
+            return sig if strided else sig[:16] + sig[28:]
+    raise SystemExit(f"no repro_flash_attention_tc_bwd in {sources}")
 
 
 def build(trees: dict) -> dict:
@@ -81,6 +102,8 @@ def build(trees: dict) -> dict:
         for fn in ENTRIES:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
+        lib.repro_flash_attention_tc_bwd.argtypes = bwd_argtypes(
+            entry_sources(trees[name]))
         libs[name] = lib
     return libs
 
@@ -95,7 +118,8 @@ def main() -> int:
                     help="root of the earlier tree (holds src/repro_torch)")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    from chip_smoke import BF16_BITS, BF16_BITS_CASES, _rand, bf16_bits
+    from chip_smoke import (BF16_BITS, BF16_BITS_CASES, BF16_FWD_BITS,
+                            _rand, bf16_bits)
     from repro_torch.kernels._build import check_launch
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
@@ -128,12 +152,16 @@ def main() -> int:
             dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
             ptrs = [t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq,
                                            dk, dv)]
+            strides = ()
             if f32:              # the query heads' dK, dV terms (G > 1)
                 part = torch.empty((2, B, S, H, D), dtype=torch.float32,
                                    device=dev) if H > KVH else None
                 ptrs.append(None if part is None else part.data_ptr())
-            check_launch(bwd_fn(*ptrs, B, S, S, H, KVH, D, int(causal),
-                                window, 0, stream()), "bwd")
+            elif len(bwd_fn.argtypes) > 20:     # the entry takes strides
+                strides = (*q.stride()[:3], *k.stride()[:3],
+                           *o.stride()[:3], *dout.stride()[:3])
+            check_launch(bwd_fn(*ptrs, B, S, S, H, KVH, D, *strides,
+                                int(causal), window, 0, stream()), "bwd")
             return dq, dk, dv
         return fwd, bwd
 
@@ -155,25 +183,33 @@ def main() -> int:
                 h.update(t.view(torch.uint8).cpu().numpy().tobytes())
         return h.hexdigest()
 
-    bf16 = {n: bf16_bits(dev, *calls(lib, False)) for n, lib in libs.items()}
-    bf16["bindings"] = bf16_bits(
+    pairs = {n: bf16_bits(dev, *calls(lib, False))
+             for n, lib in libs.items()}
+    pairs["bindings"] = bf16_bits(
         dev, lambda q, k, v, c, w: flash_attention_fwd(
             q, k, v, causal=c, window=w, q_offset=0),
         lambda q, k, v, o, lse, do, c, w: flash_attention_bwd(
             q, k, v, o, lse, do, causal=c, window=w, q_offset=0))
+    fwd = {n: p[0] for n, p in pairs.items()}
+    bf16 = {n: p[1] for n, p in pairs.items()}
     at_parent = {n: backward_at(libs["parent"], lib)
                  for n, lib in libs.items()}
-    f32 = {n: bf16_bits(dev, *calls(lib, True), dtype=torch.float32)
+    f32 = {n: bf16_bits(dev, *calls(lib, True), dtype=torch.float32)[1]
            for n, lib in libs.items()}
     print(json.dumps({
         "sources": {n: [p.name for p in entry_sources(t)]
                     for n, t in trees.items()},
+        "bf16_forward": fwd,
+        "bf16_forward_unchanged": len(set(fwd.values())) == 1,
         "bf16": bf16,
         "bf16_current_equals_bindings": bf16["current"] == bf16["bindings"],
         "bf16_current_equals_parent": bf16["current"] == bf16["parent"],
         "bf16_backward_at_parent_forward": at_parent,
         "bf16_backward_unchanged": len(set(at_parent.values())) == 1,
         "float32": f32, "float32_unchanged": len(set(f32.values())) == 1,
+        "chip_smoke_BF16_FWD_BITS": BF16_FWD_BITS,
+        "chip_smoke_BF16_FWD_BITS_is_current": BF16_FWD_BITS == fwd[
+            "current"],
         "chip_smoke_BF16_BITS": BF16_BITS,
         "chip_smoke_BF16_BITS_is_current": BF16_BITS == bf16["current"],
         "torch": torch.__version__}), flush=True)

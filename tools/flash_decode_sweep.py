@@ -8,7 +8,7 @@ dK/dV kernels, then:
 
 1. ``route``: device ms of the decode kernel (its plan's cluster size,
    ``chip_smoke._decode_fwd``) against the dtype's tile kernel
-   (``flash_attention_tc.cu`` in bf16, ``flash_attention.cu`` in f32,
+   (``flash_attention_wgmma.cu`` in bf16, ``flash_attention.cu`` in f32,
    ``chip_smoke._tile_fwd``) over 1,500 keys at three head layouts
    (``HEADS``: Whisper's 16 / 16 of 64, G = 1; StarCoder2-3B's 24 / 2 of
    128, G = 12; 40 / 8 of 128, G = 5) for Sq = 1, 2, 4, 8, 16 at B = 4

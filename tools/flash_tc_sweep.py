@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""The bf16 flash forward of an earlier tree against this tree's, on one
+"""The bf16 flash kernels of an earlier tree against this tree's, on one
 GPU: ``python3 tools/flash_tc_sweep.py --parent DIR [--variants a,b]
-[--iters N]``.
+[--iters N] [--turns N] [--shapes a,b]``.
 
-Builds the parent tree's forward (``DIR`` is an earlier checkout, for
-example ``git archive <commit> src | tar -x -C DIR``; its
-``csrc/flash_attention_tc.cu`` held the ``mma.sync`` forward before the
-wgmma one), this tree's (``csrc/flash_attention_wgmma.cu``) and the
-``VARIANTS`` named, each a copy of this tree's source with one piece of
-its design taken out by a text substitution; all ``nvcc`` at once with
-the port's flags, into ``build/flash_tc_sweep/``; prints each kernel's
-ptxas resources.  Then, at the shapes of ``SHAPES`` (the training paths'
-forwards: Qwen3-14B at D = 128, DeepSeek-V3's MLA at D = 192, Zamba2-7B at
+Builds, for the parent tree (``DIR`` is an earlier checkout, for example
+``git archive <commit> src | tar -x -C DIR``), for this tree and for each
+of the ``VARIANTS`` named, the ``csrc/*.cu`` sources that hold the bf16
+entry points (``repro_flash_attention_tc_fwd`` / ``_bwd``, wherever the
+tree keeps them) into one library each, under ``build/flash_tc_sweep/``
+(a variant is a copy of this tree's ``csrc/`` with one piece of the
+design taken out by text substitutions in its sources or headers); all
+``nvcc`` at once with the port's flags; prints each kernel's ptxas
+resources.  Then, at the shapes of ``SHAPES`` (the training paths' flash
+calls: Qwen3-14B at D = 128, DeepSeek-V3's MLA at D = 192, Zamba2-7B at
 D = 112, Whisper-medium's cross and encoder attention, and ranks 0, 8 and
-15 of Qwen3-14B's sequence split over 16 ranks), each forward is timed in
-turns (parent, current, the variants, then in reverse) beside SDPA:
+15 of Qwen3-14B's sequence split over 16 ranks, and the last ranks of
+H2O-Danube-1.8B's at head dim 80 and of Mixtral-8x7B's with its
+window), each tree's forward and
+backward are timed in turns (parent, current, the variants, then in
+reverse, ``--turns`` in all), each turn beside SDPA's forward and its
+autograd backward:
 device ms per call from ``chip_smoke.time_ms`` (torch.profiler), the
-host's microseconds per call of the C entry (this tree's encodes three
-tensor maps a call), the bound (FLOPs at the card's bf16 rate or bytes at
-its memory rate, K and V over the keys the rows reach), and each output's
-largest row error against the parent's.  One JSON line per shape, then
-the card's name and power limit.  Needs ``nvcc`` and a card.
+parent's and this tree's backward by kernel (dQ and dK/dV apart), the
+host's microseconds per forward call of the C entry, the bounds (FLOPs
+at the card's bf16 rate or bytes at its memory rate; K and V over the keys
+the rows reach), and each output's largest row error against the
+parent's (the backward of every tree takes this tree's forward's o and
+lse).  One JSON line per shape, then the card's name and power limit.
+Needs ``nvcc`` and a card.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import argparse
 import ctypes
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -37,81 +46,137 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
-ENTRY = "repro_flash_attention_tc_fwd"
+FWD = "repro_flash_attention_tc_fwd"
+BWD = "repro_flash_attention_tc_bwd"
 
-# this tree's source with one piece of the design taken out: (old, new)
-# text substitutions, each of which must match once
+# this tree's sources with one piece of the design taken out: (file, old,
+# new) text substitutions, each of which must match once
 VARIANTS = {
     # the two warpgroups issue their products whenever they are ready
-    "no_ping_pong": [
-        ("auto my_turn = [&]() { named_sync(1 + wg, 2 * 128); };",
-         "auto my_turn = [&]() {};"),
-        ("auto your_turn = [&]() { named_arrive(2 - wg, 2 * 128); };",
-         "auto your_turn = [&]() {};")],
-    # every (batch, head) pair in one group: the latest q tiles of all
-    # heads first
-    "heads_together": [("constexpr long long kL2Budget = 32ll << 20;",
+    "no_ping_pong": [("hopper.cuh", "named_sync(1 + wg, 2 * 128);", ""),
+                     ("hopper.cuh", "named_arrive(2 - wg, 2 * 128);", "")],
+    # every pair in one group: the heaviest tiles of all heads first
+    "heads_together": [("hopper.cuh",
+                        "constexpr long long kL2Budget = 32ll << 20;",
                         "constexpr long long kL2Budget = 1ll << 62;")],
-    # groups of one pair: a head's q tiles one after the other
-    "one_head_at_a_time": [("constexpr long long kL2Budget = 32ll << 20;",
+    # groups of one pair (one KV head's query heads in dQ)
+    "one_head_at_a_time": [("hopper.cuh",
+                            "constexpr long long kL2Budget = 32ll << 20;",
                             "constexpr long long kL2Budget = 0;")],
-    # a ring of two stages
-    "two_stages": [("static constexpr int kStages = kFit < 4 ? kFit : 4;",
-                    "static constexpr int kStages = 2;")],
+    # rings of two stages
+    "two_stages": [("flash_attention_wgmma.cu",
+                    "static constexpr int kStages = kFit < 4 ? kFit : 4;",
+                    "static constexpr int kStages = 2;"),
+                   ("flash_attention_wgmma_bwd.cu",
+                    "constexpr int kMaxStages = 4;",
+                    "constexpr int kMaxStages = 2;")],
 }
 
-# name: B, Sq, Sk, H, KVH, D, causal, q_offset
+# name: B, Sq, Sk, H, KVH, D, causal, q_offset, window
 SHAPES = {
-    "qwen3_14b_d128": (1, 4096, 4096, 40, 8, 128, True, 0),
-    "deepseek_v3_d192": (1, 4096, 4096, 128, 128, 192, True, 0),
-    "zamba2_7b_d112": (1, 4096, 4096, 32, 32, 112, True, 0),
-    "whisper_cross": (8, 448, 1500, 16, 16, 64, False, 0),
-    "whisper_encoder": (8, 1500, 1500, 16, 16, 64, False, 0),
-    "seq_split_rank0": (1, 256, 4096, 40, 8, 128, True, 0),
-    "seq_split_rank8": (1, 256, 4096, 40, 8, 128, True, 8 * 256),
-    "seq_split_rank15": (1, 256, 4096, 40, 8, 128, True, 15 * 256),
+    "qwen3_14b_d128": (1, 4096, 4096, 40, 8, 128, True, 0, 0),
+    "deepseek_v3_d192": (1, 4096, 4096, 128, 128, 192, True, 0, 0),
+    "zamba2_7b_d112": (1, 4096, 4096, 32, 32, 112, True, 0, 0),
+    "whisper_cross": (8, 448, 1500, 16, 16, 64, False, 0, 0),
+    "whisper_encoder": (8, 1500, 1500, 16, 16, 64, False, 0, 0),
+    "seq_split_rank0": (1, 256, 4096, 40, 8, 128, True, 0, 0),
+    "seq_split_rank8": (1, 256, 4096, 40, 8, 128, True, 8 * 256, 0),
+    "seq_split_rank15": (1, 256, 4096, 40, 8, 128, True, 15 * 256, 0),
+    # the other seq_split shapes' last (heaviest) ranks: H2O-Danube-1.8B
+    # at head dim 80 (the 128 instance) and Mixtral-8x7B with its window
+    "danube_d80_rank15": (1, 256, 4096, 32, 8, 80, True, 15 * 256, 0),
+    "mixtral_window_rank15": (1, 512, 8192, 32, 8, 128, True, 15 * 512,
+                              4096),
 }
 
 
-def variant_source(subs) -> str:
-    text = (ROOT / CSRC / "flash_attention_wgmma.cu").read_text()
-    for old, new in subs:
+def entry_sources(csrc: Path) -> list:
+    """The sources under ``csrc`` that define the bf16 entry points."""
+    pat = re.compile(r'extern "C" int (%s|%s)\(' % (FWD, BWD))
+    return [p for p in sorted(csrc.glob("*.cu")) if pat.search(p.read_text())]
+
+
+def variant_csrc(name: str, out: Path) -> Path:
+    """A copy of this tree's ``csrc/`` with the variant's substitutions."""
+    dst = out / name / "csrc"
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(ROOT / CSRC, dst)
+    for fname, old, new in VARIANTS[name]:
+        text = (dst / fname).read_text()
         if text.count(old) != 1:
-            raise SystemExit(f"{old!r}: {text.count(old)} matches")
-        text = text.replace(old, new)
-    return text
+            raise SystemExit(f"{name}: {fname}: {old!r}: {text.count(old)} "
+                             "matches")
+        (dst / fname).write_text(text.replace(old, new))
+    return dst
 
 
 def build(parent: Path, variants: list) -> dict:
-    """name -> (library, nvcc log) of the parent's forward source, this
-    tree's and each variant's."""
+    """name -> (forward, backward, strided backward?, nvcc log) of the
+    parent's sources, this tree's and each variant's."""
     from repro_torch.kernels import _build
+    from tools.flash_bits_check import bwd_argtypes
     out = ROOT / "build" / "flash_tc_sweep"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
-    srcs = {"parent": parent / CSRC / "flash_attention_tc.cu",
-            "current": ROOT / CSRC / "flash_attention_wgmma.cu"}
+    trees = {"parent": parent / CSRC, "current": ROOT / CSRC}
     for v in variants:
-        srcs[v] = out / f"{v}.cu"
-        srcs[v].write_text(variant_source(VARIANTS[v]))
-    procs = {}
-    for n, src in srcs.items():
-        inc = ROOT / CSRC if n in variants else src.parent  # flash_mask.cuh
-        procs[n] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-I", str(inc), "-shared", "-o",
-             str(out / f"{n}.so"), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for n, p in procs.items():
+        trees[v] = variant_csrc(v, out)
+    procs = []
+    for name, csrc in trees.items():
+        for src in entry_sources(csrc):
+            obj = out / f"{name}_{src.stem}.o"
+            procs.append((name, obj, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
+                 "-o", str(obj)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    objs = {name: [] for name in trees}
+    logs = {name: "" for name in trees}
+    for name, obj, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise SystemExit(f"nvcc failed on {n}:\n{log}")
-        lib = ctypes.CDLL(str(out / f"{n}.so"))
-        fn = getattr(lib, ENTRY)
-        fn.argtypes = _build.SIGNATURES[ENTRY]
-        fn.restype = ctypes.c_int
-        libs[n] = (fn, log)
+            raise SystemExit(f"nvcc failed on {obj.name}:\n{log}")
+        objs[name].append(str(obj))
+        logs[name] += log
+    libs = {}
+    for name, csrc in trees.items():
+        so = out / f"{name}.so"
+        r = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-shared", "-o", str(so), *objs[name]],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise SystemExit(f"link failed for {name}:\n{r.stdout}{r.stderr}")
+        lib = ctypes.CDLL(str(so))
+        fwd, bwd = getattr(lib, FWD), getattr(lib, BWD)
+        fwd.argtypes = _build.SIGNATURES[FWD]
+        bwd.argtypes = bwd_argtypes(entry_sources(csrc))
+        fwd.restype = bwd.restype = ctypes.c_int
+        libs[name] = (fwd, bwd, len(bwd.argtypes) > 20, logs[name])
     return libs
+
+
+def bwd_by_kernel(dev, fn, iters: int) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (its name without
+    template arguments: dQ and dK/dV apart), from one torch.profiler
+    session over ``iters`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(dev)
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"flash_[a-z_]+", e.key)
+            name = m.group(0) if m else e.key
+            out[name] = out.get(name, 0.0) + e.self_device_time_total \
+                / 1e3 / iters
+    return out
 
 
 def main() -> int:
@@ -126,6 +191,9 @@ def main() -> int:
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {', '.join(VARIANTS)}")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--turns", type=int, default=2,
+                    help="turns of each tree (even: in order, then in "
+                    "reverse); the medians are over them")
     ap.add_argument("--shapes", default=",".join(SHAPES))
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -135,8 +203,8 @@ def main() -> int:
     from repro_torch.kernels._build import check_launch
     variants = [v for v in args.variants.split(",") if v]
     libs = build(Path(args.parent), variants)
-    for n, (_, log) in libs.items():
-        print(json.dumps({"tree": n, "ptxas": _ptxas_by_kernel(log)}),
+    for n, lib in libs.items():
+        print(json.dumps({"tree": n, "ptxas": _ptxas_by_kernel(lib[3])}),
               flush=True)
 
     dev = torch.device("cuda", 0)
@@ -147,77 +215,133 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     for name in args.shapes.split(","):
-        B, Sq, Sk, H, KVH, D, causal, off = SHAPES[name]
+        B, Sq, Sk, H, KVH, D, causal, off, window = SHAPES[name]
         q, k, v = rand(B, Sq, H, D), rand(B, Sk, KVH, D), rand(B, Sk, KVH, D)
+        dout = rand(B, Sq, H, D)
         o = torch.empty_like(q)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
         stream = torch.cuda.current_stream(dev).cuda_stream
 
-        def call(fn):
-            check_launch(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, KVH,
-                            D, *q.stride()[:3], *k.stride()[:3], int(causal),
-                            0, off, stream), name)
+        def fwd_call(lib, out=o, stats=lse):
+            check_launch(lib[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), stats.data_ptr(), B, Sq, Sk,
+                                H, KVH, D, *q.stride()[:3], *k.stride()[:3],
+                                int(causal), window, off, stream), name)
+
+        def bwd_call(lib):
+            strides = (*q.stride()[:3], *k.stride()[:3], *o.stride()[:3],
+                       *dout.stride()[:3]) if lib[2] else ()
+            check_launch(lib[1](
+                *(t.data_ptr() for t in (q, k, v, o, dout, lse, delta,
+                                         *grads)),
+                B, Sq, Sk, H, KVH, D, *strides, int(causal), window, off,
+                stream), name)
 
         def host_us(fn, n=50):
-            call(fn)
+            fn()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             for _ in range(n):
-                call(fn)
+                fn()
             us = (time.perf_counter() - t0) * 1e6 / n
             torch.cuda.synchronize(dev)
             return us
 
-        outs = {}
-        for n, (fn, _) in libs.items():
-            call(fn)
-            torch.cuda.synchronize(dev)
-            outs[n] = o.clone()
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if off:
-            pos = off + torch.arange(Sq, device=dev)[:, None]
-            mask = pos >= torch.arange(Sk, device=dev)[None, :]
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        else:
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
         names = list(libs)
-        ms = {n: [] for n in names + ["sdpa"]}
-        hus = {n: [] for n in names}
+        outs, gouts = {}, {}
+        scratch_o = torch.empty_like(o)
+        scratch_lse = torch.empty_like(lse)
+        fwd_call(libs["current"])               # the backward's o and lse
+        for n in names:
+            fwd_call(libs[n], scratch_o, scratch_lse)
+            bwd_call(libs[n])
+            torch.cuda.synchronize(dev)
+            outs[n] = scratch_o.clone()
+            gouts[n] = [g.clone() for g in grads]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        if off or window:
+            pos = off + torch.arange(Sq, device=dev)[:, None]
+            key = torch.arange(Sk, device=dev)[None, :]
+            mask = pos >= key
+            if window:
+                mask &= pos - key < window
+            kw = dict(attn_mask=mask, enable_gqa=True)
+        else:
+            kw = dict(is_causal=causal, enable_gqa=True)
         with torch.no_grad():
-            for n in names + names[::-1]:
-                fn = libs[n][0]
-                ms[n].append(time_ms(dev, [lambda: call(fn)], args.iters))
-                hus[n].append(host_us(fn))
-                ms["sdpa"].append(time_ms(dev, [sdpa], args.iters))
-        pairs = B * (_split_pairs(Sk, off, off + Sq, True, 0) if causal
+            sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, **kw)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        dout_t = dout.transpose(1, 2)
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                retain_graph=True)
+
+        ms = {f"{n}_{p}": [] for n in names + ["sdpa"] for p in ("fwd", "bwd")}
+        hus = {n: [] for n in names}
+        for n in (names + names[::-1]) * max(1, args.turns // 2):
+            lib = libs[n]
+            with torch.no_grad():
+                ms[f"{n}_fwd"].append(time_ms(
+                    dev, [lambda: fwd_call(lib, scratch_o, scratch_lse)],
+                    args.iters))
+                ms[f"{n}_bwd"].append(time_ms(dev, [lambda: bwd_call(lib)],
+                                              args.iters))
+                hus[n].append(host_us(lambda: fwd_call(lib, scratch_o,
+                                                       scratch_lse)))
+                ms["sdpa_fwd"].append(time_ms(dev, [sdpa_fwd], args.iters))
+            ms["sdpa_bwd"].append(time_ms(dev, [sdpa_bwd], args.iters))
+        by_kernel = {n: bwd_by_kernel(dev, lambda: bwd_call(libs[n]),
+                                      args.iters)
+                     for n in ("parent", "current")}
+        pairs = B * (_split_pairs(Sk, off, off + Sq, True, window) if causal
                      else Sq * Sk)
-        flops = 4 * H * D * pairs
-        # read once / written once: q and o, K and V over the keys the rows
-        # reach (chip_smoke's seq_split bound), lse
-        keys = _split_keys(Sk, off, off + Sq, causal, 0)
-        nbytes = 2 * (2 * B * Sq * H * D + 2 * B * keys * KVH * D) \
-            + 4 * B * H * Sq
-        bound = max(flops / PEAK_FLOPS["bfloat16"],
-                    nbytes / HBM_BYTES_PER_S) * 1e3
+        keys = _split_keys(Sk, off, off + Sq, causal, window)
+
+        def bound(flops, nbytes):
+            return max(flops / PEAK_FLOPS["bfloat16"],
+                       nbytes / HBM_BYTES_PER_S) * 1e3
+
+        # read once / written once: q, o (and dout, dq), K and V over the
+        # keys the rows reach (and dk, dv over all Sk), lse (and delta)
+        fwd_bound = bound(4 * H * D * pairs,
+                          2 * (2 * B * Sq * H * D + 2 * B * keys * KVH * D)
+                          + 4 * B * H * Sq)
+        bwd_bound = bound(10 * H * D * pairs,
+                          2 * (4 * B * Sq * H * D + 2 * B * keys * KVH * D
+                               + 2 * B * Sk * KVH * D) + 8 * B * H * Sq)
         med = {n: statistics.median(x) for n, x in ms.items()}
         print(json.dumps({
             "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KVH": KVH,
-            "D": D, "causal": causal, "q_offset": off,
-            "ms": ms, "median_ms": med, "bound_ms": bound,
-            "bound_share_current": bound / med["current"],
-            "current_over_sdpa": med["current"] / med["sdpa"],
-            "current_over_parent": med["current"] / med["parent"],
-            "host_us_per_call": hus,
-            "row_rel_err_vs_parent": {n: _row_rel_err(outs[n],
-                                                      outs["parent"])
-                                      for n in names[1:]},
-            "finite": all(bool(torch.isfinite(outs[n].float()).all())
-                          for n in names),
-            "blocks_current": H * B * math.ceil(Sq / 128)}), flush=True)
-        del q, k, v, o, lse, outs, qt, kt, vt
+            "D": D, "causal": causal, "q_offset": off, "window": window,
+            "ms": ms, "median_ms": med,
+            "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+            "fwd_bound_share_current": fwd_bound / med["current_fwd"],
+            "bwd_bound_share_current": bwd_bound / med["current_bwd"],
+            "fwd_current_over_sdpa": med["current_fwd"] / med["sdpa_fwd"],
+            "bwd_current_over_sdpa": med["current_bwd"] / med["sdpa_bwd"],
+            "fwd_current_over_parent": med["current_fwd"]
+            / med["parent_fwd"],
+            "bwd_current_over_parent": med["current_bwd"]
+            / med["parent_bwd"],
+            "host_us_per_fwd_call": hus,
+            "bwd_ms_by_kernel": by_kernel,
+            "fwd_row_rel_err_vs_parent": {
+                n: _row_rel_err(outs[n], outs["parent"]) for n in names[1:]},
+            "bwd_row_rel_err_vs_parent": {
+                n: max(_row_rel_err(a, b) for a, b in
+                       zip(gouts[n], gouts["parent"])) for n in names[1:]},
+            "finite": all(bool(torch.isfinite(t.float()).all())
+                          for n in names for t in [outs[n], *gouts[n]]),
+            "blocks_current": {"fwd": H * B * math.ceil(Sq / 128),
+                               "bwd_dq": H * B * math.ceil(Sq / 128),
+                               "bwd_dkdv": KVH * B * math.ceil(Sk / 128)}}),
+            flush=True)
+        del q, k, v, o, lse, delta, grads, outs, gouts, qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
