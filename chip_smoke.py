@@ -287,7 +287,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 L2_BYTES = 50 * 2 ** 20          # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, by input type
+# dense, by input type; "float32" the CUDA cores', "tf32" the tensor
+# cores' (the f32 flash route takes three TF32 products a product)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # atol = rtol, as the CPU tests
 GRAD_TOL_F32 = 1e-4                           # flash gradients, f32
@@ -517,6 +519,31 @@ def check_close(a, b, tol: float, what: str) -> float:
     return err
 
 
+def _bound(flops, nbytes, dtype) -> dict:
+    """The least time the card could take: the larger of ``flops`` at the
+    dtype's peak and ``nbytes`` at HBM's rate.  f32: the tensor cores' rate
+    for three TF32 products a product (the f32 route's), with the CUDA
+    cores' bound beside it."""
+    import torch
+    f32 = dtype == torch.float32
+    t_ops = (3 * flops / PEAK_FLOPS["tf32"] if f32
+             else flops / PEAK_FLOPS[str(dtype).split(".")[-1]])
+    t_mem = nbytes / HBM_BYTES_PER_S
+    out = {"bound_ms": max(t_ops, t_mem) * 1e3,
+           "bound_by": "operations" if t_ops >= t_mem else "bytes",
+           "flops": flops, "bytes": nbytes}
+    if f32:
+        out["bound_cuda_cores_ms"] = max(flops / PEAK_FLOPS["float32"],
+                                         t_mem) * 1e3
+    return out
+
+
+#: the flash counters a sequence split moves: the bindings' and their
+#: routes' (the bf16 forward, the f32 forward and backward)
+SEQ_SPLIT_COUNTERS = ("flash_attention", "flash_attention_bwd",
+                      "flash_wgmma_fwd", "flash_f32_fwd", "flash_f32_bwd")
+
+
 # -------------------------------------------------------------- phase: device
 def phase_device(dev):
     import torch
@@ -535,6 +562,8 @@ def phase_device(dev):
 # --------------------------------------------------------------- phase: build
 FLASH_TC_KERNELS = ("flash_wgmma_fwd", "flash_wgmma_bwd_dq",
                     "flash_wgmma_bwd_dkdv")
+FLASH_F32_KERNELS = ("flash_f32_fwd", "flash_f32_bwd_dq",
+                     "flash_f32_bwd_dkdv")
 
 
 def bwd_instance_kernels(instances) -> list:
@@ -546,6 +575,19 @@ def bwd_instance_kernels(instances) -> list:
         names += ([f"flash_wgmma_bwd_dkdv<{d},1>",
                    f"flash_wgmma_bwd_dkdv<{d},2>"] if d == 192
                   else [f"flash_wgmma_bwd_dkdv<{d},0>"])
+    return names
+
+
+def f32_instance_kernels(instances) -> list:
+    """The f32 route's kernels (``csrc/flash_attention.cu``, 3xTF32 on
+    wgmma) at the instances' head dims: forward, dQ, and dK/dV in one pass
+    (template pass 0) or, at 192, a dV pass (1) and a dK pass (2)."""
+    names = [f"flash_f32_fwd<{d}>" for d in instances]
+    names += [f"flash_f32_bwd_dq<{d}>" for d in instances]
+    for d in instances:
+        names += ([f"flash_f32_bwd_dkdv<{d},1>",
+                   f"flash_f32_bwd_dkdv<{d},2>"] if d == 192
+                  else [f"flash_f32_bwd_dkdv<{d},0>"])
     return names
 
 
@@ -626,7 +668,7 @@ def _build_fields() -> dict:
     if not info.cached:
         wide = [n for n in resources
                 if n.startswith("flash_") and "<192" in n]
-        require(len(wide) == 7, f"head_dim 192 flash kernels: {wide}")
+        require(len(wide) == 8, f"head_dim 192 flash kernels: {wide}")
         decode = [n for n in resources if n.startswith("flash_decode")]
         # bf16: kR 1, 2, 4 at D 16 / 32 / 64 and 1, 2 at 128 / 192; f32:
         # 1, 2, 4, 8 and 1, 2, 4
@@ -638,7 +680,10 @@ def _build_fields() -> dict:
         bwd = [n for n in resources if n.startswith("flash_wgmma_bwd_")]
         require(sorted(bwd) == sorted(bwd_instance_kernels(WGMMA_INSTANCES)),
                 f"bf16 flash backward instances: {bwd}")
-        for n in wide + decode + fwd + bwd:
+        f32 = [n for n in resources if n.startswith("flash_f32_")]
+        require(sorted(f32) == sorted(f32_instance_kernels(WGMMA_INSTANCES)),
+                f"f32 flash instances: {f32}")
+        for n in wide + decode + fwd + bwd + f32:
             r = resources[n]
             require(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0,
                     f"{n} spills: {r.get('ptxas')}")
@@ -653,9 +698,12 @@ def _build_fields() -> dict:
             [f"flash_wgmma_fwd<{d}>" for d in WGMMA_INSTANCES]
             + bwd_instance_kernels(WGMMA_INSTANCES)),
                 f"bf16 flash kernels in the SASS: {tc}")
-        for n in tc:
-            # every bf16 flash kernel is wgmma (HGMMA) alone: no mma.sync
-            # (HMMA) left
+        f32 = [n for n in mma if n.split("<")[0] in FLASH_F32_KERNELS]
+        require(sorted(f32) == sorted(f32_instance_kernels(WGMMA_INSTANCES)),
+                f"f32 flash kernels in the SASS: {f32}")
+        for n in tc + f32:
+            # every bf16 and f32 flash kernel is wgmma (HGMMA) alone: no
+            # mma.sync (HMMA) left
             require(mma[n]["HGMMA"] > 0 and mma[n]["HMMA"] == 0,
                     f"{n}: HGMMA {mma[n]['HGMMA']}, HMMA {mma[n]['HMMA']}")
     paged = {n: r for n, r in resources.items()
@@ -666,6 +714,7 @@ def _build_fields() -> dict:
                 library=os.path.basename(str(info.path)),
                 sources=[s.name for s in _build.sources()],
                 spill_bytes_total=spills,
+                f32_flash_instances=f32_instance_kernels(WGMMA_INSTANCES),
                 paged_attention={n: {k: r.get(k) for k in ("registers",
                                                            "spill_stores",
                                                            "spill_loads")}
@@ -834,17 +883,21 @@ def _close_max(a, b, what: str) -> float:
 
 
 def _flash_f32_shape(gen, dev, name: str, B, S, H, KVH, D, it: int) -> dict:
-    """One f32 causal shape on the CUDA-core route: forward and gradients
-    held element by element against the plain version (atol = rtol = 2e-5
-    forward, 1e-4 gradients: every q and k tile of the three kernels' 64-row
-    loops), the backward's two calls bit-identical (the per-head dK/dV
-    terms summed in one order), and kernel / plain / SDPA device ms beside
-    the bound at the f32 CUDA-core rate."""
+    """One f32 causal shape on the f32 route (3xTF32 on wgmma): forward and
+    gradients held element by element against the plain version (atol =
+    rtol = 2e-5 forward, 1e-4 gradients), the backward's two calls
+    bit-identical (the per-head dK/dV terms summed in one order), and
+    kernel / plain / SDPA device ms beside the bound at the tensor cores'
+    rate for three TF32 products and the one at the f32 CUDA-core rate.
+    The plain version's products are true f32: TF32 matmuls are off."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32,
+            "TF32 matmuls are on: the f32 plain version is no yardstick")
     f32 = torch.float32
     q = _rand(gen, (B, S, H, D), f32, dev).requires_grad_(True)
     k = _rand(gen, (B, S, KVH, D), f32, dev).requires_grad_(True)
@@ -872,11 +925,7 @@ def _flash_f32_shape(gen, dev, name: str, B, S, H, KVH, D, it: int) -> dict:
     bwd_bytes = 4 * (6 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * H * S
 
     def bound(flops, nbytes):
-        t_ops = flops / PEAK_FLOPS["float32"]
-        t_mem = nbytes / HBM_BYTES_PER_S
-        return {"bound_ms": max(t_ops, t_mem) * 1e3,
-                "bound_by": "operations" if t_ops >= t_mem else "bytes",
-                "flops": flops, "bytes": nbytes}
+        return _bound(flops, nbytes, f32)
 
     plain_it = max(2, it // 3)
     with torch.no_grad():
@@ -909,6 +958,36 @@ def _flash_f32_shape(gen, dev, name: str, B, S, H, KVH, D, it: int) -> dict:
                     "library_ms": sdpa_bwd_ms,
                     "max_abs_err": max(e[0] for e in e_grad),
                     **bound(bwd_flops, bwd_bytes)}}
+
+
+def _f32_edges(gen, dev) -> dict:
+    """The f32 route at its edges (``F32_EDGE_CASES``): forward and
+    gradients through ``ops.flash_attention`` against the plain version
+    (``_flash_case``: element-wise, 2e-5 forward, 1e-4 gradients), then the
+    backward kernels twice on one set of inputs, whose bits must agree."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    keys = ("fwd_abs", "fwd_row_rel", "grad_abs", "grad_row_rel")
+    err = dict.fromkeys(keys, 0.0)
+    f32 = torch.float32
+    for B, Sq, Sk, H, KVH, D, causal, window, q_offset, *fused in \
+            F32_EDGE_CASES:
+        e = _flash_case(gen, dev, B, Sq, H, KVH, D, f32, causal, window,
+                        bool(fused), Sk=Sk, q_offset=q_offset)
+        err = {k: max(err[k], x) for k, x in zip(keys, e[0] + e[1])}
+        q, dout = (_rand(gen, (B, Sq, H, D), f32, dev) for _ in range(2))
+        k, v = (_rand(gen, (B, Sk, KVH, D), f32, dev) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        a = flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        b = flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        sync(dev)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"flash_attention_bwd f32 B{B} Sq{Sq} Sk{Sk} H{H} KVH{KVH} "
+                f"D{D}: two calls differ")
+    return {"cases": len(F32_EDGE_CASES), "max_abs_err": err,
+            "backward_bit_identical_over_two_calls": True}
 
 
 def _tile_fwd(q, k, v, causal: bool = False):
@@ -1014,6 +1093,19 @@ DECODE_CASES = [
 # at its defaults: a batch of 8 in two microbatches, 64 tokens, 8 / 4
 # heads of 64, f32): B, S, H, KVH, D
 EXAMPLE_F32 = (4, 64, 8, 4, 64)
+# the f32 route's own edges (csrc/flash_attention.cu: 64-row blocks, key
+# tiles of 64 or 32, q tiles of 64 or 32 in dK/dV, lse and delta copied
+# from the aligned element before a tile's first): B, Sq, Sk, H, KVH, D,
+# causal, window, q_offset[, fused]
+F32_EDGE_CASES = [
+    (1, 130, 130, 4, 1, 64, True, 0, None),      # Sq % 4 = 2, KVH = 1
+    (2, 333, 333, 8, 2, 128, True, 0, None),     # Sq a multiple of neither
+    (1, 93, 1536, 24, 2, 128, True, 0, 207),     # an offset inside a tile
+    (1, 97, 700, 8, 1, 192, True, 100, 301),     # ... a window, KVH = 1
+    (2, 66, 66, 6, 1, 80, False, 0, None, True),  # views, KVH = 1
+    (1, 9, 9, 4, 4, 16, True, 0, None),          # the fewest tile rows
+    (2, 77, 129, 8, 2, 112, False, 0, None, True),  # cross, views
+]
 DECODE_GRAD_CASES = [
     # B, Sq, Sk, H, KVH, D, causal, window, q_offset: a decode-route
     # forward, then the backward kernels, against the plain gradients
@@ -1504,14 +1596,17 @@ def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
     counts = _launches()
     ranks_s = time.perf_counter() - t0
     # bf16 ranks of more than DECODE_MAX_ROWS rows: the wgmma forward
+    # bf16 ranks of more than DECODE_MAX_ROWS rows: the wgmma forward; f32
+    # ranks: the f32 route's forward and backward
+    f32 = dtype == torch.float32
     require(dev.type != "cuda" or (
         counts["flash_attention"] == m and counts["flash_attention_bwd"] == m
-        and counts["flash_wgmma_fwd"] == (m if dtype == torch.bfloat16
-                                          else 0)),
+        and counts["flash_wgmma_fwd"] == (0 if f32 else m)
+        and counts["flash_f32_fwd"] == counts["flash_f32_bwd"]
+        == (m if f32 else 0)),
             f"{what}: launches {counts}")
 
     # (a) each rank against the plain version at its offset
-    f32 = dtype == torch.float32
     e_fwd = e_grad = (0.0, 0.0)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     for r in range(m):
@@ -1563,7 +1658,6 @@ def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
     # the plain version's and SDPA's (one call over the rank's Sq x Sk
     # offset mask) at the first, middle and last rank and the whole call
     el = q.element_size()
-    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
 
     def bound(lo, hi, bwd):
         n = hi - lo
@@ -1575,10 +1669,7 @@ def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
         keys = _split_keys(S, lo, hi, causal, window)
         nbytes = el * B * ((4 if bwd else 2) * n * H * D + 2 * keys * KVH * D
                            + (2 * S * KVH * D if bwd else 0)) + 4 * B * H * n
-        t_ops, t_mem = flops / peak, nbytes / HBM_BYTES_PER_S
-        return {"bound_ms": max(t_ops, t_mem) * 1e3,
-                "bound_by": "operations" if t_ops >= t_mem else "bytes",
-                "flops": flops, "bytes": nbytes, "keys": keys}
+        return {**_bound(flops, nbytes, dtype), "keys": keys}
 
     def timed(off, qr, dr, o_r, lse_r, others: bool) -> dict:
         n = qr.shape[1]
@@ -1633,9 +1724,7 @@ def _seq_split_case(gen, dev, name: str, B, S, H, KVH, D, dtype, causal,
     return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
                       "dtype": str(dtype).split(".")[-1], "causal": causal,
                       "window": window, "ranks": m, "rows_per_rank": rows},
-            "launches": {n: counts[n] for n in ("flash_attention",
-                                                 "flash_attention_bwd",
-                                                 "flash_wgmma_fwd")},
+            "launches": {n: counts[n] for n in SEQ_SPLIT_COUNTERS},
             "ranks_seconds": ranks_s,
             "max_abs_err": {"rank_fwd": e_fwd[0], "rank_fwd_row_rel": e_fwd[1],
                             "rank_grad": e_grad[0],
@@ -1666,8 +1755,7 @@ def phase_seq_split(dev, sz: Sizes, table) -> dict:
     gen.manual_seed(25)
     m, it = sz.seq_split_ranks, sz.seq_split_iters
     cases = {}
-    total = {"flash_attention": 0, "flash_attention_bwd": 0,
-             "flash_wgmma_fwd": 0}
+    total = dict.fromkeys(SEQ_SPLIT_COUNTERS, 0)
     for name, arch, S, dtype, window in (
             ("qwen3_train", sz.arch, sz.train_seq, torch.bfloat16, 0),
             ("mixtral_window", sz.moe_arch, 2 * sz.train_seq,
@@ -1754,8 +1842,12 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
             errs[n] = {k: max(errs[n][k], x)
                        for k, x in zip(keys, e[0] + e[1])}
 
+    # the f32 route's own edges
+    f32_edges = _f32_edges(gen, dev)
+    errs["float32_route_edges"] = f32_edges["max_abs_err"]
+
     # the training shape: one layer of one microbatch of the train phase;
-    # in f32 (the CUDA-core route) also the training example's call (its
+    # in f32 (the f32 route) also the training example's call (its
     # batch of 8 in two microbatches, 8 / 4 heads of 64 over 64 tokens)
     B, S, H, KVH, D = 1, sz.train_seq, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim
@@ -1905,6 +1997,25 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
     f, b = main["fwd"], main["bwd"]
     dec = w_dec["fwd"]
     f32_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    f32f, f32b = f32_train["fwd"], f32_train["bwd"]
+    f32_design = {
+        "instruction": "wgmma.mma_async m64nNk8 tf32 x tf32 -> f32, three "
+        "products a product (3xTF32: each operand split into a TF32 big "
+        "part, its low 13 bits cleared, and the rest; a_big b_big + a_big "
+        "b_small + a_small b_big), B K-major in shared memory, A there too "
+        "where a block splits it once (the forward's Q at D 64, dQ's Q and "
+        "dO at D <= 128), else in registers (split a k step ahead, or from "
+        "the accumulator); V, K, dO and Q written transposed by the "
+        "consumers where the reduction runs down the rows",
+        "loads": "cp.async.bulk.tensor over 4-d tensor maps "
+        "of q, k, v, o and dout (f32, 32-column boxes, 128-byte swizzle) "
+        "and 1-d maps of lse and delta; a ring under full / empty "
+        "mbarriers", "threads": "one consumer warpgroup of 64 rows and a "
+        "producer warp (one issuing thread)", "instances": "D 64, 128, 192 "
+        "(16-48 on 64, 80-112 on 128); keys a tile forward 64 / 64 / 32, "
+        "dQ 64 / 32 / 32; dK/dV query rows 64 / 32 / 32, one query head a "
+        "block, G > 1 summed in head order by flash_bwd_dkdv_sum_kernel; "
+        "dK/dV at 192 in two passes"}
     rows = [
         {"name": "flash_attention", "route": "cuda", "source": fwd_src,
          "replaces": tpu, "launches": 0, "max_abs_err": f["max_abs_err"],
@@ -1919,14 +2030,9 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          "whisper": {**whisper, "decode": w_dec["fwd"],
                      "decode_batch1": w_dec1["fwd"],
                      "cross": w_cross["fwd"], "encoder": w_enc["fwd"]},
-         "float32_route": {"source": f32_src,
-                           "training_shape": {"shape": f32_train["shape"],
-                                              **f32_train["fwd"]},
-                           "training_example": {
-                               "shape": f32_example["shape"],
-                               **f32_example["fwd"]}},
-         "note": "launches count every forward, the decode kernel's and "
-         "the wgmma kernel's too (their own rows below)"},
+         "note": "launches count every forward, the decode kernel's, the "
+         "bf16 wgmma kernel's and the f32 route's too (their own rows "
+         "below)"},
         {"name": "flash_wgmma_fwd", "route": "cuda", "source": fwd_src,
          "replaces": tpu, "note": "the bf16 forward of calls of more than "
          "DECODE_MAX_ROWS query rows (forward_entry); each launch also "
@@ -1989,20 +2095,49 @@ def phase_flash(dev, sz: Sizes, cfg, names: list):
          f"head_dim_{D3}": {**d112, **z["bwd"]},
          "whisper": {**whisper, "cross": w_cross["bwd"],
                      "encoder": w_enc["bwd"]},
-         "float32_route": {
-             "source": f32_src, "design": "dK/dV one block a query head "
-             "and k tile, the heads' terms summed in head order from f32 "
-             "scratch (2 x B x Sk x H x D) by a second kernel",
-             "training_shape": {
-                 "shape": f32_train["shape"], **f32_train["bwd"],
-                 "bit_identical_over_two_calls": f32_train[
-                     "backward_bit_identical_over_two_calls"]},
-             "training_example": {
-                 "shape": f32_example["shape"], **f32_example["bwd"],
-                 "bit_identical_over_two_calls": f32_example[
-                     "backward_bit_identical_over_two_calls"]}}},
+         "note": "launches count every backward, the f32 route's too (its "
+         "own row below)"},
+        {"name": "flash_f32_fwd", "route": "cuda", "source": f32_src,
+         "replaces": tpu, "note": "the f32 forward of calls of more than "
+         "DECODE_MAX_ROWS query rows (forward_entry); each launch also "
+         "counts under flash_attention", "launches": 0,
+         "max_abs_err": max(f32f["max_abs_err"],
+                            f32_example["fwd"]["max_abs_err"],
+                            f32_edges["max_abs_err"]["fwd_abs"]),
+         "ms": f32f["ms"], "plain_ms": f32f["plain_ms"],
+         "bound_ms": f32f["bound_ms"], "bound_by": f32f["bound_by"],
+         "bound_cuda_cores_ms": f32f["bound_cuda_cores_ms"],
+         "library_ms": f32f["library_ms"],
+         "library": "F.scaled_dot_product_attention (enable_gqa)",
+         **f32_design, "flops": f32f["flops"], "bytes": f32f["bytes"],
+         "shape": f32_train["shape"],
+         "training_example": {"shape": f32_example["shape"],
+                              **f32_example["fwd"]},
+         "edges": f32_edges},
+        {"name": "flash_f32_bwd", "route": "cuda", "source": f32_src,
+         "replaces": tpu, "note": "the gradient of the f32 route; each "
+         "launch (dQ, dK/dV, and for G > 1 the group sum) counts once here "
+         "and once under flash_attention_bwd", "launches": 0,
+         "max_abs_err": max(f32b["max_abs_err"],
+                            f32_example["bwd"]["max_abs_err"],
+                            f32_edges["max_abs_err"]["grad_abs"]),
+         "ms": f32b["ms"], "plain_ms": f32b["plain_ms"],
+         "bound_ms": f32b["bound_ms"], "bound_by": f32b["bound_by"],
+         "bound_cuda_cores_ms": f32b["bound_cuda_cores_ms"],
+         "library_ms": f32b["library_ms"],
+         "library": "autograd of F.scaled_dot_product_attention",
+         **f32_design, "flops": f32b["flops"], "bytes": f32b["bytes"],
+         "shape": f32_train["shape"],
+         "bit_identical_over_two_calls": f32_train[
+             "backward_bit_identical_over_two_calls"],
+         "training_example": {
+             "shape": f32_example["shape"], **f32_example["bwd"],
+             "bit_identical_over_two_calls": f32_example[
+                 "backward_bit_identical_over_two_calls"]},
+         "edges": f32_edges},
     ]
     cases = 2 * len(FLASH_CASES) + 8 + 2 * len(CROSS_CASES) + refused + 4 \
+        + 2 * len(F32_EDGE_CASES) \
         + len(errs["reference_signature"]) + 10 * len(DECODE_CASES) \
         + 2 * len(DECODE_GRAD_CASES) + wgmma["cases"] \
         + wgmma["bit_identical_over_two_calls"] \
@@ -5942,7 +6077,9 @@ EXAMPLE_RUNNER = (
     "sys.argv = sys.argv[2:]\n"
     "kernels.reset_launch_counts()\n"
     "runpy.run_path(path, run_name='__main__')\n"
-    "print('launches ' + json.dumps(kernels.launch_counts()), flush=True)\n")
+    "print('launches ' + json.dumps({**kernels.launch_counts(),\n"
+    "                                **kernels.route_launch_counts()}),\n"
+    "      flush=True)\n")
 
 
 def _start_example(name: str, *args, wait: bool = False):
@@ -6056,9 +6193,12 @@ def phase_examples(dev, sz: Sizes, table) -> None:
                                                  "page_scatter")),
                        ("examples_train", ("flash_attention",
                                            "flash_attention_bwd",
+                                           "flash_f32_fwd", "flash_f32_bwd",
                                            "page_gather", "page_scatter")),
                        ("examples_train_resume", ("flash_attention",
-                                                  "flash_attention_bwd"))):
+                                                  "flash_attention_bwd",
+                                                  "flash_f32_fwd",
+                                                  "flash_f32_bwd"))):
         require(all(launches[path][k] > 0 for k in want),
                 f"examples: {path} launches {launches[path]}")
     for path, counts in launches.items():

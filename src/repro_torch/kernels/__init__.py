@@ -19,10 +19,13 @@ regions hand the wrappers ``.to_local()`` shards).
 LAUNCHES = {"paged_attention": 0, "page_gather": 0, "page_scatter": 0,
             "flash_attention": 0, "flash_attention_bwd": 0}
 #: launches of a kernel that is one route of a binding counted above: the
-#: decode kernel of few-row flash forwards (``csrc/flash_decode.cu``) and
-#: the bf16 forward of the other calls (``csrc/flash_attention_wgmma.cu``)
-#: each count one under ``LAUNCHES["flash_attention"]`` and one here
-ROUTE_LAUNCHES = {"flash_decode": 0, "flash_wgmma_fwd": 0}
+#: decode kernel of few-row flash forwards (``csrc/flash_decode.cu``), the
+#: bf16 forward of the other calls (``csrc/flash_attention_wgmma.cu``) and
+#: the f32 forward of theirs (``csrc/flash_attention.cu``) each count one
+#: under ``LAUNCHES["flash_attention"]`` and one here; the f32 backward one
+#: under ``LAUNCHES["flash_attention_bwd"]`` and one here
+ROUTE_LAUNCHES = {"flash_decode": 0, "flash_wgmma_fwd": 0,
+                  "flash_f32_fwd": 0, "flash_f32_bwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -49,8 +49,7 @@ SIGNATURES = {
     # blocks, stream
     "repro_empty_launch": [_I, _P],
     # q, k, v, o, lse, B, Sq, Sk, H, KVH, D, sq_b, sq_s, sq_h, sk_b, sk_s,
-    # sk_h, causal, window, q_off, stream: f32 on the CUDA cores, bf16 on
-    # the tensor cores
+    # sk_h, causal, window, q_off, stream: f32 (3xTF32) and bf16
     **dict.fromkeys(
         ("repro_flash_attention_fwd", "repro_flash_attention_tc_fwd"),
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
@@ -68,11 +67,10 @@ SIGNATURES = {
     "repro_flash_attention_tc_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, *[_LL] * 12,
                                      _I, _I, _I, _P],
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, the query heads' dK, dV
-    # scratch, B, Sq, Sk, H, KVH, D, causal, window, q_off, stream
+    # the same with the query heads' dK, dV scratch after dv: f32
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _P],
+                                  _P, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
+                                  _I, _I, _I, _P],
 }
 
 

@@ -1,15 +1,19 @@
-// The Hopper (sm_90a) building blocks of the bf16 flash kernels
+// The Hopper (sm_90a) building blocks of the flash kernels: the bf16 ones
 // (flash_attention_wgmma.cu's forward, flash_attention_wgmma_bwd.cu's
-// backward), in one place: shared-memory addresses, mbarriers, the Tensor
-// Memory Accelerator's tensor maps and copies, wgmma descriptors and
-// products, setmaxnreg, and the named-barrier turns of two consumer
-// warpgroups.  No kernel lives here.
+// backward) and the f32 route's TF32 ones (flash_attention.cu), in one
+// place: shared-memory addresses, mbarriers, the Tensor Memory
+// Accelerator's tensor maps and copies, wgmma descriptors and products,
+// setmaxnreg, and the named-barrier turns of two consumer warpgroups.  No
+// kernel lives here.
 //
-// Tiles in shared memory are 64-column atoms (128 bytes a row) copied
-// with the 128-byte swizzle from a 1024-byte aligned base: a tile of R
-// rows is D / 64 atoms of R x 128 bytes, one after the other.  A wgmma
-// operand in such a tile is K-major (the reduction runs along a row: Q,
-// K in S = Q K^T) or MN-major (it runs down the rows: V in O += P V).
+// Tiles in shared memory are 128-byte atoms copied with the 128-byte
+// swizzle from a 1024-byte aligned base: 64 bf16 or 32 f32 columns a row,
+// a tile of R rows D / 64 (bf16) or D / 32 (f32) atoms of R x 128 bytes,
+// one after the other.  A wgmma operand in such a tile is K-major (the
+// reduction runs along a row: Q, K in S = Q K^T) or, in bf16 only,
+// MN-major (it runs down the rows: V in O += P V).  A k step is 32 bytes
+// along an atom's rows in both types (bf16 k16, TF32 k8), so one
+// descriptor serves both.
 
 #pragma once
 
@@ -21,6 +25,7 @@
 namespace {
 
 constexpr int kAtom = 64;                     // bf16 columns of an atom
+constexpr int kAtomF32 = 32;                  // f32 columns of an atom
 constexpr int kAtomRow = 128;                 // its bytes a row
 constexpr int kMaxSharedBytes = 232448;
 // the bytes a group of (batch, head) pairs may stream while its blocks
@@ -84,6 +89,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFFu) >> 4)
          | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16)
          | ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// this thread's writes to shared memory made visible to the async proxy
+// (wgmma's operand reads, the next copy into the same bytes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // named barrier `id` over `n` threads: wait, or arrive and go on
@@ -408,6 +419,217 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
       pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
+// ------------------------------------------------------------------ TF32
+// The f32 route's products as error-compensated TF32 ("3xTF32"): x is split
+// into big = x rounded to TF32 (to nearest, ties away: the cvt.rna of PTX,
+// as an add and a mask on the bits) and small = x - big (exact in f32)
+// rounded again, so that x = big + small to about 2^-22 of x, and a b is
+// taken as a_big b_big + a_big b_small + a_small b_big in an f32
+// accumulator (a_small b_small is below 2^-22 of a b).  Clearing the low
+// bits instead of rounding halves the instructions but leaves 2^-20: at
+// Whisper-medium's cross-attention (1,500 diffuse keys, dP - delta
+// cancelling) that put a weight gradient 1.6e-4 of its largest entry from
+// the f32 plain path, past chip_smoke's 1e-4.  TF32 wgmma takes both
+// operands K-major: no transpose bits, as in bf16; the kernels write the
+// transposed operands themselves (flash_attention.cu's transpose_tile).
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(__float_as_uint(x));
+  small = tf32_rna(__float_as_uint(x - __uint_as_float(big)));
+}
+
+// d (m64 x N f32, N / 2 a thread) (+)= A B, TF32, k8: A in registers (the
+// m16k8 fragment of each warp's 16 rows: lane (g, t) = (lane / 4, lane % 4)
+// rows g and g + 8, columns t and t + 4, in the order (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4)), B K-major in shared memory.  scale_d 0
+// overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d);
+
+template <> __device__ __forceinline__ void wgmma_tf32<32>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_tf32<64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_tf32<128>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_tf32<192>(
+    float (&d)[96], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (m64 x N f32) (+)= A B, TF32, k8, both operands K-major in shared
+// memory (A a tile of 64 rows)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int scale_d);
+
+template <> __device__ __forceinline__ void wgmma_tf32_ss<32>(
+    float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_tf32_ss<64>(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// k step kk (32 bytes) of a K-major f32 tile of kN rows at `b`: atom
+// kk / 4, its 8-row groups 1024 bytes apart
+template <int kN>
+__device__ __forceinline__ uint64_t desc_k8(uint32_t b, int kk) {
+  return desc_sw128(b + (kk >> 2) * kN * kAtomRow + (kk & 3) * 32, 16, 1024);
+}
+
+// d += A B in 3xTF32 at k step kk: A split in registers, B's big and small
+// K-major tiles of N rows; scale_d 0 overwrites d
+template <int N>
+__device__ __forceinline__ void mma3_k8(float (&d)[N / 2],
+                                        const uint32_t (&a_big)[4],
+                                        const uint32_t (&a_small)[4],
+                                        uint32_t b_big, uint32_t b_small,
+                                        int kk, int scale_d) {
+  wgmma_tf32<N>(d, a_small, desc_k8<N>(b_big, kk), scale_d);
+  wgmma_tf32<N>(d, a_big, desc_k8<N>(b_small, kk), 1);
+  wgmma_tf32<N>(d, a_big, desc_k8<N>(b_big, kk), 1);
+}
+
+// the same with A's big and small parts K-major tiles of 64 rows in shared
+// memory
+template <int N>
+__device__ __forceinline__ void mma3_k8_ss(float (&d)[N / 2], uint32_t a_big,
+                                           uint32_t a_small, uint32_t b_big,
+                                           uint32_t b_small, int kk,
+                                           int scale_d) {
+  wgmma_tf32_ss<N>(d, desc_k8<64>(a_small, kk), desc_k8<N>(b_big, kk),
+                   scale_d);
+  wgmma_tf32_ss<N>(d, desc_k8<64>(a_big, kk), desc_k8<N>(b_small, kk), 1);
+  wgmma_tf32_ss<N>(d, desc_k8<64>(a_big, kk), desc_k8<N>(b_big, kk), 1);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -450,6 +672,28 @@ inline bool tile_map(CUtensorMap* map, const void* t, int B, int S, int heads,
   const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1u, (cuuint32_t)rows, 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// tile_map for an f32 tensor: the box is one 32-column atom (128 bytes)
+// of `rows` rows of one head, the same swizzle and zero fill past S and
+// head_dim; flash_attention.py's `tensor_map` states both
+inline bool tile_map_f32(CUtensorMap* map, const void* t, int B, int S,
+                         int heads, int head_dim, int rows, long long sb,
+                         long long ss, long long sh) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  if (heads == 1) sh = head_dim;
+  if (B == 1) sb = (long long)S * ss;
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)ss * 4,
+                                 (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtomF32, 1u, (cuuint32_t)rows, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(t),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

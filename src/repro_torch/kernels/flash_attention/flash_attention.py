@@ -16,15 +16,16 @@ too: row i of q sits at absolute position ``q_offset + i`` of the keys
 (one rank's rows of a sequence split over ranks), as in the plain version
 ``flash_attention_xla``.
 
-Two routes, picked by :func:`route` from the dtype alone: bfloat16 (the
-training path's dtype) runs on the tensor cores (the forward in ``csrc/
-flash_attention_wgmma.cu``, the backward in ``csrc/
-flash_attention_wgmma_bwd.cu``: wgmma on tiles that TMA copies into shared
-memory, a producer warp and two consumer warpgroups), float32 on the CUDA
-cores
-(``csrc/flash_attention.cu``).  Each dtype has exactly one route, and there
-is no fallback between them.  A forward of at most ``DECODE_MAX_ROWS``
-query rows (decode: Whisper's cross-attention at Sq = 1) takes, in either
+Two routes, picked by :func:`route` from the dtype alone, both on the
+tensor cores with wgmma on tiles that TMA copies into shared memory and a
+producer warp beside the consumers: bfloat16 (the training path's dtype;
+the forward in ``csrc/flash_attention_wgmma.cu``, the backward in ``csrc/
+flash_attention_wgmma_bwd.cu``) and float32 as error-compensated TF32
+(``csrc/flash_attention.cu``: each operand split into a TF32 big and
+small part, three products summed in f32, as accurate as f32 products).
+Each dtype has exactly one route, and there is no fallback between them.
+A forward of at most ``DECODE_MAX_ROWS`` query rows (decode: Whisper's
+cross-attention at Sq = 1) takes, in either
 dtype, the split-KV decode kernel (``csrc/flash_decode.cu``) instead:
 :func:`forward_entry` decides from the shapes alone, and its ``lse`` feeds
 the dtype's backward unchanged.  CUDA tensors only; :mod:`.ops` routes CPU
@@ -56,21 +57,22 @@ class Route(NamedTuple):
 
 TENSOR_CORES = Route("repro_flash_attention_tc_fwd",
                      "repro_flash_attention_tc_bwd")
-CUDA_CORES = Route("repro_flash_attention_fwd", "repro_flash_attention_bwd")
+F32 = Route("repro_flash_attention_fwd", "repro_flash_attention_bwd")
 
 
 def route(dtype: torch.dtype, head_dim: int) -> Route:
-    """bfloat16 -> the tensor-core kernels (bf16 operands, f32
-    accumulators); float32 -> the f32 CUDA-core kernels (TF32 products
-    would fail the f32 tolerances).  Raises ``ValueError`` for any other
-    dtype or a head dim outside ``SUPPORTED_HEAD_DIMS``."""
+    """bfloat16 -> the bf16 kernels (bf16 operands, f32 accumulators);
+    float32 -> the f32 kernels, 3xTF32 on the tensor cores (one TF32
+    product keeps three decimal digits, too few for the f32 tolerances;
+    three of split operands keep f32's).  Raises ``ValueError`` for any
+    other dtype or a head dim outside ``SUPPORTED_HEAD_DIMS``."""
     if head_dim not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention_kernel: head_dim {head_dim} not "
                          f"in {SUPPORTED_HEAD_DIMS}")
     if dtype == torch.bfloat16:
         return TENSOR_CORES
     if dtype == torch.float32:
-        return CUDA_CORES
+        return F32
     raise ValueError(f"flash_attention_kernel: dtype {dtype} (float32 or "
                      f"bfloat16 only)")
 
@@ -258,21 +260,73 @@ def bwd_dq_keys(head_dim: int) -> int:
     return 32 if bwd_instance(head_dim) == 192 else 64
 
 
+# The f32 route (flash_attention.cu, 3xTF32 on wgmma) takes the same
+# instances; a block is F32_ROWS rows (one consumer warpgroup), and each
+# instance's tiles are the source's REPRO_F32_TILES: forward keys a tile,
+# dQ keys a tile, dK/dV query rows a tile.  At the 192 instance dK/dV runs
+# as two passes (dV, then dK).
+F32_ATOM = 32                # f32 columns of a 128-byte swizzle atom: a box
+F32_ROWS = 64                # rows a block (wgmma's m64)
+F32_TILES = {64: (64, 64, 64), 128: (64, 32, 32), 192: (32, 32, 32)}
+MAX_SHARED_BYTES = 232448    # a block's dynamic shared memory on an H100
+
+
+def f32_instance(head_dim: int) -> int:
+    """The head dim of the f32 kernels' instance that serves
+    ``head_dim``: the bf16 one (:func:`fwd_instance`)."""
+    return fwd_instance(head_dim)
+
+
+def f32_smem_bytes(kernel: str, D: int, dkdv_pass: str = "both") -> int:
+    """Dynamic shared memory a block of the f32 ``kernel`` ("fwd", "dq"
+    or "dkdv", with ``dkdv_pass`` "both", "dv" or "dk") asks at instance
+    ``D``: the source's FwdTiles / DqTiles / KvTiles, as many ring stages
+    (at most 4) as fit beside the tiles a block keeps."""
+    fwd_keys, dq_keys, rows = F32_TILES[D]
+    reserve, stages_max = 1024 + 128, 4
+
+    def total(fixed, stage):
+        stages = min((MAX_SHARED_BYTES - fixed - reserve) // stage,
+                     stages_max)
+        if stages < 1:
+            raise ValueError(f"f32 {kernel} at D={D}: no stage fits")
+        return fixed + stages * stage + (1 + 2 * stages) * 8 + 1024
+
+    q = F32_ROWS * D * 4
+    if kernel == "fwd":             # Q split once where a stage fits
+        kv = fwd_keys * D * 4
+        pre = (MAX_SHARED_BYTES - 2 * q - 4 * kv - reserve) // (2 * kv) >= 1
+        return total((2 if pre else 1) * q + 4 * kv, 2 * kv)
+    if kernel == "dq":              # Q, dO split once where 2 stages fit
+        kv = dq_keys * D * 4
+        pre = (MAX_SHARED_BYTES - 4 * q - 2 * kv - reserve) // (2 * kv) >= 2
+        return total((4 if pre else 2) * q + 2 * kv, 2 * kv)
+    if kernel == "dkdv":
+        dv, dk = dkdv_pass != "dk", dkdv_pass != "dv"
+        qt = rows * D * 4
+        stat = ((rows + 4) * 4 + 127) // 128 * 128
+        tiles = 1 + dk + 2 * dv + 2 * (dk and dv)
+        return total(2 * q + tiles * qt, 2 * qt + 2 * stat)
+    raise ValueError(f"f32 kernel {kernel!r}")
+
+
 class TensorMap(NamedTuple):
-    """A 4-d tensor map as ``flash_attention_wgmma.cu``'s ``tile_map``
-    encodes it (innermost first): ``dims`` (head_dim, heads, S, B),
-    ``strides`` in bytes of heads, S and B, ``box`` one 64-column atom of
-    ``rows`` rows of one head."""
+    """A 4-d tensor map as ``hopper.cuh``'s ``tile_map`` (bf16) or
+    ``tile_map_f32`` encodes it (innermost first): ``dims`` (head_dim,
+    heads, S, B), ``strides`` in bytes of heads, S and B, ``box`` one
+    128-byte atom (64 bf16 or 32 f32 columns) of ``rows`` rows of one
+    head."""
     dims: tuple
     strides: tuple
     box: tuple
 
 
 def tensor_map(t, rows: int) -> TensorMap:
-    """The map of a (B, S, heads, head_dim) bf16 tensor ``t`` (q, k or v
-    in the model layout) whose box is ``rows`` rows: a dim of one never
-    steps its stride, so it gets a valid one (heads: head_dim, B: S times
-    the row stride)."""
+    """The map of a (B, S, heads, head_dim) bf16 or f32 tensor ``t`` (q,
+    k, v, o or dout in the model layout) whose box is ``rows`` rows: a dim
+    of one never steps its stride, so it gets a valid one (heads:
+    head_dim, B: S times the row stride).  Columns past head_dim and rows
+    past S are out of bounds, and the copy writes zeros there."""
     B, S, heads, head_dim = t.shape
     sb, ss, sh = t.stride()[:3]
     if heads == 1:
@@ -281,15 +335,14 @@ def tensor_map(t, rows: int) -> TensorMap:
         sb = S * ss
     el = t.element_size()
     return TensorMap((head_dim, heads, S, B), (sh * el, ss * el, sb * el),
-                     (WGMMA_ATOM, 1, rows, 1))
+                     (128 // el, 1, rows, 1))
 
 
 def _rows_aligned(t) -> bool:
     """Read as it lies: unit stride over D, a 16-byte aligned base and
-    batch, sequence and head strides that are multiples of 16 bytes (the
-    f32 kernels' 16-byte row copies, and every global stride of the bf16
-    kernels' tensor maps, :func:`tensor_map`, which also takes no stride
-    at or above 2^40 bytes)."""
+    batch, sequence and head strides that are multiples of 16 bytes (every
+    global stride of the kernels' tensor maps, :func:`tensor_map`, which
+    also takes no stride at or above 2^40 bytes)."""
     el = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s * el % 16 == 0 and 0 <= s * el < 2 ** 40
@@ -341,6 +394,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         ROUTE_LAUNCHES["flash_decode"] += 1
     elif entry == TENSOR_CORES.fwd:
         ROUTE_LAUNCHES["flash_wgmma_fwd"] += 1
+    else:
+        ROUTE_LAUNCHES["flash_f32_fwd"] += 1
     return o, lse
 
 
@@ -359,18 +414,15 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     return o.transpose(1, 2)
 
 
-def bwd_operands(q, k, v, o, lse, dout, r: Route):
-    """What a backward launch of route ``r`` reads: ``(q, k, v, o, lse,
-    dout, strides)``.  bf16 (:data:`TENSOR_CORES`): q, k, v, o and dout as
-    they lie where :func:`_rows_aligned` takes them, else a contiguous
-    copy (k and v both copied if their strides differ), lse contiguous
-    with a 16-byte aligned base (its 1-d tensor map's), and ``strides``
-    the (batch, seq, head) element strides of q, k (and v), o and dout in
-    the C entry's order.  f32: every operand contiguous, no strides."""
+def bwd_operands(q, k, v, o, lse, dout):
+    """What a backward launch gets, in either route (each reads through
+    tensor maps): ``(q, k, v, o, lse, dout, strides)``.  q, k, v, o and
+    dout as they lie where
+    :func:`_rows_aligned` takes them, else a contiguous copy (k and v both
+    copied if their strides differ), lse contiguous with a 16-byte aligned
+    base (its 1-d tensor map's), and ``strides`` the (batch, seq, head)
+    element strides of q, k (and v), o and dout in the C entry's order."""
     lse = lse.contiguous()
-    if r != TENSOR_CORES:
-        q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
-        return q, k, v, o, lse, dout, ()
     q, k, v, o, dout = (t if _rows_aligned(t) else t.contiguous()
                         for t in (q, k, v, o, dout))
     if v.stride() != k.stride():
@@ -386,32 +438,31 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
                         window: int = 0, q_offset=None):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the
     output gradient ``dout`` (B, Sq, H, D), from the forward's ``o`` and
-    ``lse``, at the forward's ``q_offset``.  bf16 reads q, k, v, o and
-    dout through their strides as they lie where :func:`_rows_aligned`
+    ``lse``, at the forward's ``q_offset``.  Both dtypes read q, k, v, o
+    and dout through their strides as they lie where :func:`_rows_aligned`
     takes them (the forward's rule: the model path's views and the
-    reference signature's transposed ones) and copies the rest once; f32
-    makes every operand contiguous.  The results are contiguous, in q's
-    dtype, and every key row of dk, dv is written (zeros where no row of q
-    sees the key).  On the current stream, no atomics: bf16 two launches
-    (dQ, which also forms rowsum(dout * o), then dK/dV; three at the 192
-    instance, dK/dV in two passes), f32 three (the row
-    sums, dK/dV, dQ) and, for G = H / KVH > 1, a fourth after dK/dV that
-    adds up the query heads' terms from f32 scratch (2 x B x Sk x H x D,
-    allocated here)."""
+    reference signature's transposed ones) and copy the rest once.  The
+    results are contiguous, in q's dtype, and every key row of dk, dv is
+    written (zeros where no row of q sees the key).  On the current
+    stream, no atomics: dQ, which also forms rowsum(dout * o), then dK/dV
+    (two launches at the 192 instance, dK/dV in two passes); f32 takes one
+    query head a dK/dV block and, for G = H / KVH > 1, one more launch
+    that adds up the query heads' terms from f32 scratch (2 x B x Sk x H x
+    D, allocated here)."""
     B, Sq, Sk, H, KVH, D, r = _check(q, k, v, causal, window, q_offset)
     _require(o.shape == q.shape and dout.shape == q.shape
              and lse.shape == (B, H, Sq), "o, dout or lse shape")
     _require(o.dtype == q.dtype and lse.dtype == torch.float32,
              "o must have q's dtype and lse float32")
     q, k, v, o, lse, dout, strides = bwd_operands(q, k, v, o, lse,
-                                                  dout.to(q.dtype), r)
+                                                  dout.to(q.dtype))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KVH, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     ptrs = [t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq, dk, dv)]
     part = None                 # f32: the query heads' dK, dV terms (G > 1)
-    if r == CUDA_CORES:
+    if r == F32:
         if H > KVH:
             part = torch.empty((2, B, Sk, H, D), dtype=torch.float32,
                                device=q.device)
@@ -424,4 +475,6 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    if r == F32:
+        ROUTE_LAUNCHES["flash_f32_bwd"] += 1
     return dq, dk, dv

@@ -189,7 +189,7 @@ class TestForwardEntry:
         assert fa.forward_entry(torch.bfloat16, 64, 8) == fa.DECODE
         assert fa.forward_entry(torch.bfloat16, 64, 9) == \
             fa.TENSOR_CORES.fwd
-        assert fa.forward_entry(torch.float32, 64, 9) == fa.CUDA_CORES.fwd
+        assert fa.forward_entry(torch.float32, 64, 9) == fa.F32.fwd
 
     @pytest.mark.parametrize("dtype,D", [(torch.float16, 64),
                                          (torch.bfloat16, 72)])
@@ -247,11 +247,13 @@ class TestDecodePlan:
 
 def test_plain_route_counts_no_decode_launch():
     """A CPU call takes the plain version: no counter moves, the decode
-    route's and the bf16 forward route's included."""
+    route's, the bf16 forward route's and the f32 route's included."""
     tk.reset_launch_counts()
     q = torch.zeros((2, 1, 4, 64), requires_grad=True)
     kv = torch.zeros((2, 30, 4, 64))
     flash_attention(q, kv, kv, causal=False).sum().backward()
     assert tk.route_launch_counts() == {"flash_decode": 0,
-                                        "flash_wgmma_fwd": 0}
+                                        "flash_wgmma_fwd": 0,
+                                        "flash_f32_fwd": 0,
+                                        "flash_f32_bwd": 0}
     assert not any(tk.launch_counts().values())

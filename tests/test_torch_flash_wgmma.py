@@ -200,8 +200,8 @@ class TestRowsAligned:
         assert not fa._rows_aligned(t)
 
     def test_f32_rows_keep_their_rule(self):
-        """f32: 16-byte multiples are 4 elements (the CUDA-core route's
-        row copies)."""
+        """f32: 16-byte multiples are 4 elements (the f32 route's tensor
+        maps)."""
         t = torch.zeros((2, 9, 4, 68), dtype=torch.float32)
         assert fa._rows_aligned(t[..., :64])
         u = torch.zeros((2, 9, 4, 66), dtype=torch.float32)
@@ -284,8 +284,11 @@ class TestSources:
         assert '#include "flash_mask.cuh"' in (CSRC / src).read_text()
 
     def test_no_block_predicate_is_written_out_again(self):
-        """The f32 kernels ask ``tile_needed`` with their own tile sizes."""
+        """The f32 kernels ask ``flash_mask.cuh`` for their tile ranges with
+        their own tile sizes: ``k_range`` in the forward and dQ, the q
+        tiles of a k tile through ``floor_div`` in dK/dV."""
         code = _code(CSRC / "flash_attention.cu")
         assert "block_needed" not in code
-        assert code.count("tile_needed(q_off + q0, kBQ, k0, kBK, causal, "
-                          "window)") == 3
+        assert code.count("k_range(q_off + q0, kRows, kBK, Sk, causal, "
+                          "window, j_lo, j_hi)") == 2
+        assert code.count("floor_div(") == 2

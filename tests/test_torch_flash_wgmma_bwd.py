@@ -244,7 +244,7 @@ class TestOperands:
         else:
             q, k, v, o, dout = _reference()
         lse = torch.zeros((2, 8, q.shape[1]), dtype=torch.float32)
-        got = fa.bwd_operands(q, k, v, o, lse, dout, fa.TENSOR_CORES)
+        got = fa.bwd_operands(q, k, v, o, lse, dout)
         for a, b in zip(got[:6], (q, k, v, o, lse, dout)):
             assert a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
         assert got[6] == (*q.stride()[:3], *k.stride()[:3],
@@ -255,7 +255,7 @@ class TestOperands:
         q = wide
         k, v = (torch.zeros((2, 9, 2, 64), dtype=BF16) for _ in range(2))
         lse = torch.zeros((2, 4, 9), dtype=torch.float32)
-        got = fa.bwd_operands(q, k, v, q, lse, q, fa.TENSOR_CORES)
+        got = fa.bwd_operands(q, k, v, q, lse, q)
         for t in (got[0], got[3], got[5]):
             assert t.is_contiguous() and t.data_ptr() != q.data_ptr()
         assert got[1].data_ptr() == k.data_ptr()
@@ -265,7 +265,7 @@ class TestOperands:
         v = torch.zeros((2, 2, 9, 64), dtype=BF16).transpose(1, 2)
         q = torch.zeros((2, 9, 4, 64), dtype=BF16)
         lse = torch.zeros((2, 4, 9), dtype=torch.float32)
-        _, k2, v2, *_ = fa.bwd_operands(q, k, v, q, lse, q, fa.TENSOR_CORES)
+        _, k2, v2, *_ = fa.bwd_operands(q, k, v, q, lse, q)
         assert k2.stride() == v2.stride() == k.stride()
         assert v2.data_ptr() != v.data_ptr()
 
@@ -275,15 +275,20 @@ class TestOperands:
         assert lse.data_ptr() % 16 == 4
         q = torch.zeros((2, 9, 4, 64), dtype=BF16)
         k = torch.zeros((2, 9, 2, 64), dtype=BF16)
-        got = fa.bwd_operands(q, k, k, q, lse, q, fa.TENSOR_CORES)[4]
+        got = fa.bwd_operands(q, k, k, q, lse, q)[4]
         assert got.data_ptr() % 16 == 0 and torch.equal(got, lse)
 
     def test_the_f32_route_makes_everything_contiguous(self):
+        """No longer: the f32 route reads its strided views as they lie,
+        under bf16's rule, with the same strides in the C entry's order."""
         q, k, v, o, dout = (t.float() for t in _reference())
         lse = torch.zeros((2, 8, 100), dtype=torch.float32)
-        got = fa.bwd_operands(q, k, v, o, lse, dout, fa.CUDA_CORES)
-        assert all(t.is_contiguous() for t in got[:6])
-        assert got[6] == ()
+        got = fa.bwd_operands(q, k, v, o, lse, dout)
+        assert not q.is_contiguous()
+        for t, g in zip((q, k, v, o, dout), got[:3] + got[3:4] + got[5:6]):
+            assert g.data_ptr() == t.data_ptr() and g.stride() == t.stride()
+        assert got[6] == (*q.stride()[:3], *k.stride()[:3], *o.stride()[:3],
+                          *dout.stride()[:3])
 
 
 # --------------------------------------- the reference through the binding
@@ -295,8 +300,7 @@ def _read_as_the_kernel(t, strides):
 
 def _through_the_binding(q, k, v, o, dout, lse):
     """What the C entry receives for model-layout operands, read back."""
-    qq, kk, vv, oo, ll, dd, strides = fa.bwd_operands(q, k, v, o, lse, dout,
-                                                      fa.TENSOR_CORES)
+    qq, kk, vv, oo, ll, dd, strides = fa.bwd_operands(q, k, v, o, lse, dout)
     sq, sk, so, sd = (strides[i:i + 3] for i in range(0, 12, 3))
     return (_read_as_the_kernel(qq, sq), _read_as_the_kernel(kk, sk),
             _read_as_the_kernel(vv, sk), _read_as_the_kernel(oo, so),

@@ -152,7 +152,7 @@ class TestFlashHeadDim192:
         """192 has a route in each dtype (it raised before the kernels
         served it); a head dim past it still raises, naming itself."""
         want = fa_kernel.TENSOR_CORES if dtype == torch.bfloat16 \
-            else fa_kernel.CUDA_CORES
+            else fa_kernel.F32
         assert fa_kernel.route(dtype, 192) == want
         with pytest.raises(ValueError, match="head_dim 200"):
             fa_kernel.route(dtype, 200)

@@ -8,8 +8,9 @@ Builds, for the tree at ``DIR`` (an earlier checkout, for example
 ``repro_flash_attention_tc_fwd`` / ``_bwd`` and the f32 route's
 ``repro_flash_attention_fwd`` / ``_bwd``, wherever each tree keeps them)
 into ``build/flash_bits/parent.so`` and ``current.so``, all ``nvcc`` at
-once with the port's flags (a tree whose bf16 backward entry takes the
-operands' strides is called with them, an older one without).  Then, on
+once with the port's flags (a tree whose backward entry, of either route,
+takes the operands' strides is called with them, an older one without).
+Then, on
 ``chip_smoke.BF16_BITS_CASES`` from one seed (``chip_smoke.bf16_bits``),
 prints the sha256 of
 
@@ -23,8 +24,9 @@ prints the sha256 of
   backward given the parent's forward's o and lse, so a change to the
   forward alone leaves them equal and a change to the backward moves
   them;
-* ``float32``: the same cases in f32 through each tree's CUDA-core route,
-  forward and backward;
+* ``float32``: the same cases in f32 through each tree's f32 route,
+  forward and backward (3xTF32 on wgmma since the f32 route's redesign, on
+  the CUDA cores before: its digest moves there);
 
 whether each agrees, and the card's name and power limit.  Needs ``nvcc``
 and a card.
@@ -54,19 +56,22 @@ def entry_sources(tree: Path) -> list:
             if pat.search(p.read_text())]
 
 
-def bwd_argtypes(sources: list) -> list:
-    """The ctypes argtypes of the bf16 backward entry that ``sources``
-    define: with the operands' strides (the wgmma backward) or, for an
-    older tree whose entry takes them contiguous, without."""
+def bwd_argtypes(sources: list,
+                 entry: str = "repro_flash_attention_tc_bwd") -> list:
+    """The ctypes argtypes of the backward ``entry`` (the bf16 route's or
+    the f32 route's ``repro_flash_attention_bwd``) that ``sources``
+    define: with the operands' twelve strides after the six ints (the
+    wgmma backwards) or, for an older tree whose entry takes them
+    contiguous, without."""
     from repro_torch.kernels import _build
-    sig = _build.SIGNATURES["repro_flash_attention_tc_bwd"]
+    sig = _build.SIGNATURES[entry]
+    ints = sig.index(ctypes.c_int) + 6          # past B .. D
     for src in sources:
-        head = src.read_text().partition(
-            'extern "C" int repro_flash_attention_tc_bwd(')
+        head = src.read_text().partition(f'extern "C" int {entry}(')
         if head[1]:
             strided = "long long" in head[2].split(")", 1)[0]
-            return sig if strided else sig[:16] + sig[28:]
-    raise SystemExit(f"no repro_flash_attention_tc_bwd in {sources}")
+            return sig if strided else sig[:ints] + sig[ints + 12:]
+    raise SystemExit(f"no {entry} in {sources}")
 
 
 def build(trees: dict) -> dict:
@@ -102,8 +107,9 @@ def build(trees: dict) -> dict:
         for fn in ENTRIES:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
-        lib.repro_flash_attention_tc_bwd.argtypes = bwd_argtypes(
-            entry_sources(trees[name]))
+        for entry in ENTRIES[1::2]:
+            getattr(lib, entry).argtypes = bwd_argtypes(
+                entry_sources(trees[name]), entry)
         libs[name] = lib
     return libs
 
@@ -157,7 +163,7 @@ def main() -> int:
                 part = torch.empty((2, B, S, H, D), dtype=torch.float32,
                                    device=dev) if H > KVH else None
                 ptrs.append(None if part is None else part.data_ptr())
-            elif len(bwd_fn.argtypes) > 20:     # the entry takes strides
+            if ctypes.c_longlong in bwd_fn.argtypes:   # takes strides
                 strides = (*q.stride()[:3], *k.stride()[:3],
                            *o.stride()[:3], *dout.stride()[:3])
             check_launch(bwd_fn(*ptrs, B, S, S, H, KVH, D, *strides,

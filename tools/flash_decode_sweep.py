@@ -4,7 +4,7 @@ kernels, on one GPU: ``python3 tools/flash_decode_sweep.py [--iters N]``.
 
 Builds the port's kernels (``load_library``), prints the ptxas resources of
 the decode kernel's instances (``csrc/flash_decode.cu``) and of the f32
-dK/dV kernels, then:
+backward's kernels, then:
 
 1. ``route``: device ms of the decode kernel (its plan's cluster size,
    ``chip_smoke._decode_fwd``) against the dtype's tile kernel
@@ -65,7 +65,7 @@ def main() -> int:
     _build.load_library()
     res = _ptxas_by_kernel(_build.BuildInfo.log)
     for n, r in sorted(res.items()):
-        if n.startswith(("flash_decode", "flash_bwd_dkdv")):
+        if n.startswith(("flash_decode", "flash_f32_bwd", "flash_bwd_dkdv")):
             print(json.dumps({"kernel": n, **r}), flush=True)
 
     dev = torch.device("cuda", 0)

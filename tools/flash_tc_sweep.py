@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""The bf16 flash kernels of an earlier tree against this tree's, on one
-GPU: ``python3 tools/flash_tc_sweep.py --parent DIR [--variants a,b]
-[--iters N] [--turns N] [--shapes a,b]``.
+"""The flash kernels of one route of an earlier tree against this tree's,
+on one GPU: ``python3 tools/flash_tc_sweep.py --parent DIR [--dtype
+bfloat16|float32] [--variants a,b] [--iters N] [--turns N] [--shapes
+a,b]``.
 
 Builds, for the parent tree (``DIR`` is an earlier checkout, for example
 ``git archive <commit> src | tar -x -C DIR``), for this tree and for each
-of the ``VARIANTS`` named, the ``csrc/*.cu`` sources that hold the bf16
-entry points (``repro_flash_attention_tc_fwd`` / ``_bwd``, wherever the
-tree keeps them) into one library each, under ``build/flash_tc_sweep/``
+of the ``VARIANTS`` named, the ``csrc/*.cu`` sources that hold the
+route's entry points (bf16: ``repro_flash_attention_tc_fwd`` / ``_bwd``;
+f32: ``repro_flash_attention_fwd`` / ``_bwd``, wherever the tree keeps
+them) into one library each, under ``build/flash_tc_sweep/``
 (a variant is a copy of this tree's ``csrc/`` with one piece of the
 design taken out by text substitutions in its sources or headers); all
 ``nvcc`` at once with the port's flags; prints each kernel's ptxas
-resources.  Then, at the shapes of ``SHAPES`` (the training paths' flash
-calls: Qwen3-14B at D = 128, DeepSeek-V3's MLA at D = 192, Zamba2-7B at
-D = 112, Whisper-medium's cross and encoder attention, and ranks 0, 8 and
-15 of Qwen3-14B's sequence split over 16 ranks, and the last ranks of
-H2O-Danube-1.8B's at head dim 80 and of Mixtral-8x7B's with its
-window), each tree's forward and
+resources.  Then, at the shapes of ``SHAPES`` (bf16: the training paths'
+flash calls: Qwen3-14B at D = 128, DeepSeek-V3's MLA at D = 192,
+Zamba2-7B at D = 112, Whisper-medium's cross and encoder attention, and
+ranks 0, 8 and 15 of Qwen3-14B's sequence split over 16 ranks, and the
+last ranks of H2O-Danube-1.8B's at head dim 80 and of Mixtral-8x7B's with
+its window) or ``F32_SHAPES`` (f32: the training shape, StarCoder2-3B's
+whole call and ranks 0, 8 and 15 of its split, ``train_parity``'s call,
+the training example's), each tree's forward and
 backward are timed in turns (parent, current, the variants, then in
 reverse, ``--turns`` in all), each turn beside SDPA's forward and its
 autograd backward:
 device ms per call from ``chip_smoke.time_ms`` (torch.profiler), the
 parent's and this tree's backward by kernel (dQ and dK/dV apart), the
 host's microseconds per forward call of the C entry, the bounds (FLOPs
-at the card's bf16 rate or bytes at its memory rate; K and V over the keys
-the rows reach), and each output's largest row error against the
+at the card's bf16 rate, in f32 at the tensor cores' rate for three TF32
+products a product with the CUDA cores' bound beside it, or bytes at its
+memory rate; K and V over the keys the rows reach), and each output's
+largest row error against the
 parent's (the backward of every tree takes this tree's forward's o and
 lse).  One JSON line per shape, then the card's name and power limit.
 Needs ``nvcc`` and a card.
@@ -46,8 +52,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
-FWD = "repro_flash_attention_tc_fwd"
-BWD = "repro_flash_attention_tc_bwd"
+# the route's entry points, by dtype
+ENTRIES = {"bfloat16": ("repro_flash_attention_tc_fwd",
+                        "repro_flash_attention_tc_bwd"),
+           "float32": ("repro_flash_attention_fwd",
+                       "repro_flash_attention_bwd")}
 
 # this tree's sources with one piece of the design taken out: (file, old,
 # new) text substitutions, each of which must match once
@@ -70,6 +79,22 @@ VARIANTS = {
                    ("flash_attention_wgmma_bwd.cu",
                     "constexpr int kMaxStages = 4;",
                     "constexpr int kMaxStages = 2;")],
+    # f32: rings of one stage
+    "f32_one_stage": [("flash_attention.cu", "constexpr int kMaxStages = 4;",
+                       "constexpr int kMaxStages = 1;")],
+    # f32: two register sets for a JIT-split A operand, one k step's
+    # products in flight while the next is split (not two)
+    "f32_two_sets": [("flash_attention.cu", "constexpr int kSets = 3;",
+                      "constexpr int kSets = 2;")],
+    # f32: dQ splits Q and dO into registers a k step at a time as it
+    # reads them (as at D = 192), not once a block into shared memory
+    "f32_dq_split_each_step": [("flash_attention.cu",
+                                "      / (2 * kKVBytes) >= 2;",
+                                "      / (2 * kKVBytes) >= 99;")],
+    # f32: the forward at D = 128 on 32-key tiles, Q split once into
+    # shared memory (it fits beside them, with three stages)
+    "f32_fwd_32_keys": [("flash_attention.cu", "X(128, 64, 32, 32)",
+                         "X(128, 32, 32, 32)")],
 }
 
 # name: B, Sq, Sk, H, KVH, D, causal, q_offset, window
@@ -88,11 +113,24 @@ SHAPES = {
     "mixtral_window_rank15": (1, 512, 8192, 32, 8, 128, True, 15 * 512,
                               4096),
 }
+# the f32 route's calls: the training shape (chip_smoke's f32 training
+# shape), StarCoder2-3B's whole call and ranks 0, 8 and 15 of its split
+# over 16 ranks (chip_smoke's seq_split f32 case), train_parity's call
+# (Qwen3-14B's heads, a batch of 2 x 512) and the training example's
+F32_SHAPES = {
+    "training_shape": (1, 4096, 4096, 40, 8, 128, True, 0, 0),
+    "starcoder2_whole": (1, 1536, 1536, 24, 2, 128, True, 0, 0),
+    "starcoder2_rank0": (1, 96, 1536, 24, 2, 128, True, 0, 0),
+    "starcoder2_rank8": (1, 96, 1536, 24, 2, 128, True, 8 * 96, 0),
+    "starcoder2_rank15": (1, 96, 1536, 24, 2, 128, True, 15 * 96, 0),
+    "train_parity": (2, 512, 512, 40, 8, 128, True, 0, 0),
+    "training_example": (4, 64, 64, 8, 4, 64, True, 0, 0),
+}
 
 
-def entry_sources(csrc: Path) -> list:
-    """The sources under ``csrc`` that define the bf16 entry points."""
-    pat = re.compile(r'extern "C" int (%s|%s)\(' % (FWD, BWD))
+def entry_sources(csrc: Path, entries) -> list:
+    """The sources under ``csrc`` that define the route's entry points."""
+    pat = re.compile(r'extern "C" int (%s|%s)\(' % tuple(entries))
     return [p for p in sorted(csrc.glob("*.cu")) if pat.search(p.read_text())]
 
 
@@ -111,7 +149,7 @@ def variant_csrc(name: str, out: Path) -> Path:
     return dst
 
 
-def build(parent: Path, variants: list) -> dict:
+def build(parent: Path, variants: list, entries) -> dict:
     """name -> (forward, backward, strided backward?, nvcc log) of the
     parent's sources, this tree's and each variant's."""
     from repro_torch.kernels import _build
@@ -124,7 +162,7 @@ def build(parent: Path, variants: list) -> dict:
         trees[v] = variant_csrc(v, out)
     procs = []
     for name, csrc in trees.items():
-        for src in entry_sources(csrc):
+        for src in entry_sources(csrc, entries):
             obj = out / f"{name}_{src.stem}.o"
             procs.append((name, obj, subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
@@ -147,11 +185,12 @@ def build(parent: Path, variants: list) -> dict:
         if r.returncode != 0:
             raise SystemExit(f"link failed for {name}:\n{r.stdout}{r.stderr}")
         lib = ctypes.CDLL(str(so))
-        fwd, bwd = getattr(lib, FWD), getattr(lib, BWD)
-        fwd.argtypes = _build.SIGNATURES[FWD]
-        bwd.argtypes = bwd_argtypes(entry_sources(csrc))
+        fwd, bwd = (getattr(lib, e) for e in entries)
+        fwd.argtypes = _build.SIGNATURES[entries[0]]
+        bwd.argtypes = bwd_argtypes(entry_sources(csrc, entries), entries[1])
         fwd.restype = bwd.restype = ctypes.c_int
-        libs[name] = (fwd, bwd, len(bwd.argtypes) > 20, logs[name])
+        libs[name] = (fwd, bwd, ctypes.c_longlong in bwd.argtypes,
+                      logs[name])
     return libs
 
 
@@ -172,7 +211,7 @@ def bwd_by_kernel(dev, fn, iters: int) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            m = re.search(r"flash_[a-z_]+", e.key)
+            m = re.search(r"flash_[a-z0-9_]+", e.key)
             name = m.group(0) if m else e.key
             out[name] = out.get(name, 0.0) + e.self_device_time_total \
                 / 1e3 / iters
@@ -188,21 +227,30 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="root of the earlier tree (holds src/repro_torch)")
+    ap.add_argument("--dtype", default="bfloat16", choices=tuple(ENTRIES),
+                    help="the route: bf16 or f32")
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {', '.join(VARIANTS)}")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--turns", type=int, default=2,
                     help="turns of each tree (even: in order, then in "
                     "reverse); the medians are over them")
-    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated, of SHAPES (bf16) or F32_SHAPES "
+                    "(f32); all of them by default")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    from chip_smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, _ptxas_by_kernel,
-                            _row_rel_err, _split_keys, _split_pairs,
-                            time_ms)
+    from chip_smoke import (_bound, _ptxas_by_kernel, _row_rel_err,
+                            _split_keys, _split_pairs, time_ms)
     from repro_torch.kernels._build import check_launch
+    f32 = args.dtype == "float32"
+    dtype = torch.float32 if f32 else torch.bfloat16
+    # SDPA's f32 products in f32, as chip_smoke's yardsticks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = F32_SHAPES if f32 else SHAPES
     variants = [v for v in args.variants.split(",") if v]
-    libs = build(Path(args.parent), variants)
+    libs = build(Path(args.parent), variants, ENTRIES[args.dtype])
     for n, lib in libs.items():
         print(json.dumps({"tree": n, "ptxas": _ptxas_by_kernel(lib[3])}),
               flush=True)
@@ -212,16 +260,21 @@ def main() -> int:
     gen.manual_seed(0)
 
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    for name in args.shapes.split(","):
-        B, Sq, Sk, H, KVH, D, causal, off, window = SHAPES[name]
+    for name in (args.shapes or ",".join(shapes)).split(","):
+        B, Sq, Sk, H, KVH, D, causal, off, window = shapes[name]
         q, k, v = rand(B, Sq, H, D), rand(B, Sk, KVH, D), rand(B, Sk, KVH, D)
         dout = rand(B, Sq, H, D)
         o = torch.empty_like(q)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
         delta = torch.empty_like(lse)
         grads = [torch.empty_like(t) for t in (q, k, v)]
+        # f32: the query heads' dK, dV terms (G > 1), held for the shape
+        scratch = torch.empty((2, B, Sk, H, D), dtype=torch.float32,
+                              device=dev) if f32 and H > KVH else None
+        part = [scratch.data_ptr() if scratch is not None else None] \
+            if f32 else []
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def fwd_call(lib, out=o, stats=lse):
@@ -235,7 +288,7 @@ def main() -> int:
                        *dout.stride()[:3]) if lib[2] else ()
             check_launch(lib[1](
                 *(t.data_ptr() for t in (q, k, v, o, dout, lse, delta,
-                                         *grads)),
+                                         *grads)), *part,
                 B, Sq, Sk, H, KVH, D, *strides, int(causal), window, off,
                 stream), name)
 
@@ -302,24 +355,27 @@ def main() -> int:
                      else Sq * Sk)
         keys = _split_keys(Sk, off, off + Sq, causal, window)
 
-        def bound(flops, nbytes):
-            return max(flops / PEAK_FLOPS["bfloat16"],
-                       nbytes / HBM_BYTES_PER_S) * 1e3
-
         # read once / written once: q, o (and dout, dq), K and V over the
         # keys the rows reach (and dk, dv over all Sk), lse (and delta)
-        fwd_bound = bound(4 * H * D * pairs,
-                          2 * (2 * B * Sq * H * D + 2 * B * keys * KVH * D)
-                          + 4 * B * H * Sq)
-        bwd_bound = bound(10 * H * D * pairs,
-                          2 * (4 * B * Sq * H * D + 2 * B * keys * KVH * D
-                               + 2 * B * Sk * KVH * D) + 8 * B * H * Sq)
+        el = q.element_size()
+        fwd_b = _bound(4 * H * D * pairs,
+                       el * (2 * B * Sq * H * D + 2 * B * keys * KVH * D)
+                       + 4 * B * H * Sq, dtype)
+        bwd_b = _bound(10 * H * D * pairs,
+                       el * (4 * B * Sq * H * D + 2 * B * keys * KVH * D
+                             + 2 * B * Sk * KVH * D) + 8 * B * H * Sq,
+                       dtype)
+        fwd_bound, bwd_bound = fwd_b["bound_ms"], bwd_b["bound_ms"]
+        rows = 64 if f32 else 128
         med = {n: statistics.median(x) for n, x in ms.items()}
         print(json.dumps({
             "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KVH": KVH,
             "D": D, "causal": causal, "q_offset": off, "window": window,
             "ms": ms, "median_ms": med,
+            "dtype": args.dtype,
             "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+            "fwd_bound_cuda_cores_ms": fwd_b.get("bound_cuda_cores_ms"),
+            "bwd_bound_cuda_cores_ms": bwd_b.get("bound_cuda_cores_ms"),
             "fwd_bound_share_current": fwd_bound / med["current_fwd"],
             "bwd_bound_share_current": bwd_bound / med["current_bwd"],
             "fwd_current_over_sdpa": med["current_fwd"] / med["sdpa_fwd"],
@@ -337,11 +393,14 @@ def main() -> int:
                        zip(gouts[n], gouts["parent"])) for n in names[1:]},
             "finite": all(bool(torch.isfinite(t.float()).all())
                           for n in names for t in [outs[n], *gouts[n]]),
-            "blocks_current": {"fwd": H * B * math.ceil(Sq / 128),
-                               "bwd_dq": H * B * math.ceil(Sq / 128),
-                               "bwd_dkdv": KVH * B * math.ceil(Sk / 128)}}),
+            "blocks_current": {
+                "fwd": H * B * math.ceil(Sq / rows),
+                "bwd_dq": H * B * math.ceil(Sq / rows),
+                "bwd_dkdv": (H if f32 and H > KVH else KVH) * B
+                * math.ceil(Sk / rows)}}),
             flush=True)
         del q, k, v, o, lse, delta, grads, outs, gouts, qt, kt, vt, sdpa_out
+        del scratch
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
